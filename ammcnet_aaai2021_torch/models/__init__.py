@@ -1,0 +1,104 @@
+"""Model factory: net_tag string -> generator module.
+
+Port of ``ammcnet_aaai2021_tpu/models/__init__.py`` for the scoring slice.
+``unet_vq_twostream`` and its as-shipped alias ``twostream_concat_dire``
+(the reference wires the same additive AMFT bridge into both,
+unet.py:1043) build :class:`TwoStreamUNetMem`.  The four tags that dispatch
+to non-runnable reference classes raise ``ValueError`` as in the JAX
+package; the other runnable tags come with the model-family slice.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+import torch
+import torch.nn as nn
+
+from ..configs import NetConfig
+from .blocks import ConvTranspose2d, Conv2d, DoubleConv, Down, InConv, Up
+from .memory_module import EncQuanDecResTopK, EncQuanDecTopK, TopKMemory
+from .unet_mem import AMFTBridge, TwoStreamUNetMem, UNetMemStream
+
+__all__ = [
+    "Conv2d", "ConvTranspose2d", "DoubleConv", "InConv", "Down", "Up",
+    "TopKMemory", "EncQuanDecTopK", "EncQuanDecResTopK", "UNetMemStream",
+    "AMFTBridge", "TwoStreamUNetMem", "build_generator", "build_model",
+    "init_weights", "Model", "NET_TAGS",
+]
+
+# runnable reference tags (the reference's net_map minus its four entries
+# that dispatch to non-runnable dead code)
+NET_TAGS = (
+    "unet", "unet_vq_topk_res", "unet_vq_twostream",
+    "twostream_concat_dire",
+    "vqvae", "vqvae_topk", "vqvae_topk_res", "vqvae_twostream",
+)
+
+
+def build_generator(cfg: NetConfig, per_sample_diff: bool = False
+                    ) -> TwoStreamUNetMem:
+    """net_tag -> constructed generator (reference net_map dispatch).
+
+    ``per_sample_diff=True`` makes the memory blocks emit per-frame commit
+    distances (for the scorer) instead of batch-mean scalars.
+    """
+    tag = cfg.net_tag
+    if tag in ("unet_vq", "unet_vq_res", "unet_vq_topk",
+               "twostream_add_dire"):
+        # UNetMem_v1/v2/v3 and twostream_add_dire are non-runnable in the
+        # reference (tuple-called outc, unet.py:349; undefined `diff`,
+        # unet.py:1125) — fail loudly rather than guess semantics
+        raise ValueError(
+            f"net_tag {tag!r} maps to a non-runnable reference class; "
+            "use unet_vq_topk_res / unet_vq_twostream")
+    if tag in ("unet_vq_twostream", "twostream_concat_dire"):
+        return TwoStreamUNetMem(
+            rgb_in=cfg.in_channel[0], op_in=cfg.in_channel[1],
+            rgb_out=cfg.out_channel[0], op_out=cfg.out_channel[1],
+            embed_dim=cfg.embed_dim, n_embed=cfg.n_embed, k=cfg.k,
+            dtype=getattr(torch, cfg.dtype), use_kernel=cfg.use_memory_kernel,
+            per_sample_diff=per_sample_diff)
+    if tag in NET_TAGS:
+        raise NotImplementedError(
+            f"net_tag {tag!r} comes with the model-family slice of the port")
+    raise ValueError(f"unknown net_tag {tag!r}")
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Seeded initialization mirroring the JAX package's flax init: every
+    conv kernel normal(0, 0.02) (reference utils.py:328-334), biases zero,
+    BatchNorm scale 1 / shift 0 with fresh running statistics, codebooks
+    standard normal with ``embed_avg`` a copy and zero cluster sizes.
+    Draws come from ``generator``, in module order, on the CPU."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           * 0.02)
+            if m.bias is not None:
+                m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif isinstance(m, TopKMemory):
+            m.embed.copy_(torch.randn(m.embed.shape, generator=generator))
+            m.embed_avg.copy_(m.embed)
+            m.cluster_size.zero_()
+    return model
+
+
+@dataclass
+class Model:
+    """Holder mirroring the reference Model struct (models/__init__.py:149);
+    the discriminator and flow teacher of training mode come with the
+    training slice."""
+
+    generator: nn.Module
+
+
+def build_model(cfg: NetConfig, mode: str = "testing",
+                per_sample_diff: bool = False) -> Model:
+    if mode != "testing":
+        raise NotImplementedError(
+            f"build_model(mode={mode!r}): the training-mode discriminator and "
+            "flow teacher come with the training slice of the port")
+    return Model(generator=build_generator(cfg, per_sample_diff))
