@@ -1,29 +1,45 @@
 """Model factory: net_tag string -> generator module.
 
-Port of ``ammcnet_aaai2021_tpu/models/__init__.py`` for the scoring slice.
+Port of ``ammcnet_aaai2021_tpu/models/__init__.py``.
 ``unet_vq_twostream`` and its as-shipped alias ``twostream_concat_dire``
 (the reference wires the same additive AMFT bridge into both,
 unet.py:1043) build :class:`TwoStreamUNetMem`.  The four tags that dispatch
 to non-runnable reference classes raise ``ValueError`` as in the JAX
 package; the other runnable tags come with the model-family slice.
+``build_model(cfg, "training")`` also returns the PatchGAN discriminator and
+the FlowNet2-SD teacher (models/__init__.py:140-152).
 """
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
+from typing import Optional
+
 import torch
 import torch.nn as nn
 
-from ..configs import NetConfig
-from .blocks import ConvTranspose2d, Conv2d, DoubleConv, Down, InConv, Up
+from ..configs import DISC_FILTERS, NetConfig
+from .blocks import (
+    BatchNorm2d,
+    ConvTranspose2d,
+    Conv2d,
+    DoubleConv,
+    Down,
+    InConv,
+    Up,
+)
+from .discriminator import PixelDiscriminator
+from .flownet_sd import FlowNet2SD, FlowNetSD
 from .memory_module import EncQuanDecResTopK, EncQuanDecTopK, TopKMemory
 from .unet_mem import AMFTBridge, TwoStreamUNetMem, UNetMemStream
 
 __all__ = [
-    "Conv2d", "ConvTranspose2d", "DoubleConv", "InConv", "Down", "Up",
-    "TopKMemory", "EncQuanDecTopK", "EncQuanDecResTopK", "UNetMemStream",
-    "AMFTBridge", "TwoStreamUNetMem", "build_generator", "build_model",
-    "init_weights", "Model", "NET_TAGS",
+    "BatchNorm2d", "Conv2d", "ConvTranspose2d", "DoubleConv", "InConv",
+    "Down", "Up", "TopKMemory", "EncQuanDecTopK", "EncQuanDecResTopK",
+    "UNetMemStream", "AMFTBridge", "TwoStreamUNetMem", "PixelDiscriminator",
+    "FlowNetSD", "FlowNet2SD", "build_generator", "build_model",
+    "init_weights", "init_flownet_weights", "Model", "NET_TAGS",
 ]
 
 # runnable reference tags (the reference's net_map minus its four entries
@@ -86,19 +102,37 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
     return model
 
 
+@torch.no_grad()
+def init_flownet_weights(model: nn.Module, generator: torch.Generator
+                         ) -> nn.Module:
+    """Seeded random FlowNet2-SD weights, for runs without a checkpoint:
+    flax's default conv init (LeCun normal, std ``1/sqrt(fan_in)``, here
+    untruncated), biases zero."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+            fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
+            m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                           / math.sqrt(fan_in))
+            m.bias.zero_()
+    return model
+
+
 @dataclass
 class Model:
-    """Holder mirroring the reference Model struct (models/__init__.py:149);
-    the discriminator and flow teacher of training mode come with the
-    training slice."""
+    """Holder mirroring the reference Model struct (models/__init__.py:149):
+    generator + (training-only) discriminator and frozen flow teacher."""
 
     generator: nn.Module
+    discriminator: Optional[PixelDiscriminator] = None
+    flow_network: Optional[FlowNet2SD] = None
 
 
 def build_model(cfg: NetConfig, mode: str = "testing",
                 per_sample_diff: bool = False) -> Model:
-    if mode != "testing":
-        raise NotImplementedError(
-            f"build_model(mode={mode!r}): the training-mode discriminator and "
-            "flow teacher come with the training slice of the port")
-    return Model(generator=build_generator(cfg, per_sample_diff))
+    gen = build_generator(cfg, per_sample_diff)
+    if mode != "training":
+        return Model(generator=gen)
+    dtype = getattr(torch, cfg.dtype)
+    return Model(generator=gen,
+                 discriminator=PixelDiscriminator(DISC_FILTERS, dtype=dtype),
+                 flow_network=FlowNet2SD(dtype=dtype))

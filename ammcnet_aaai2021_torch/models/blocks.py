@@ -3,8 +3,16 @@
 Port of ``ammcnet_aaai2021_tpu/models/blocks.py`` (reference
 ``Code/models/unet.py:8-59``: double_conv / inconv / down / up).  Parameters
 stay float32; the convolutions run in the dtype of their input, as the JAX
-modules run in their ``dtype`` with float32 params.  BatchNorm runs in eval
-mode (running statistics, eps 1e-5), its statistics in float32.
+modules run in their ``dtype`` with float32 params.  BatchNorm (eps 1e-5)
+keeps its statistics in float32.
+
+BatchNorm in training mode follows flax, not ``torch.nn.BatchNorm2d``
+(:class:`BatchNorm2d`): both normalize with the biased batch variance, but
+torch updates ``running_var`` with the unbiased one (n/(n-1) larger) where
+flax, and so the JAX package, uses the biased one.  The port is held to
+the JAX package, so its running variance follows flax; a state dict it
+trains differs from one the reference torch trainer would write by that
+factor in ``running_var``'s updates.
 
 Module and parameter names follow the reference torch modules, so a
 reference state dict loads with ``load_state_dict`` as it is:
@@ -38,6 +46,34 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.dilation)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` (momentum 0.1, the same names and buffers) whose
+    training mode is flax's ``BatchNorm(momentum=0.9)``: batch mean and
+    variance in float32 (``var = E[x^2] - E[x]^2``, clipped at 0),
+    ``y = (x - mean) * rsqrt(var + eps) * weight + bias`` in float32, cast
+    back to the input's dtype, and the running statistics updated with the
+    *biased* batch variance, ``r = 0.9 r + 0.1 stat``.  Eval mode is torch's
+    own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        x32 = x.float()
+        mean = x32.mean(dim=(0, 2, 3))
+        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (x32 - mean[:, None, None]) * mul[:, None, None] \
+            + self.bias[:, None, None]
+        keep = 1.0 - self.momentum  # flax's momentum, 0.9
+        with torch.no_grad():
+            self.running_mean.copy_(keep * self.running_mean
+                                    + (1.0 - keep) * mean)
+            self.running_var.copy_(keep * self.running_var
+                                   + (1.0 - keep) * var)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
+
+
 class DoubleConv(nn.Module):
     """(conv 3x3 -> BN -> relu) x 2 (reference double_conv, unet.py:8-20).
     The 3x3 convs carry no bias: BatchNorm follows."""
@@ -46,10 +82,10 @@ class DoubleConv(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             Conv2d(in_ch, out_ch, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
+            BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
             Conv2d(out_ch, out_ch, 3, padding=1, bias=False),
-            nn.BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
+            BatchNorm2d(out_ch, eps=1e-5, momentum=0.1),
             nn.ReLU(inplace=True),
         )
 

@@ -7,7 +7,8 @@ trunk channels to ``embed_dim``, the top-k quantizer addresses the codebook,
 and a 1x1 conv expands ``k * embed_dim`` back, optionally with a residual
 connection around the whole block.  The codebook (``embed``,
 ``cluster_size``, ``embed_avg``) is a set of float32 buffers, as in the
-reference.
+reference; in training mode each forward applies the EMA update to them in
+place (the JAX package threads them through its step as mutable state).
 """
 
 from __future__ import annotations
@@ -22,13 +23,17 @@ from .blocks import Conv2d
 
 
 class TopKMemory(nn.Module):
-    """The quantizer (reference Quantize_topk, unet.py:267-313), inference
-    only.  Takes and returns NCHW; the op itself runs channel-last."""
+    """The quantizer (reference Quantize_topk, unet.py:267-313).  Takes and
+    returns NCHW; the op itself runs channel-last.  In training mode the
+    lookup reads the codebook as it was before the forward, and the EMA
+    update is then written into the buffers under ``no_grad``."""
 
     def __init__(self, embed_dim: int, n_embed: int, k: int = 1,
-                 use_kernel: bool = False, per_sample_diff: bool = False):
+                 use_kernel: bool = False, per_sample_diff: bool = False,
+                 decay: float = 0.99, eps: float = 1e-5):
         super().__init__()
         self.embed_dim, self.n_embed, self.k = embed_dim, n_embed, k
+        self.decay, self.eps = decay, eps
         self.use_kernel = use_kernel
         self.per_sample_diff = per_sample_diff
         embed = torch.randn(embed_dim, n_embed)
@@ -38,14 +43,16 @@ class TopKMemory(nn.Module):
 
     def forward(self, z: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if self.training:
-            raise NotImplementedError(
-                "TopKMemory in training mode: the EMA codebook update comes "
-                "with the training slice of the port; call .eval()")
         cb = Codebook(self.embed, self.cluster_size, self.embed_avg)
-        q_topk, diff, q_st, _ = quantize_topk(
-            z.permute(0, 2, 3, 1), cb, self.k, use_kernel=self.use_kernel,
+        q_topk, diff, q_st, new_cb = quantize_topk(
+            z.permute(0, 2, 3, 1), cb, self.k, train=self.training,
+            decay=self.decay, eps=self.eps, use_kernel=self.use_kernel,
             per_sample=self.per_sample_diff)
+        if self.training:
+            with torch.no_grad():
+                self.embed.copy_(new_cb.embed)
+                self.cluster_size.copy_(new_cb.cluster_size)
+                self.embed_avg.copy_(new_cb.embed_avg)
         return (q_topk.permute(0, 3, 1, 2).contiguous(), diff,
                 q_st.permute(0, 3, 1, 2))
 

@@ -1,18 +1,20 @@
-"""Fused top-k memory lookup: the CUDA kernel's wrapper and its plain version.
+"""Fused top-k memory lookup: the CUDA kernels' wrappers and plain versions.
 
-Counterpart of the JAX package's Pallas kernel ``quantize_topk_pallas``
-(``ammcnet_aaai2021_tpu/ops/memory_pallas.py:201-255``).  The kernel itself
-is ``csrc/quantize_topk.cu`` (its header says what bounds it on an H100 and
+Counterparts of the JAX package's two Pallas kernels: B1
+``quantize_topk_pallas`` (``ammcnet_aaai2021_tpu/ops/memory_pallas.py:201-255``)
+and B2 ``quantize_topk_pallas_train`` (``memory_pallas.py:137-198``), the
+training variant that also returns the EMA statistics.  Both kernels are
+``csrc/quantize_topk.cu`` (its header says what bounds them on an H100 and
 what the design does about that).
 
-* :func:`quantize_topk_fused` is the wrapper: it checks its inputs, launches
-  the kernel for CUDA tensors (or raises) and counts its launches in
-  ``quantize_topk_fused.launches``; for CPU tensors it returns the plain
-  version's result.
-* :func:`quantize_topk_fused_ref` is the plain PyTorch version, the same
-  formula (``-2 flat@E + ||E||^2`` in fp32 with TF32 off) and the same
-  tie-break (lowest index), used by the CPU tests and held against the kernel
-  on the card.
+* :func:`quantize_topk_fused` (B1) and :func:`quantize_topk_train_fused`
+  (B2) are the wrappers: each checks its inputs, launches its kernel for
+  CUDA tensors (or raises) and counts its launches in its own ``launches``
+  attribute; for CPU tensors it returns the plain version's result.
+* :func:`quantize_topk_fused_ref` and :func:`quantize_topk_train_fused_ref`
+  are the plain PyTorch versions, the same formula (``-2 flat@E + ||E||^2``
+  in fp32 with TF32 off) and the same tie-break (lowest index), used by the
+  CPU tests and held against the kernels on the card.
 """
 
 from __future__ import annotations
@@ -71,6 +73,21 @@ def quantize_topk_fused_ref(flat: torch.Tensor, embed: torch.Tensor, k: int
             topk_idx[:, 0].to(torch.int32))
 
 
+def quantize_topk_train_fused_ref(
+        flat: torch.Tensor, embed: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Plain PyTorch version of B2: B1's outputs plus the EMA statistics of
+    the top-1 picks, ``counts (n_embed,) = one_hot.sum(0)`` and
+    ``embed_sum (dim, n_embed) = flat^T @ one_hot``, in fp32 (TF32 off)."""
+    q_topk, q1, idx = quantize_topk_fused_ref(flat, embed, k)
+    one_hot = torch.nn.functional.one_hot(
+        idx.long(), embed.shape[1]).to(torch.float32)
+    with exact_fp32_matmul():
+        embed_sum = flat.float().t() @ one_hot
+    return q_topk, q1, idx, one_hot.sum(0), embed_sum
+
+
 def _check(flat: torch.Tensor, embed: torch.Tensor, k: int) -> None:
     if flat.ndim != 2 or embed.ndim != 2 or flat.shape[1] != embed.shape[0]:
         raise ValueError(f"want flat (N, dim) and embed (dim, n_embed), got "
@@ -98,7 +115,17 @@ def _library() -> ctypes.CDLL:
         ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ptr]
     lib.ammc_quantize_topk.restype = ctypes.c_int
-    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ammc_quantize_topk_train.argtypes = [
+        ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ptr]
+    lib.ammc_quantize_topk_train.restype = ctypes.c_int
+    lib.ammc_quantize_topk_train_grid.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.POINTER(ctypes.c_int)]
+    lib.ammc_quantize_topk_train_grid.restype = ctypes.c_int
+    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_int]
     lib.ammc_quantize_topk_smem_bytes.restype = ctypes.c_longlong
     lib.ammc_max_optin_smem.argtypes = [ctypes.POINTER(ctypes.c_int)]
     lib.ammc_max_optin_smem.restype = ctypes.c_int
@@ -111,6 +138,28 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.ammc_cuda_error_string(err).decode()
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
+
+
+def _check_smem(lib: ctypes.CDLL, dim: int, n_embed: int, stats: bool
+                ) -> None:
+    smem = lib.ammc_quantize_topk_smem_bytes(dim, n_embed, int(stats))
+    limit = ctypes.c_int(0)
+    _raise_on(lib, lib.ammc_max_optin_smem(ctypes.byref(limit)),
+              "reading the shared-memory limit")
+    if smem > limit.value:
+        what = "the training kernel (codebook and statistics)" if stats \
+            else "the kernel"
+        raise ValueError(
+            f"a ({dim}, {n_embed}) codebook needs {smem} B of shared memory "
+            f"per block in {what}; this card allows {limit.value} B")
+
+
+def _kernel_device(flat: torch.Tensor, embed: torch.Tensor) -> None:
+    if flat.device.type != "cuda":
+        raise ValueError(f"no kernel for device {flat.device}")
+    if embed.shape[1] not in KERNEL_N_EMBEDS:
+        raise ValueError(f"the kernel takes n_embed in {KERNEL_N_EMBEDS}, "
+                         f"got {embed.shape[1]}")
 
 
 def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int
@@ -128,13 +177,9 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int
     _check(flat, embed, k)
     if flat.device.type == "cpu":
         return quantize_topk_fused_ref(flat, embed, k)
-    if flat.device.type != "cuda":
-        raise ValueError(f"no kernel for device {flat.device}")
+    _kernel_device(flat, embed)
     n, dim = flat.shape
     n_embed = embed.shape[1]
-    if n_embed not in KERNEL_N_EMBEDS:
-        raise ValueError(f"the kernel takes n_embed in {KERNEL_N_EMBEDS}, "
-                         f"got {n_embed}")
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=flat.device)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=flat.device)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
@@ -142,14 +187,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int
         return q_topk, q1, idx
     lib = _library()
     with torch.cuda.device(flat.device):
-        smem = lib.ammc_quantize_topk_smem_bytes(dim, n_embed)
-        limit = ctypes.c_int(0)
-        _raise_on(lib, lib.ammc_max_optin_smem(ctypes.byref(limit)),
-                  "reading the shared-memory limit")
-        if smem > limit.value:
-            raise ValueError(
-                f"a ({dim}, {n_embed}) codebook needs {smem} B of shared "
-                f"memory per block; this card allows {limit.value} B")
+        _check_smem(lib, dim, n_embed, stats=False)
         err = lib.ammc_quantize_topk(
             flat.data_ptr(), int(flat.dtype == torch.bfloat16),
             embed.data_ptr(), q_topk.data_ptr(), q1.data_ptr(), idx.data_ptr(),
@@ -160,3 +198,58 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int
 
 
 quantize_topk_fused.launches = 0
+
+
+def quantize_topk_train_fused(
+        flat: torch.Tensor, embed: torch.Tensor, k: int
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+           torch.Tensor]:
+    """Fused distance + top-k + gather + EMA statistics (kernel B2).
+
+    Args: as :func:`quantize_topk_fused`.
+
+    Returns:
+      ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32,
+      counts (n_embed,) f32, embed_sum (dim, n_embed) f32)``; the statistics
+      are bitwise equal across calls on the same input.
+    """
+    _check(flat, embed, k)
+    if flat.device.type == "cpu":
+        return quantize_topk_train_fused_ref(flat, embed, k)
+    _kernel_device(flat, embed)
+    n, dim = flat.shape
+    n_embed = embed.shape[1]
+    dev = flat.device
+    q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=dev)
+    q1 = torch.empty((n, dim), dtype=torch.float32, device=dev)
+    idx = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return (q_topk, q1, idx,
+                torch.zeros((n_embed,), dtype=torch.float32, device=dev),
+                torch.zeros((dim, n_embed), dtype=torch.float32, device=dev))
+    counts = torch.empty((n_embed,), dtype=torch.float32, device=dev)
+    embed_sum = torch.empty((dim, n_embed), dtype=torch.float32, device=dev)
+    lib = _library()
+    bf16 = int(flat.dtype == torch.bfloat16)
+    with torch.cuda.device(dev):
+        _check_smem(lib, dim, n_embed, stats=True)
+        grid = ctypes.c_int(0)
+        _raise_on(lib, lib.ammc_quantize_topk_train_grid(
+            bf16, n, dim, n_embed, ctypes.byref(grid)),
+            "sizing the quantize_topk_train launch")
+        part_sum = torch.empty((grid.value, dim, n_embed),
+                               dtype=torch.float32, device=dev)
+        part_counts = torch.empty((grid.value, n_embed), dtype=torch.int32,
+                                  device=dev)
+        err = lib.ammc_quantize_topk_train(
+            flat.data_ptr(), bf16, embed.data_ptr(), q_topk.data_ptr(),
+            q1.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+            embed_sum.data_ptr(), part_sum.data_ptr(), part_counts.data_ptr(),
+            grid.value, n, dim, n_embed, k,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(lib, err, "quantize_topk_train kernel launch")
+    quantize_topk_train_fused.launches += 1
+    return q_topk, q1, idx, counts, embed_sum
+
+
+quantize_topk_train_fused.launches = 0

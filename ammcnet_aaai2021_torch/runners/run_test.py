@@ -27,10 +27,13 @@ def parser_args(argv=None):
                    help="dataset root: <data_dir>/<dataset>/testing/{frames,flows}")
     p.add_argument("--ckptfile", default="",
                    help="torch .pth state dict of the generator (the "
-                        "reference's, or one tools/weights.py wrote); random "
-                        "init if omitted (smoke)")
+                        "reference's, or one tools/weights.py wrote), or a "
+                        "step dir of a port training run; random init if "
+                        "omitted (smoke)")
     p.add_argument("--exp_tag", default="",
-                   help="resolve run dir + train-time config from the registry")
+                   help="resolve run dir + train-time config from the "
+                        "registry; scores the run's latest checkpoint unless "
+                        "--ckptfile is given")
     p.add_argument("--registry", default="runs/registry.json")
     p.add_argument("--save_dir", default="eval_out")
     p.add_argument("--batch_size", type=int, default=16,
@@ -97,7 +100,6 @@ _LATER_SLICES = (
     ("gray_upload", "the on-device FlowNet2-SD slice"),
     ("int8", "the int8 serving slice"),
     ("native_loader", "the export-and-tools slice"),
-    ("exp_tag", "the training slice (run registry)"),
 )
 
 
@@ -118,10 +120,24 @@ def main(argv=None) -> dict:
     from ..eval.scoring import evaluate
     from ..models import build_model, init_weights
     from ..tools.weights import load_generator_checkpoint
+    from ..train.checkpoint import latest_step
     from ..utils.logging_utils import get_logger
+    from ..utils.registry import load_run_config, resolve_run
 
     logger = get_logger("run_test", os.path.join(args.save_dir, "log_dir"))
-    cfg = preset(args.dataset_name, mode="testing", data_dir=args.data_dir)
+    ckptfile = args.ckptfile
+    if args.exp_tag:
+        run_dir = resolve_run(args.registry, args.exp_tag)
+        cfg = load_run_config(run_dir)
+        logger.info("resolved exp_tag %s -> %s", args.exp_tag, run_dir)
+        if not ckptfile:
+            # the run's latest training checkpoint
+            ckpt_dir = os.path.join(run_dir, "training", "checkpoints")
+            step = latest_step(ckpt_dir)
+            if step is not None:
+                ckptfile = os.path.join(ckpt_dir, f"{step:06d}")
+    else:
+        cfg = preset(args.dataset_name, mode="testing", data_dir=args.data_dir)
     if args.image_size:
         import dataclasses
 
@@ -130,9 +146,9 @@ def main(argv=None) -> dict:
             data=dataclasses.replace(cfg.data, image_size=args.image_size))
 
     gen = build_model(cfg.net, mode="testing", per_sample_diff=True).generator
-    if args.ckptfile:
-        gen.load_state_dict(load_generator_checkpoint(args.ckptfile))
-        logger.info("loaded checkpoint %s", args.ckptfile)
+    if ckptfile:
+        gen.load_state_dict(load_generator_checkpoint(ckptfile))
+        logger.info("loaded checkpoint %s", ckptfile)
     else:
         init_weights(gen, torch.Generator().manual_seed(cfg.seed))
         logger.warning("no checkpoint: scoring with RANDOM weights (smoke run)")

@@ -1,5 +1,12 @@
-"""Weight bridge: JAX generator variables and torch checkpoints -> the
-port's state dict.
+"""Weight bridge: JAX variables and torch checkpoints -> the port's state
+dicts.
+
+:func:`discriminator_state_from_jax` and :func:`flownet_state_from_jax`
+do the same for the training slice's PatchGAN discriminator and FlowNet2-SD
+teacher (the latter the inverse of the JAX package's
+``convert_flownet_sd_state``: ``params/net/<mod>/{conv,deconv}`` ->
+``<mod>.0.*``, ``params/net/{predict_flowX,upsampled_flowX_to_Y}`` ->
+``<mod>.*``).
 
 :func:`state_dict_from_jax` inverts the JAX package's
 ``tools/torch_convert.convert_twostream``: it takes the flax
@@ -31,6 +38,7 @@ converter's ``transpose(2, 3, 1, 0)``.  BatchNorm's ``num_batches_tracked``
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping
 
 import numpy as np
@@ -117,9 +125,46 @@ def state_dict_from_jax(variables: Mapping) -> StateDict:
     return out
 
 
+def discriminator_state_from_jax(params: Mapping) -> StateDict:
+    """The JAX ``PixelDiscriminator``'s params (``conv0``.. ``out``, each
+    ``{kernel, bias}``) -> the port's state dict."""
+    out: StateDict = {}
+    for name, leaf in params.items():
+        out.update(conv_state(name, leaf))
+    return out
+
+
+def flownet_state_from_jax(variables: Mapping) -> StateDict:
+    """The JAX ``FlowNet2SD``'s variables -> the port's (and the reference
+    torch module's) state dict."""
+    out: StateDict = {}
+    for mod, leaf in variables["params"]["net"].items():
+        if mod.startswith(("predict_flow", "upsampled_flow")):
+            out.update(conv_state(mod, leaf))
+        else:  # convX / inter_convX (inner "conv") and deconvX ("deconv")
+            inner = "deconv" if mod.startswith("deconv") else "conv"
+            out.update(conv_state(f"{mod}.0", leaf[inner]))
+    return out
+
+
 def load_generator_checkpoint(path: str) -> StateDict:
-    """Read a torch ``.pth`` generator state dict: the reference's own, or
-    one this bridge wrote.  A ``{'state_dict': ...}`` wrapper is unwrapped."""
+    """The generator's state dict from a checkpoint path: a torch ``.pth``
+    (the reference's own, or one this bridge wrote; a ``{'state_dict': ...}``
+    wrapper is unwrapped), or a step directory the port's training loop
+    wrote (``<run>/training/checkpoints/<step>``)."""
+    if path.endswith(".msgpack"):
+        raise NotImplementedError(
+            f"{path}: the JAX package's msgpack checkpoints are not read by "
+            "the port yet; they come with the export-and-tools slice")
+    if os.path.isdir(path):
+        from ..train.checkpoint import STATE_FILE, load_state_file
+
+        if not os.path.exists(os.path.join(path, STATE_FILE)):
+            raise NotImplementedError(
+                f"{path} holds no {STATE_FILE}: the JAX package's orbax "
+                "checkpoints are not read by the port yet; they come with the "
+                "export-and-tools slice")
+        return dict(load_state_file(path)["generator"])
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:
         raw = raw["state_dict"]

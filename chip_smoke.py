@@ -4,22 +4,30 @@
 Run from the repository root on a machine with one NVIDIA GPU (H100):
 
     python3 chip_smoke.py            # the whole check, 12 ped2-shaped videos
-    python3 chip_smoke.py --videos 2 # a shorter main path
+    python3 chip_smoke.py --videos 2 # a shorter scoring path
 
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compiles every CUDA kernel of the path from ``csrc/`` (nvcc);
-3. kernel check: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, plus edge cases, with CUDA-event timings and
-   the card's bound for the same work;
+2. build: compiles every CUDA kernel of the paths from ``csrc/`` (nvcc);
+3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
+   training lookup with the EMA statistics) against its plain PyTorch
+   version on the card at the paths' shapes, plus edge cases, with
+   CUDA-event timings and the card's bound for the same work;
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16;
-5. main path: ``runners.run_test.main`` scores a ped2-shaped test split
+5. scoring path: ``runners.run_test.main`` scores a ped2-shaped test split
    (12 videos, 2,010 frames of 256x256) with the released configuration,
    bf16 and seeded random weights; checks the records, the AUC line and that
    every kernel of the path was launched (two memory lookups per forward);
-6. the ``kernels`` summary line, then the last line
+6. train check: one float32 training step of the released generator at
+   256x256, batch 4, through the kernels and through plain PyTorch;
+7. training path: ``runners.run_train.main`` trains the released
+   configuration (bf16, batch 4, 256x256) for 30 steps on a numpy training
+   tree, then resumes from its step-30 checkpoint to step 40; checks the
+   scalars, the codebook, the checkpoint and the kernels' launches (B2 twice
+   per step, B1 twice per train-PSNR forward);
+8. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -60,6 +68,18 @@ NEAR_TIE_REL = 1e-5
 # the same codewords feed the same convolutions, so only run-to-run
 # differences of the convolutions remain
 MODEL_TOL = 1e-5
+# B2's embed_sum against the plain version's: the same float32 values summed
+# in another order, so within this much of the magnitude summed into each
+# entry
+ESUM_REL = 1e-5
+# one float32 train step through the kernels against one through plain
+# PyTorch (cuDNN deterministic, TF32 off): the same codewords, so the losses
+# agree to float32 rounding; the codebooks differ by embed_sum's order
+TRAIN_LOSS_REL = 1e-6
+TRAIN_CODEBOOK_TOL = 1e-5
+# the training path: 4 ped2-shaped videos of 60 frames, 30 steps + 10 resumed
+TRAIN_VIDEOS, TRAIN_FRAMES = 4, 60
+TRAIN_STEPS, RESUME_STEPS = 30, 40
 
 
 def emit(phase: str, **fields) -> None:
@@ -149,6 +169,116 @@ def lookup_bound(n: int, dim: int, n_embed: int, k: int, in_bytes: int
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
     }
+
+
+def train_lookup_bound(n: int, dim: int, n_embed: int, k: int,
+                       in_bytes: int) -> dict:
+    """B2's bound: B1's compulsory bytes plus the statistics written, B1's
+    distance FLOPs plus one add per row element into embed_sum."""
+    bytes_moved = (n * dim * in_bytes + dim * n_embed * 4
+                   + n * k * dim * 4 + n * dim * 4 + n * 4
+                   + n_embed * 4 + dim * n_embed * 4)
+    flops = 2 * n * dim * n_embed + n * dim
+    bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
+    flops_ms = flops / FP32_FLOPS * 1e3
+    return {
+        "bytes": bytes_moved, "flops": flops,
+        "arithmetic": (
+            f"bytes = N*dim*{in_bytes} + dim*n_embed*4 + N*k*dim*4 + N*dim*4"
+            f" + N*4 + n_embed*4 + dim*n_embed*4 = {bytes_moved:,}; / 3.35e12"
+            f" B/s = {bytes_ms:.5f} ms. flops = 2*N*dim*n_embed + N*dim = "
+            f"{flops:,}; / 67e12 FLOP/s = {flops_ms:.5f} ms"),
+        "bound_ms": max(bytes_ms, flops_ms),
+        "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
+    }
+
+
+def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
+    """B2 against its plain version: the lookup under B1's near-tie rule;
+    counts equal to the histogram of the kernel's own top-1 indices (and to
+    the plain version's counts where no top-1 index flipped); embed_sum
+    within ``ESUM_REL`` of the plain sum over the kernel's own indices;
+    a second call bitwise equal."""
+    res = compare_lookup(torch, mk, flat, embed, k)
+    _, _, idx, counts, esum = mk.quantize_topk_train_fused(flat, embed, k)
+    _, _, idx2, counts2, esum2 = mk.quantize_topk_train_fused(flat, embed, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(counts, counts2) and torch.equal(esum, esum2)
+            and torch.equal(idx, idx2)):
+        fail("B2: two calls on the same input gave different statistics")
+    if not torch.equal(idx, res["idx"]):
+        fail("B2's top-1 indices differ from B1's on the same input")
+    n_embed = embed.shape[1]
+    hist = torch.bincount(idx.long(), minlength=n_embed).float()
+    if not torch.equal(counts, hist):
+        fail("B2 counts differ from the histogram of its top-1 indices")
+    _, _, ridx, rcounts, _ = mk.quantize_topk_train_fused_ref(flat, embed, k)
+    top1_flips = int((ridx != idx).sum())
+    if top1_flips == 0 and not torch.equal(counts, rcounts):
+        fail("B2 counts differ from the plain version's on a flip-free input")
+    one_hot = torch.nn.functional.one_hot(idx.long(), n_embed).double()
+    want = flat.double().t() @ one_hot
+    mag = flat.double().abs().t() @ one_hot
+    err = (esum.double() - want).abs()
+    worst = float((err / mag.clamp_min(1e-300)).max())
+    if bool((err > ESUM_REL * mag).any()):
+        fail(f"B2 embed_sum off by {worst:.3g} of the summed magnitude "
+             f"(> {ESUM_REL})")
+    return {"rows": res["rows"], "flips": res["flips"],
+            "top1_flips": top1_flips, "max_abs_err": res["max_abs_err"],
+            "esum_max_rel_err": worst, "deterministic": True}
+
+
+def train_kernel_phase(torch, mk) -> dict:
+    """B2 at the training path's shape (N = 4 clips * 32 * 32 = 4,096 rows)
+    and at B1's (N = 196,608), in bf16 and f32, plus a ragged N and a
+    codebook of duplicated codewords."""
+    g = torch.Generator(device="cuda").manual_seed(2)
+    dim, n_embed, k = 64, 256, 2
+    embed = torch.randn(dim, n_embed, device="cuda", generator=g)
+    z32 = torch.randn(192 * 32 * 32, dim, device="cuda", generator=g) * 0.5
+    out = {}
+    for n in (4 * 32 * 32, 192 * 32 * 32):
+        for name, flat in (("bfloat16", z32[:n].to(torch.bfloat16)),
+                           ("float32", z32[:n].contiguous())):
+            res = compare_train_lookup(torch, mk, flat, embed, k)
+            timings = []
+            for fn in (mk.quantize_topk_train_fused_ref,
+                       mk.quantize_topk_train_fused,
+                       mk.quantize_topk_train_fused,
+                       mk.quantize_topk_train_fused_ref):
+                timings.append(time_ms(torch, lambda: fn(flat, embed, k)))
+            row = {"shape": [n, dim, n_embed, k], **res,
+                   "kernel_ms": (timings[1] + timings[2]) / 2,
+                   "plain_ms": (timings[0] + timings[3]) / 2,
+                   "timings_plain_kernel_kernel_plain_ms": timings,
+                   **train_lookup_bound(n, dim, n_embed, k,
+                                        flat.element_size())}
+            out[(n, name)] = row
+            emit("kernel_check", kernel="quantize_topk_train_fused",
+                 input=f"N={n} {name}", **row)
+
+    ragged = compare_train_lookup(torch, mk, z32[:1037].to(torch.bfloat16),
+                                  embed, k)
+    emit("kernel_check", kernel="quantize_topk_train_fused",
+         input="ragged N=1037 bf16", **ragged)
+    dup = embed.clone()
+    dup[:, 1::2] = dup[:, 0::2]
+    res = compare_train_lookup(torch, mk, z32[:65536], dup, k)
+    _, _, idx, counts, _ = mk.quantize_topk_train_fused(z32[:65536], dup, k)
+    if bool((idx % 2 != 0).any()) or bool(counts[1::2].any()):
+        fail("B2 tie-break: a higher index of equal codewords was picked")
+    emit("kernel_check", kernel="quantize_topk_train_fused",
+         input="duplicated codewords f32", lowest_index_wins=True, **res)
+    try:
+        mk.quantize_topk_train_fused(z32[:64], torch.randn(
+            dim, 512, device="cuda", generator=g), k)
+    except ValueError as exc:
+        emit("kernel_check", kernel="quantize_topk_train_fused",
+             input="n_embed=512 f32", raises=str(exc))
+    else:
+        fail("B2 at n_embed 512 (over the shared-memory limit) did not raise")
+    return out
 
 
 def kernel_phase(torch, mk) -> dict:
@@ -335,6 +465,211 @@ def main_path_phase(torch, mk, n_videos: int) -> dict:
     return out
 
 
+def train_check_phase(torch, mk) -> dict:
+    """One float32 step (TF32 off, cuDNN deterministic) of the released
+    generator at 256x256, batch 4, from one state and batch: through the
+    kernels (B2 in the forward) and with ``use_memory_kernel=False``."""
+    import copy
+    import dataclasses
+
+    from ammcnet_aaai2021_torch.configs import LossConfig, NetConfig, OptimConfig
+    from ammcnet_aaai2021_torch.models import build_model, init_flownet_weights
+    from ammcnet_aaai2021_torch.train.state import create_train_state
+    from ammcnet_aaai2021_torch.train.steps import (
+        codebook_buffers, make_twostream_train_step)
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    batch = {"rgb": torch.randint(0, 256, (4, 5, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                  device="cuda", generator=g,
+                                  dtype=torch.uint8),
+             "op": torch.randn(4, 4, IMAGE_SIZE, IMAGE_SIZE, 2, device="cuda",
+                               generator=g) * 0.5}
+    runs, init = [], None
+    for use_kernel in (True, False):
+        cfg = dataclasses.replace(NetConfig(), dtype="float32",
+                                  use_memory_kernel=use_kernel)
+        model = build_model(cfg, mode="training")
+        state = create_train_state(model.generator, model.discriminator,
+                                   OptimConfig(), 20200525, device="cuda")
+        flownet = init_flownet_weights(model.flow_network,
+                                       torch.Generator().manual_seed(7))
+        flownet.to("cuda").eval()
+        if init is None:
+            init = (copy.deepcopy(state.generator.state_dict()),
+                    copy.deepcopy(state.discriminator.state_dict()))
+        state.generator.load_state_dict(init[0])
+        state.discriminator.load_state_dict(init[1])
+        before = mk.quantize_topk_train_fused.launches
+        metrics = make_twostream_train_step(LossConfig())(state, batch, flownet)
+        torch.cuda.synchronize()
+        launched = mk.quantize_topk_train_fused.launches - before
+        if launched != (2 if use_kernel else 0):
+            fail(f"train step (use_memory_kernel={use_kernel}) launched B2 "
+                 f"{launched} times")
+        runs.append(({k: float(v) for k, v in metrics.items()},
+                     {k: v.clone() for k, v in
+                      codebook_buffers(state.generator).items()}))
+    (m_k, cb_k), (m_p, cb_p) = runs
+    loss_err = max(abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-30) for k in m_p)
+    cb_err = max(float((cb_k[k] - cb_p[k]).abs().max()) for k in cb_p)
+    cs_equal = all(torch.equal(cb_k[k], cb_p[k]) for k in cb_p
+                   if k.endswith("cluster_size"))
+    moved = all(bool(cb_k[k].any()) for k in cb_k if k.endswith("cluster_size"))
+    if loss_err > TRAIN_LOSS_REL:
+        fail(f"train step: kernel and plain losses differ by {loss_err:.3g} "
+             f"relative (> {TRAIN_LOSS_REL})")
+    if cb_err > TRAIN_CODEBOOK_TOL or not moved:
+        fail(f"train step: codebooks differ by {cb_err:.3g} "
+             f"(> {TRAIN_CODEBOOK_TOL}) or cluster_size did not move")
+    out = {"batch": 4, "image_size": IMAGE_SIZE, "dtype": "float32",
+           "loss_max_rel_err": loss_err, "loss_tol": TRAIN_LOSS_REL,
+           "codebook_max_abs_err": cb_err, "codebook_tol": TRAIN_CODEBOOK_TOL,
+           "cluster_size_equal": cs_equal, "g_loss": m_k["g_loss"]}
+    emit("train_check", **out)
+    return out
+
+
+def write_train_tree(root: str) -> None:
+    """A ped2-shaped training split of numpy files: <root>/ped2/training/
+    {frames,flows}/NN/, ``TRAIN_VIDEOS`` videos of ``TRAIN_FRAMES`` u8
+    256x256 frames (.npy) and float32 flow fields, from a fixed seed."""
+    import numpy as np
+
+    rng = np.random.default_rng(20200526)
+    s = IMAGE_SIZE
+    yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
+    for vi in range(1, TRAIN_VIDEOS + 1):
+        fdir = os.path.join(root, "ped2", "training", "frames", f"{vi:02d}")
+        odir = os.path.join(root, "ped2", "training", "flows", f"{vi:02d}")
+        os.makedirs(fdir)
+        os.makedirs(odir)
+        base = 96 + 48 * np.sin((xx + 5 * vi) / 19.0) * np.cos(yy / 29.0)
+        for t in range(TRAIN_FRAMES):
+            blob = 80 * np.exp(-((xx - (3 * t) % s) ** 2
+                                 + (yy - s / 2) ** 2) / 300.0)
+            gray = np.clip(base + blob + rng.normal(0, 4, (s, s)), 0, 255)
+            np.save(os.path.join(fdir, f"{t:03d}.npy"),
+                    np.repeat(gray.astype(np.uint8)[..., None], 3, axis=2))
+            if t + 1 < TRAIN_FRAMES:
+                np.save(os.path.join(odir, f"{t:03d}.npy"),
+                        rng.normal(0, 1.5, (s, s, 2)).astype(np.float32))
+
+
+def read_scalars(run_dir: str) -> dict:
+    """{tag: {step: value}} from a run's summary CSV."""
+    import csv
+
+    out: dict = {}
+    with open(os.path.join(run_dir, "summary", "scalars.csv")) as fh:
+        for row in csv.DictReader(fh):
+            out.setdefault(row["tag"], {})[int(row["step"])] = float(row["value"])
+    return out
+
+
+def train_path_phase(torch, mk) -> dict:
+    """``run_train.main`` with the released defaults (bf16, batch 4,
+    256x256) for ``TRAIN_STEPS`` steps, then ``--resume`` to
+    ``RESUME_STEPS``.  The kernels' counts are set to 0 just before and read
+    just after."""
+    from ammcnet_aaai2021_torch.runners import run_train
+    from ammcnet_aaai2021_torch.train.checkpoint import (
+        latest_step, restore_checkpoint)
+    from ammcnet_aaai2021_torch.train.state import create_train_state
+    from ammcnet_aaai2021_torch.models import build_model
+    from ammcnet_aaai2021_torch.configs import NetConfig, OptimConfig
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_tree(tmp)
+        data_s = time.perf_counter() - t0
+        argv = ["--dataset_name", "ped2", "--data_dir", tmp,
+                "--save_dir", os.path.join(tmp, "runs"),
+                "--registry", os.path.join(tmp, "runs", "registry.json"),
+                "--step_log", "10", "--step_summary", "10",
+                "--step_save", str(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mk.quantize_topk_fused.launches = 0
+        mk.quantize_topk_train_fused.launches = 0
+        t0 = time.perf_counter()
+        run1, state1 = run_train.main(argv + ["--iterations", str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        wall1 = time.perf_counter() - t0
+        time.sleep(1.0)  # run dirs are named by the second
+        run2, state2 = run_train.main(argv + ["--iterations", str(RESUME_STEPS),
+                                              "--resume", run1])
+        torch.cuda.synchronize()
+        b1 = mk.quantize_topk_fused.launches
+        b2 = mk.quantize_topk_train_fused.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+        scalars = [read_scalars(run1), read_scalars(run2)]
+        for sc in scalars:
+            for tag, vals in sc.items():
+                if not all(math.isfinite(v) for v in vals.values()):
+                    fail(f"training path: scalar {tag} not finite: {vals}")
+        if b2 != 2 * RESUME_STEPS:
+            fail(f"B2 launched {b2} times in the training path, want 2 per "
+                 f"step = {2 * RESUME_STEPS}")
+        log_steps = RESUME_STEPS // 10
+        if b1 != 2 * log_steps:
+            fail(f"B1 launched {b1} times in the training path, want 2 per "
+                 f"train-PSNR forward = {2 * log_steps}")
+        cs = state2.generator.rgb.vq_down3.quan.quantize.cluster_size
+        if not bool(cs.any()):
+            fail("training path: cluster_size did not move from its zeros")
+        if state2.step != RESUME_STEPS:
+            fail(f"resumed run ended at step {state2.step}")
+        log_dir = os.path.join(run2, "log_dir")
+        with open(os.path.join(log_dir, "info.log")) as fh:
+            log = fh.read()
+        if f"training steps {TRAIN_STEPS + 1} to {RESUME_STEPS}" not in log:
+            fail(f"the resumed run did not start at step {TRAIN_STEPS + 1}")
+
+        # the step-30 checkpoint restores the first run's final state exactly
+        ckpt_dir = os.path.join(run1, "training", "checkpoints")
+        if latest_step(ckpt_dir) != TRAIN_STEPS:
+            fail(f"no step-{TRAIN_STEPS} checkpoint under {ckpt_dir}")
+        model = build_model(NetConfig(), mode="training")
+        fresh = create_train_state(model.generator, model.discriminator,
+                                   OptimConfig(), 1, device="cuda")
+        restore_checkpoint(ckpt_dir, fresh, step=TRAIN_STEPS)
+        pairs = [(state1.generator.state_dict(), fresh.generator.state_dict()),
+                 (state1.discriminator.state_dict(),
+                  fresh.discriminator.state_dict())]
+        for opt_a, opt_b in ((state1.g_opt, fresh.g_opt),
+                             (state1.d_opt, fresh.d_opt)):
+            sa, sb = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
+            pairs.append(({f"{i}.{n}": t for i, s in sa.items()
+                           for n, t in s.items()},
+                          {f"{i}.{n}": t for i, s in sb.items()
+                           for n, t in s.items()}))
+        for want, got in pairs:
+            if set(want) != set(got) or not all(
+                    torch.equal(want[k], got[k]) for k in want):
+                fail("the step-30 checkpoint does not restore bit-exactly")
+        if fresh.step != TRAIN_STEPS or fresh.g_sched.last_epoch != TRAIN_STEPS:
+            fail("the checkpoint's step or schedule did not restore")
+
+    rates = scalars[0]["steps_per_sec"]
+    steady = [rates[s] for s in sorted(rates) if s > 10]
+    out = {"steps": RESUME_STEPS, "resumed_from": TRAIN_STEPS,
+           "batch": 4, "image_size": IMAGE_SIZE, "dtype": "bfloat16",
+           "videos": TRAIN_VIDEOS, "frames_per_video": TRAIN_FRAMES,
+           "first_step_s": scalars[0]["first_step_s"][1],
+           "steps_per_s_by_period": rates,
+           "steady_steps_per_s": sum(steady) / len(steady),
+           "resumed_steps_per_s": scalars[1]["steps_per_sec"],
+           "first_run_wall_s": wall1, "peak_mem_gib": peak,
+           "data_write_s": data_s, "quantize_topk_train_launches": b2,
+           "quantize_topk_launches": b1,
+           "g_loss_by_step": scalars[0]["g_loss"],
+           "train_psnr_by_step": scalars[0]["train_psnr"],
+           "restored_bit_exact": True}
+    emit("train_path", **out)
+    return out
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--videos", type=int, default=len(PED2_TEST_LENGTHS),
@@ -361,7 +696,7 @@ def main(argv=None) -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    seconds = cuda_build.build(["quantize_topk"])
+    seconds = cuda_build.build(["quantize_topk"])  # B1 and B2
     ptxas = [line.strip() for log in cuda_build.build_log.values()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line
@@ -376,17 +711,32 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     checks = kernel_phase(torch, mk)
+    train_checks = train_kernel_phase(torch, mk)
     model_phase(torch, mk)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     main_run = main_path_phase(torch, mk, args.videos)
 
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    train_check_phase(torch, mk)
+    torch.backends.cudnn.deterministic = deterministic
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+    train_run = train_path_phase(torch, mk)
+
     bf16 = checks["bfloat16"]
+    b2 = train_checks[(4 * 32 * 32, "bfloat16")]
+    b2_f32 = train_checks[(4 * 32 * 32, "float32")]
+    b2_big = train_checks[(192 * 32 * 32, "bfloat16")]
     print(json.dumps({"kernels": [{
         "name": "quantize_topk_fused",
         "route": "cuda",
         "source": "ammcnet_aaai2021_torch/csrc/quantize_topk.cu",
         "replaces": "ammcnet_aaai2021_tpu/ops/memory_pallas.py:48",
         "launches": main_run["quantize_topk_launches"],
+        "launches_by_path": {"score": main_run["quantize_topk_launches"],
+                             "train": train_run["quantize_topk_launches"]},
         "max_abs_err": max(bf16["max_abs_err"],
                            checks["float32"]["max_abs_err"]),
         "flips": bf16["flips"] + checks["float32"]["flips"],
@@ -396,6 +746,26 @@ def main(argv=None) -> None:
         "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "quantize_topk_train_fused",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/quantize_topk.cu",
+        "replaces": "ammcnet_aaai2021_tpu/ops/memory_pallas.py:84",
+        "launches": train_run["quantize_topk_train_launches"],
+        "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"]),
+        "esum_max_rel_err": max(b2["esum_max_rel_err"],
+                                b2_f32["esum_max_rel_err"]),
+        "flips": b2["flips"] + b2_f32["flips"],
+        "ms": b2["kernel_ms"],
+        "kernel_ms": b2["kernel_ms"],
+        "plain_ms": b2["plain_ms"],
+        "bound_ms": b2["bound_ms"],
+        "bound_by": b2["bound_by"],
+        "library_ms": None,
+        "at_n_196608": {"kernel_ms": b2_big["kernel_ms"],
+                        "plain_ms": b2_big["plain_ms"],
+                        "bound_ms": b2_big["bound_ms"],
+                        "bound_by": b2_big["bound_by"]},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -231,9 +231,19 @@ def test_run_test_cuda_without_gpu_raises(toy_tree, tmp_path):
                                   "--int8", "--native_loader",
                                   "--exp_tag=run1"])
 def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
+    argv = ["--dataset_name", "toydata", "--data_dir", toy_tree,
+            "--save_dir", str(tmp_path), "--device", "cpu", flag]
+    if flag.startswith("--exp_tag"):
+        # ported with the training slice: the tag resolves through the run
+        # registry (tests/test_torch_train.py scores a registered run), and
+        # an unregistered tag raises
+        registry = tmp_path / "registry.json"
+        registry.write_text("{}")
+        with pytest.raises(KeyError, match="run1"):
+            run_test.main(argv + ["--registry", str(registry)])
+        return
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_test.main(["--dataset_name", "toydata", "--data_dir", toy_tree,
-                       "--save_dir", str(tmp_path), "--device", "cpu", flag])
+        run_test.main(argv)
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -242,14 +252,21 @@ def test_port_and_chip_smoke_import_no_jax():
         "ammcnet_aaai2021_torch.data.datasets",
         "ammcnet_aaai2021_torch.data.flo",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",
-        "ammcnet_aaai2021_torch.models",
+        "ammcnet_aaai2021_torch.losses", "ammcnet_aaai2021_torch.models",
         "ammcnet_aaai2021_torch.ops.cuda_build",
         "ammcnet_aaai2021_torch.ops.memory",
         "ammcnet_aaai2021_torch.ops.memory_kernels",
         "ammcnet_aaai2021_torch.ops.metrics",
         "ammcnet_aaai2021_torch.runners.run_test",
+        "ammcnet_aaai2021_torch.runners.run_train",
         "ammcnet_aaai2021_torch.tools.weights",
+        "ammcnet_aaai2021_torch.train.checkpoint",
+        "ammcnet_aaai2021_torch.train.loop",
+        "ammcnet_aaai2021_torch.train.optim",
+        "ammcnet_aaai2021_torch.train.state",
+        "ammcnet_aaai2021_torch.train.steps",
         "ammcnet_aaai2021_torch.utils.logging_utils",
+        "ammcnet_aaai2021_torch.utils.registry",
     ]
     code = (
         "import importlib, importlib.util, sys\n"

@@ -151,7 +151,14 @@ def test_quantize_topk_keeps_bf16_latents_dtype():
 
 
 def test_quantize_topk_train_is_the_training_slices():
-    tcb = Codebook(torch.zeros(DIM, N_EMBED), torch.zeros(N_EMBED),
-                   torch.zeros(DIM, N_EMBED))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        quantize_topk(torch.zeros(1, 2, 2, DIM), tcb, K, train=True)
+    """train=True (ported with the training slice; its parity with JAX is in
+    tests/test_torch_train.py) returns a new, EMA-updated codebook and leaves
+    the given one as it was."""
+    rng = np.random.default_rng(7)
+    embed = torch.from_numpy(rng.normal(size=(DIM, N_EMBED)).astype(np.float32))
+    tcb = Codebook(embed.clone(), torch.zeros(N_EMBED), embed.clone())
+    z = torch.from_numpy(rng.normal(size=(1, 2, 2, DIM)).astype(np.float32))
+    _, _, _, new = quantize_topk(z, tcb, K, train=True)
+    assert new is not tcb and float(new.cluster_size.sum()) == pytest.approx(
+        0.01 * 4)  # (1 - decay) * 4 rows
+    assert torch.equal(tcb.embed, embed) and not tcb.cluster_size.any()
