@@ -375,20 +375,34 @@ const char* ammc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// B1.  flat (n, dim) bf16 if flat_bf16 else f32; embed (dim, n_embed) f32;
-// q_topk (n, k*dim) f32; q1 (n, dim) f32; idx (n,) int32.  All contiguous
-// and on the current device; n_embed in {32, 64, 128, 256, 512}; n > 0.
-int ammc_quantize_topk(const void* flat, int flat_bf16, const void* embed,
-                       void* q_topk, void* q1, void* idx, int n, int dim,
-                       int n_embed, int k, void* stream) {
+// Blocks a launch of B1 (stats == 0) or B2 (stats != 0) takes for these
+// sizes on the current device.  It also raises the kernel's shared-memory
+// limit to what the codebook needs, so call it once per device and sizes
+// before the first launch; the wrappers cache it.  B2's workspace holds
+// `grid` partials (grid * dim * n_embed f32 and grid * n_embed int32).
+int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int n_embed,
+                            int stats, int* grid) {
   return with_type(flat_bf16, [&](auto t) {
     using T = decltype(t);
     return with_cpl(n_embed, [&](auto cpl) {
       constexpr int CPL = decltype(cpl)::value;
-      int grid = 0;
-      cudaError_t err = grid_size<T, CPL, false>(n, dim, &grid);
-      if (err != cudaSuccess) return err;
-      return launch<T, CPL, false>(
+      return stats ? grid_size<T, CPL, true>(n, dim, grid)
+                   : grid_size<T, CPL, false>(n, dim, grid);
+    });
+  });
+}
+
+// B1.  flat (n, dim) bf16 if flat_bf16 else f32; embed (dim, n_embed) f32;
+// q_topk (n, k*dim) f32; q1 (n, dim) f32; idx (n,) int32.  All contiguous
+// and on the current device; n_embed in {32, 64, 128, 256, 512}; n > 0;
+// `grid` from ammc_quantize_topk_grid(..., stats = 0) with the same sizes.
+int ammc_quantize_topk(const void* flat, int flat_bf16, const void* embed,
+                       void* q_topk, void* q1, void* idx, int grid, int n,
+                       int dim, int n_embed, int k, void* stream) {
+  return with_type(flat_bf16, [&](auto t) {
+    using T = decltype(t);
+    return with_cpl(n_embed, [&](auto cpl) {
+      return launch<T, decltype(cpl)::value, false>(
           flat, static_cast<const float*>(embed), static_cast<float*>(q_topk),
           static_cast<float*>(q1), static_cast<int*>(idx), nullptr, nullptr,
           grid, n, dim, k, static_cast<cudaStream_t>(stream));
@@ -396,21 +410,9 @@ int ammc_quantize_topk(const void* flat, int flat_bf16, const void* embed,
   });
 }
 
-// Blocks B2 launches for these sizes: the workspace holds that many
-// partials (grid * dim * n_embed f32 and grid * n_embed int32).
-int ammc_quantize_topk_train_grid(int flat_bf16, int n, int dim, int n_embed,
-                                  int* grid) {
-  return with_type(flat_bf16, [&](auto t) {
-    using T = decltype(t);
-    return with_cpl(n_embed, [&](auto cpl) {
-      return grid_size<T, decltype(cpl)::value, true>(n, dim, grid);
-    });
-  });
-}
-
 // B2.  B1's arguments plus counts (n_embed,) f32, embed_sum (dim, n_embed)
 // f32, and the workspace part_sum / part_counts for `grid` blocks (from
-// ammc_quantize_topk_train_grid with the same sizes).
+// ammc_quantize_topk_grid(..., stats = 1) with the same sizes).
 int ammc_quantize_topk_train(const void* flat, int flat_bf16,
                              const void* embed, void* q_topk, void* q1,
                              void* idx, void* counts, void* embed_sum,

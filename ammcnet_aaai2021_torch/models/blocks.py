@@ -48,30 +48,25 @@ class ConvTranspose2d(nn.ConvTranspose2d):
 
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (momentum 0.1, the same names and buffers) whose
-    training mode is flax's ``BatchNorm(momentum=0.9)``: batch mean and
-    variance in float32 (``var = E[x^2] - E[x]^2``, clipped at 0),
-    ``y = (x - mean) * rsqrt(var + eps) * weight + bias`` in float32, cast
-    back to the input's dtype, and the running statistics updated with the
-    *biased* batch variance, ``r = 0.9 r + 0.1 stat``.  Eval mode is torch's
-    own."""
+    training mode is flax's ``BatchNorm(momentum=0.9)``: the output is
+    torch's (normalized with the biased batch variance, statistics in
+    float32, cast back to the input's dtype), and the running statistics
+    are updated with the *biased* batch variance, ``r = 0.9 r + 0.1 stat``.
+    Eval mode is torch's own."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        x32 = x.float()
-        mean = x32.mean(dim=(0, 2, 3))
-        var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
-        mul = torch.rsqrt(var + self.eps) * self.weight
-        y = (x32 - mean[:, None, None]) * mul[:, None, None] \
-            + self.bias[:, None, None]
-        keep = 1.0 - self.momentum  # flax's momentum, 0.9
+        y = F.batch_norm(x, None, None, self.weight, self.bias, training=True,
+                         eps=self.eps)
         with torch.no_grad():
-            self.running_mean.copy_(keep * self.running_mean
-                                    + (1.0 - keep) * mean)
-            self.running_var.copy_(keep * self.running_var
-                                   + (1.0 - keep) * var)
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                       unbiased=False)
+            keep = 1.0 - self.momentum  # flax's momentum, 0.9
+            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
+            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
             self.num_batches_tracked.add_(1)
-        return y.to(x.dtype)
+        return y
 
 
 class DoubleConv(nn.Module):

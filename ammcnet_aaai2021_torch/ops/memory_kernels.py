@@ -113,17 +113,17 @@ def _library() -> ctypes.CDLL:
     ptr = ctypes.c_void_p
     lib.ammc_quantize_topk.argtypes = [
         ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ptr]
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
     lib.ammc_quantize_topk.restype = ctypes.c_int
     lib.ammc_quantize_topk_train.argtypes = [
         ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ptr]
     lib.ammc_quantize_topk_train.restype = ctypes.c_int
-    lib.ammc_quantize_topk_train_grid.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    lib.ammc_quantize_topk_grid.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
-    lib.ammc_quantize_topk_train_grid.restype = ctypes.c_int
+    lib.ammc_quantize_topk_grid.restype = ctypes.c_int
     lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
                                                   ctypes.c_int]
     lib.ammc_quantize_topk_smem_bytes.restype = ctypes.c_longlong
@@ -140,18 +140,31 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def _check_smem(lib: ctypes.CDLL, dim: int, n_embed: int, stats: bool
-                ) -> None:
-    smem = lib.ammc_quantize_topk_smem_bytes(dim, n_embed, int(stats))
-    limit = ctypes.c_int(0)
-    _raise_on(lib, lib.ammc_max_optin_smem(ctypes.byref(limit)),
-              "reading the shared-memory limit")
-    if smem > limit.value:
-        what = "the training kernel (codebook and statistics)" if stats \
-            else "the kernel"
-        raise ValueError(
-            f"a ({dim}, {n_embed}) codebook needs {smem} B of shared memory "
-            f"per block in {what}; this card allows {limit.value} B")
+@functools.cache
+def _grid(device: int, bf16: bool, n: int, dim: int, n_embed: int,
+          stats: bool) -> int:
+    """Blocks one launch takes, after checking that the codebook (and B2's
+    partial statistics) fit the card's shared memory.  The C sizing call
+    queries the device and sets the kernel's shared-memory attribute, so it
+    runs once per device and sizes, not on every launch."""
+    lib = _library()
+    with torch.cuda.device(device):
+        smem = lib.ammc_quantize_topk_smem_bytes(dim, n_embed, int(stats))
+        limit = ctypes.c_int(0)
+        _raise_on(lib, lib.ammc_max_optin_smem(ctypes.byref(limit)),
+                  "reading the shared-memory limit")
+        if smem > limit.value:
+            what = "the training kernel (codebook and statistics)" if stats \
+                else "the kernel"
+            raise ValueError(
+                f"a ({dim}, {n_embed}) codebook needs {smem} B of shared "
+                f"memory per block in {what}; this card allows "
+                f"{limit.value} B")
+        grid = ctypes.c_int(0)
+        _raise_on(lib, lib.ammc_quantize_topk_grid(
+            int(bf16), n, dim, n_embed, int(stats), ctypes.byref(grid)),
+            "sizing the quantize_topk launch")
+    return grid.value
 
 
 def _kernel_device(flat: torch.Tensor, embed: torch.Tensor) -> None:
@@ -186,12 +199,13 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int
     if n == 0:
         return q_topk, q1, idx
     lib = _library()
+    bf16 = flat.dtype == torch.bfloat16
+    grid = _grid(flat.device.index, bf16, n, dim, n_embed, False)
     with torch.cuda.device(flat.device):
-        _check_smem(lib, dim, n_embed, stats=False)
         err = lib.ammc_quantize_topk(
-            flat.data_ptr(), int(flat.dtype == torch.bfloat16),
-            embed.data_ptr(), q_topk.data_ptr(), q1.data_ptr(), idx.data_ptr(),
-            n, dim, n_embed, k, torch.cuda.current_stream().cuda_stream)
+            flat.data_ptr(), int(bf16), embed.data_ptr(), q_topk.data_ptr(),
+            q1.data_ptr(), idx.data_ptr(), grid, n, dim, n_embed, k,
+            torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "quantize_topk kernel launch")
     quantize_topk_fused.launches += 1
     return q_topk, q1, idx
@@ -230,23 +244,19 @@ def quantize_topk_train_fused(
     counts = torch.empty((n_embed,), dtype=torch.float32, device=dev)
     embed_sum = torch.empty((dim, n_embed), dtype=torch.float32, device=dev)
     lib = _library()
-    bf16 = int(flat.dtype == torch.bfloat16)
+    bf16 = flat.dtype == torch.bfloat16
+    grid = _grid(dev.index, bf16, n, dim, n_embed, True)
+    # one workspace: grid partial embed_sums (f32), then grid partial counts
+    # (int32, the same 4 bytes an entry)
+    work = torch.empty((grid * (dim + 1) * n_embed,), dtype=torch.float32,
+                       device=dev)
+    part_counts = work[grid * dim * n_embed:]
     with torch.cuda.device(dev):
-        _check_smem(lib, dim, n_embed, stats=True)
-        grid = ctypes.c_int(0)
-        _raise_on(lib, lib.ammc_quantize_topk_train_grid(
-            bf16, n, dim, n_embed, ctypes.byref(grid)),
-            "sizing the quantize_topk_train launch")
-        part_sum = torch.empty((grid.value, dim, n_embed),
-                               dtype=torch.float32, device=dev)
-        part_counts = torch.empty((grid.value, n_embed), dtype=torch.int32,
-                                  device=dev)
         err = lib.ammc_quantize_topk_train(
-            flat.data_ptr(), bf16, embed.data_ptr(), q_topk.data_ptr(),
+            flat.data_ptr(), int(bf16), embed.data_ptr(), q_topk.data_ptr(),
             q1.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-            embed_sum.data_ptr(), part_sum.data_ptr(), part_counts.data_ptr(),
-            grid.value, n, dim, n_embed, k,
-            torch.cuda.current_stream().cuda_stream)
+            embed_sum.data_ptr(), work.data_ptr(), part_counts.data_ptr(),
+            grid, n, dim, n_embed, k, torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, "quantize_topk_train kernel launch")
     quantize_topk_train_fused.launches += 1
     return q_topk, q1, idx, counts, embed_sum

@@ -12,8 +12,10 @@ Phases, one JSON line each; any failure exits non-zero:
 2. build: compiles every CUDA kernel of the paths from ``csrc/`` (nvcc);
 3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
    training lookup with the EMA statistics) against its plain PyTorch
-   version on the card at the paths' shapes, plus edge cases, with
-   CUDA-event timings and the card's bound for the same work;
+   version on the card at the paths' shapes, plus edge cases, with the
+   device time of each (CUDA graphs timed by CUDA events), the kernel's
+   back-to-back eager time (host work included), and the card's bound for
+   the same work;
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16;
 5. scoring path: ``runners.run_test.main`` scores a ped2-shaped test split
@@ -92,7 +94,9 @@ def fail(msg: str) -> None:
 
 
 def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean milliseconds per call over ``reps`` warm calls (CUDA events)."""
+    """Mean milliseconds per call over ``reps`` warm calls issued back to
+    back (CUDA events).  Where the host takes longer to issue a call than
+    the card to run it, this is the host's time per call."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -106,15 +110,58 @@ def time_ms(torch, fn, reps: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def compare_lookup(torch, mk, flat, embed, k: int) -> dict:
-    """Kernel vs plain version on the same inputs, under the near-tie rule.
+def graph_ms(torch, fn, calls: int = 20, replays: int = 5) -> float:
+    """Device milliseconds per call: ``calls`` calls captured in one CUDA
+    graph, the graph replayed ``replays`` times between CUDA events.  The
+    replay issues no host work per call (argument checks, ctypes, tensor
+    allocation), so this is the card's time for the call's kernels."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    torch.cuda.empty_cache()
+    return start.elapsed_time(end) / (calls * replays)
+
+
+def time_pair(torch, kernel, plain, *args) -> dict:
+    """Device time (CUDA graphs) of kernel and plain version, in the order
+    plain, kernel, kernel, plain, plus the kernel's back-to-back eager time
+    (host work per call included)."""
+    timings = [graph_ms(torch, lambda: fn(*args))
+               for fn in (plain, kernel, kernel, plain)]
+    return {"kernel_ms": (timings[1] + timings[2]) / 2,
+            "plain_ms": (timings[0] + timings[3]) / 2,
+            "timings_plain_kernel_kernel_plain_ms": timings,
+            "kernel_eager_ms": time_ms(torch, lambda: kernel(*args))}
+
+
+def compare_lookup(torch, kernel, plain, flat, embed, k: int) -> dict:
+    """Kernel vs plain version on the same inputs, under the near-tie rule;
+    ``kernel`` and ``plain`` return ``(q_topk, q1, idx, ...)`` (B1 or B2).
 
     Rows whose top-1 index and all k codewords agree must match bitwise; a
     row that differs is a flip, allowed only where each differing round's
     two codewords lie at float64 distances within ``NEAR_TIE_REL``."""
-    q, q1, idx = mk.quantize_topk_fused(flat, embed, k)
+    out = kernel(flat, embed, k)
     torch.cuda.synchronize()
-    rq, rq1, ridx = mk.quantize_topk_fused_ref(flat, embed, k)
+    ref = plain(flat, embed, k)
+    (q, q1, idx), (rq, rq1, ridx) = out[:3], ref[:3]
     n, dim = flat.shape
     if not (q.shape == rq.shape and q1.shape == rq1.shape
             and idx.shape == ridx.shape and idx.dtype == torch.int32):
@@ -147,7 +194,13 @@ def compare_lookup(torch, mk, flat, embed, k: int) -> dict:
         fail(f"rows whose indices agree differ by {max_err} (must be bitwise equal)")
     return {"rows": n, "flips": int((~agree).sum()),
             "flip_max_rel_gap": worst_gap, "max_abs_err": max_err,
-            "q": q, "idx": idx}
+            "out": out, "ref": ref}
+
+
+def public(res: dict) -> dict:
+    """A comparison's numbers, without its tensors, for a JSON line."""
+    return {k: v for k, v in res.items()
+            if k not in ("out", "ref", "idx", "counts")}
 
 
 def lookup_bound(n: int, dim: int, n_embed: int, k: int, in_bytes: int
@@ -194,25 +247,28 @@ def train_lookup_bound(n: int, dim: int, n_embed: int, k: int,
 
 
 def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
-    """B2 against its plain version: the lookup under B1's near-tie rule;
-    counts equal to the histogram of the kernel's own top-1 indices (and to
-    the plain version's counts where no top-1 index flipped); embed_sum
-    within ``ESUM_REL`` of the plain sum over the kernel's own indices;
-    a second call bitwise equal."""
-    res = compare_lookup(torch, mk, flat, embed, k)
-    _, _, idx, counts, esum = mk.quantize_topk_train_fused(flat, embed, k)
+    """B2 against its plain version: its own q_topk, q1 and idx under the
+    near-tie rule; counts equal to the histogram of the kernel's own top-1
+    indices (and to the plain version's counts where no top-1 index
+    flipped); embed_sum within ``ESUM_REL`` of the plain sum over the
+    kernel's own indices; a second call bitwise equal; the lookup bitwise
+    equal to B1's on the same input."""
+    res = compare_lookup(torch, mk.quantize_topk_train_fused,
+                         mk.quantize_topk_train_fused_ref, flat, embed, k)
+    q, q1, idx, counts, esum = res["out"]
     _, _, idx2, counts2, esum2 = mk.quantize_topk_train_fused(flat, embed, k)
+    b1 = mk.quantize_topk_fused(flat, embed, k)
     torch.cuda.synchronize()
     if not (torch.equal(counts, counts2) and torch.equal(esum, esum2)
             and torch.equal(idx, idx2)):
         fail("B2: two calls on the same input gave different statistics")
-    if not torch.equal(idx, res["idx"]):
-        fail("B2's top-1 indices differ from B1's on the same input")
+    if not all(torch.equal(a, b) for a, b in zip((q, q1, idx), b1)):
+        fail("B2's lookup differs from B1's on the same input")
     n_embed = embed.shape[1]
     hist = torch.bincount(idx.long(), minlength=n_embed).float()
     if not torch.equal(counts, hist):
         fail("B2 counts differ from the histogram of its top-1 indices")
-    _, _, ridx, rcounts, _ = mk.quantize_topk_train_fused_ref(flat, embed, k)
+    _, _, ridx, rcounts, _ = res["ref"]
     top1_flips = int((ridx != idx).sum())
     if top1_flips == 0 and not torch.equal(counts, rcounts):
         fail("B2 counts differ from the plain version's on a flip-free input")
@@ -225,8 +281,10 @@ def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
         fail(f"B2 embed_sum off by {worst:.3g} of the summed magnitude "
              f"(> {ESUM_REL})")
     return {"rows": res["rows"], "flips": res["flips"],
+            "flip_max_rel_gap": res["flip_max_rel_gap"],
             "top1_flips": top1_flips, "max_abs_err": res["max_abs_err"],
-            "esum_max_rel_err": worst, "deterministic": True}
+            "esum_max_rel_err": worst, "deterministic": True, "idx": idx,
+            "counts": counts}
 
 
 def train_kernel_phase(torch, mk) -> dict:
@@ -241,17 +299,11 @@ def train_kernel_phase(torch, mk) -> dict:
     for n in (4 * 32 * 32, 192 * 32 * 32):
         for name, flat in (("bfloat16", z32[:n].to(torch.bfloat16)),
                            ("float32", z32[:n].contiguous())):
-            res = compare_train_lookup(torch, mk, flat, embed, k)
-            timings = []
-            for fn in (mk.quantize_topk_train_fused_ref,
-                       mk.quantize_topk_train_fused,
-                       mk.quantize_topk_train_fused,
-                       mk.quantize_topk_train_fused_ref):
-                timings.append(time_ms(torch, lambda: fn(flat, embed, k)))
+            res = public(compare_train_lookup(torch, mk, flat, embed, k))
             row = {"shape": [n, dim, n_embed, k], **res,
-                   "kernel_ms": (timings[1] + timings[2]) / 2,
-                   "plain_ms": (timings[0] + timings[3]) / 2,
-                   "timings_plain_kernel_kernel_plain_ms": timings,
+                   **time_pair(torch, mk.quantize_topk_train_fused,
+                               mk.quantize_topk_train_fused_ref,
+                               flat, embed, k),
                    **train_lookup_bound(n, dim, n_embed, k,
                                         flat.element_size())}
             out[(n, name)] = row
@@ -261,15 +313,15 @@ def train_kernel_phase(torch, mk) -> dict:
     ragged = compare_train_lookup(torch, mk, z32[:1037].to(torch.bfloat16),
                                   embed, k)
     emit("kernel_check", kernel="quantize_topk_train_fused",
-         input="ragged N=1037 bf16", **ragged)
+         input="ragged N=1037 bf16", **public(ragged))
     dup = embed.clone()
     dup[:, 1::2] = dup[:, 0::2]
     res = compare_train_lookup(torch, mk, z32[:65536], dup, k)
-    _, _, idx, counts, _ = mk.quantize_topk_train_fused(z32[:65536], dup, k)
-    if bool((idx % 2 != 0).any()) or bool(counts[1::2].any()):
+    if bool((res["idx"] % 2 != 0).any()) or bool(res["counts"][1::2].any()):
         fail("B2 tie-break: a higher index of equal codewords was picked")
     emit("kernel_check", kernel="quantize_topk_train_fused",
-         input="duplicated codewords f32", lowest_index_wins=True, **res)
+         input="duplicated codewords f32", lowest_index_wins=True,
+         **public(res))
     try:
         mk.quantize_topk_train_fused(z32[:64], torch.randn(
             dim, 512, device="cuda", generator=g), k)
@@ -290,25 +342,17 @@ def kernel_phase(torch, mk) -> dict:
     embed = torch.randn(dim, n_embed, device="cuda", generator=g)
     z32 = torch.randn(n, dim, device="cuda", generator=g) * 0.5
     out = {}
+    b1 = (mk.quantize_topk_fused, mk.quantize_topk_fused_ref)
     for name, flat in (("bfloat16", z32.to(torch.bfloat16)),
                        ("float32", z32)):
-        res = compare_lookup(torch, mk, flat, embed, k)
-        timings = []
-        for fn in (mk.quantize_topk_fused_ref, mk.quantize_topk_fused,
-                   mk.quantize_topk_fused, mk.quantize_topk_fused_ref):
-            timings.append(time_ms(torch, lambda: fn(flat, embed, k)))
+        res = public(compare_lookup(torch, *b1, flat, embed, k))
         bound = lookup_bound(n, dim, n_embed, k, flat.element_size())
-        out[name] = {
-            "shape": [n, dim, n_embed, k], "rows": res["rows"],
-            "flips": res["flips"], "flip_max_rel_gap": res["flip_max_rel_gap"],
-            "max_abs_err": res["max_abs_err"],
-            "kernel_ms": (timings[1] + timings[2]) / 2,
-            "plain_ms": (timings[0] + timings[3]) / 2,
-            "timings_plain_kernel_kernel_plain_ms": timings, **bound}
+        out[name] = {"shape": [n, dim, n_embed, k], **res,
+                     **time_pair(torch, *b1, flat, embed, k), **bound}
         emit("kernel_check", kernel="quantize_topk_fused", input=name,
              **out[name])
 
-    ragged = compare_lookup(torch, mk, z32[:1037].to(torch.bfloat16), embed, k)
+    ragged = compare_lookup(torch, *b1, z32[:1037].to(torch.bfloat16), embed, k)
     emit("kernel_check", kernel="quantize_topk_fused", input="ragged N=1037 bf16",
          flips=ragged["flips"], max_abs_err=ragged["max_abs_err"])
 
@@ -316,17 +360,18 @@ def kernel_phase(torch, mk) -> dict:
     # ties; the lowest index must win round 1 and its twin round 2
     dup = embed.clone()
     dup[:, 1::2] = dup[:, 0::2]
-    res = compare_lookup(torch, mk, z32[:65536], dup, k)
-    if bool((res["idx"] % 2 != 0).any()):
+    res = compare_lookup(torch, *b1, z32[:65536], dup, k)
+    q, _, idx = res["out"]
+    if bool((idx % 2 != 0).any()):
         fail("tie-break: the kernel picked the higher index of equal codewords")
-    if not torch.equal(res["q"][:, :dim], res["q"][:, dim:]):
+    if not torch.equal(q[:, :dim], q[:, dim:]):
         fail("tie-break: round 2 did not pick the equal twin of round 1")
     emit("kernel_check", kernel="quantize_topk_fused",
          input="duplicated codewords f32", lowest_index_wins=True,
          flips=res["flips"], max_abs_err=res["max_abs_err"])
 
     big = torch.randn(dim, 512, device="cuda", generator=g)
-    res = compare_lookup(torch, mk, z32[:4096], big, k)
+    res = compare_lookup(torch, *b1, z32[:4096], big, k)
     emit("kernel_check", kernel="quantize_topk_fused", input="n_embed=512 f32",
          flips=res["flips"], max_abs_err=res["max_abs_err"])
     return out
@@ -742,6 +787,7 @@ def main(argv=None) -> None:
         "flips": bf16["flips"] + checks["float32"]["flips"],
         "ms": bf16["kernel_ms"],
         "kernel_ms": bf16["kernel_ms"],
+        "kernel_eager_ms": bf16["kernel_eager_ms"],
         "plain_ms": bf16["plain_ms"],
         "bound_ms": bf16["bound_ms"],
         "bound_by": bf16["bound_by"],
@@ -758,11 +804,13 @@ def main(argv=None) -> None:
         "flips": b2["flips"] + b2_f32["flips"],
         "ms": b2["kernel_ms"],
         "kernel_ms": b2["kernel_ms"],
+        "kernel_eager_ms": b2["kernel_eager_ms"],
         "plain_ms": b2["plain_ms"],
         "bound_ms": b2["bound_ms"],
         "bound_by": b2["bound_by"],
         "library_ms": None,
         "at_n_196608": {"kernel_ms": b2_big["kernel_ms"],
+                        "kernel_eager_ms": b2_big["kernel_eager_ms"],
                         "plain_ms": b2_big["plain_ms"],
                         "bound_ms": b2_big["bound_ms"],
                         "bound_by": b2_big["bound_by"]},

@@ -41,27 +41,6 @@ WINDOWS = 192
 FRAMES = WINDOWS + 4  # a 5-frame window starts at each of 192 frames
 SIZE = 256
 
-# coarse kernel groups, first match wins (cuDNN / ATen kernel names)
-GROUPS = (
-    ("memory lookup kernel", ("quantize_topk",)),
-    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
-    ("convolution", ("conv", "xmma", "gemm", "cutlass", "implicit", "winograd",
-                     "fft")),
-    ("batch norm", ("batch_norm", "batchnorm", "bn_")),
-    ("pooling", ("pool",)),
-    ("elementwise and reductions", ("elementwise", "reduce", "cat", "copy",
-                                    "index", "gather", "fill")),
-)
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other"
-
-
 def host_phase(torch, dtype, card: str) -> None:
     import tempfile
     from concurrent.futures import ThreadPoolExecutor
@@ -202,8 +181,9 @@ def main(argv=None) -> None:
             "windows_per_s": WINDOWS / ms * 1e3}),
             flush=True)
 
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
+
+        from kernel_trace import device_summary
 
         traced = 3
         with profile(activities=[ProfilerActivity.CPU,
@@ -213,24 +193,9 @@ def main(argv=None) -> None:
                 batch()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    device_us = sum(e.device_time_total for e in kernels)
-    groups: dict = {}
-    for e in kernels:
-        key = group_of(e.key)
-        groups[key] = groups.get(key, 0.0) + e.device_time_total
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:15]
-    print(json.dumps({
-        "phase": "profile", "card": card, "batches": traced,
-        "wall_ms_per_batch": wall_us / traced / 1e3,
-        "device_ms_per_batch": device_us / traced / 1e3,
-        "device_busy_share": device_us / wall_us if wall_us else None,
-        "groups_ms_per_batch": {k: v / traced / 1e3 for k, v in
-                                sorted(groups.items(), key=lambda kv: -kv[1])},
-        "top_kernels": [{"name": e.key[:120], "calls": e.count // traced,
-                         "ms_per_batch": e.device_time_total / traced / 1e3}
-                        for e in top]}), flush=True)
+    print(json.dumps({"phase": "profile", "card": card, "batches": traced,
+                      **device_summary(prof, wall_us, traced, "batch")}),
+          flush=True)
     host_phase(torch, net.dtype, card)
     runs_phase(torch, card)
 

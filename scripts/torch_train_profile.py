@@ -34,30 +34,6 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BATCH, SIZE = 4, 256
 
-# coarse kernel groups, first match wins (cuDNN / ATen kernel names)
-GROUPS = (
-    ("memory lookup kernels (B2, B1)", ("quantize_topk", "reduce_stats")),
-    ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
-    ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
-    ("convolution (fwd, dgrad, wgrad)", ("conv", "xmma", "gemm", "cutlass",
-                                         "implicit", "winograd", "fft",
-                                         "dgrad", "wgrad")),
-    ("pooling and upsampling", ("pool", "upsample")),
-    ("reductions (BatchNorm statistics, losses)", ("reduce",)),
-    ("elementwise (BatchNorm apply, casts, ReLU, adds)",
-     ("elementwise", "vectorized", "unrolled", "cat", "copy", "index",
-      "gather", "fill", "scatter")),
-)
-
-
-def group_of(name: str) -> str:
-    low = name.lower()
-    for group, keys in GROUPS:
-        if any(k in low for k in keys):
-            return group
-    return "other"
-
-
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--reps", type=int, default=20)
@@ -119,8 +95,9 @@ def main(argv=None) -> None:
         "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30}),
         flush=True)
 
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from kernel_trace import device_summary
 
     traced = 5
     with profile(activities=[ProfilerActivity.CPU,
@@ -130,31 +107,9 @@ def main(argv=None) -> None:
             step(state, batch, flownet)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # device events that are kernels: the profiler also puts the optimizer's
-    # range (``Optimizer.step#Adam.step``) on the device's timeline
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith("Optimizer.")]
-    device_us = sum(e.device_time_total for e in kernels)
-    groups: dict = {}
-    launches = 0
-    for e in kernels:
-        key = group_of(e.key)
-        groups[key] = groups.get(key, 0.0) + e.device_time_total
-        launches += e.count
-    top = sorted(kernels, key=lambda e: -e.device_time_total)[:15]
-    print(json.dumps({
-        "phase": "profile", "card": card, "steps": traced,
-        "wall_ms_per_step": wall_us / traced / 1e3,
-        "device_ms_per_step": device_us / traced / 1e3,
-        "device_busy_share": device_us / wall_us if wall_us else None,
-        "kernel_launches_per_step": launches / traced,
-        "groups_ms_per_step": {k: v / traced / 1e3 for k, v in
-                               sorted(groups.items(), key=lambda kv: -kv[1])},
-        "top_kernels": [{"name": e.key[:120], "calls": e.count // traced,
-                         "ms_per_step": e.device_time_total / traced / 1e3}
-                        for e in top]}), flush=True)
-
+    print(json.dumps({"phase": "profile", "card": card, "steps": traced,
+                      **device_summary(prof, wall_us, traced, "step")}),
+          flush=True)
 
 if __name__ == "__main__":
     main()

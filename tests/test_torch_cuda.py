@@ -25,6 +25,7 @@ from ammcnet_aaai2021_torch.models import (
     init_flownet_weights,
     init_weights,
 )
+from ammcnet_aaai2021_torch.ops import memory_kernels
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
     quantize_topk_fused,
     quantize_topk_fused_ref,
@@ -154,6 +155,20 @@ def test_train_kernel_rejects_statistics_over_shared_memory(cuda_device):
     embed = torch.zeros(DIM, 512, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
         quantize_topk_train_fused(flat, embed, K)
+
+
+@pytest.mark.cuda
+def test_wrappers_size_each_launch_shape_once(cuda_device):
+    """The shared-memory check and grid sizing (device queries, occupancy)
+    run once per device and shape, not on every launch."""
+    flat = torch.randn(300, DIM, device=cuda_device)
+    embed = torch.randn(DIM, 64, device=cuda_device)
+    memory_kernels._grid.cache_clear()
+    for _ in range(3):
+        quantize_topk_fused(flat, embed, K)
+        quantize_topk_train_fused(flat, embed, K)
+    info = memory_kernels._grid.cache_info()
+    assert (info.misses, info.hits) == (2, 4)
 
 
 @pytest.mark.cuda
