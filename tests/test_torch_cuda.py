@@ -7,8 +7,9 @@ the repository's ``conftest.py`` imports JAX, so run it there with
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
 Near-ties: the kernel and the plain version sum the same fp32 products in
-another order, so a top-k index may flip where two codewords lie at almost
-the same distance; rows whose indices agree must match bitwise.  Kernel
+another order (B1's tensor-core route sums three bf16 split products), so a
+top-k index may flip where two codewords lie at almost the same distance;
+rows whose indices agree must match bitwise.  Kernel
 B2's counts must equal the histogram of its own top-1 indices, and its
 embed_sum the plain sum over those indices within 1e-5 of the magnitude
 summed into each entry (another summation order).
@@ -27,6 +28,8 @@ from ammcnet_aaai2021_torch.models import (
 )
 from ammcnet_aaai2021_torch.ops import memory_kernels
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
+    CUDA_CORE,
+    TENSOR_CORE,
     quantize_topk_fused,
     quantize_topk_fused_ref,
     quantize_topk_train_fused,
@@ -76,6 +79,74 @@ def test_kernel_lowest_index_wins_ties(cuda_device):
     q, _, idx = quantize_topk_fused(flat, embed, K)
     assert not bool((idx % 2).any())
     assert torch.equal(q[:, :DIM], q[:, DIM:])  # round 2 takes the twin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2, 4])
+@pytest.mark.parametrize("n_embed", [64, 256, 512])
+def test_tensor_core_route_matches_plain_version(cuda_device, n_embed, k):
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    flat = torch.randn(1037, DIM, device=cuda_device,  # ragged: not 32 | N
+                       generator=g).to(torch.bfloat16)
+    embed = torch.randn(DIM, n_embed, device=cuda_device, generator=g)
+    before = dict(quantize_topk_fused.launches_by_route)
+    q, q1, idx = quantize_topk_fused(flat, embed, k)
+    torch.cuda.synchronize()
+    assert quantize_topk_fused.launches_by_route == {
+        TENSOR_CORE: before[TENSOR_CORE] + 1, CUDA_CORE: before[CUDA_CORE]}
+    rq, rq1, ridx = quantize_topk_fused_ref(flat, embed, k)
+    assert q.shape == (1037, k * DIM) and torch.equal(q1, q[:, :DIM])
+    agree = (idx == ridx) & (q == rq).all(dim=1)
+    assert int((~agree).sum()) <= 2  # near-ties only, at this size
+    assert torch.equal(q[agree], rq[agree]) and torch.equal(q1[agree], rq1[agree])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_tensor_core_route_lowest_index_wins_ties(cuda_device, k):
+    g = torch.Generator(device=cuda_device).manual_seed(13)
+    flat = torch.randn(4099, DIM, device=cuda_device,
+                       generator=g).to(torch.bfloat16)
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    embed[:, 1::2] = embed[:, 0::2]  # every distance ties in pairs
+    before = quantize_topk_fused.launches_by_route[TENSOR_CORE]
+    q, _, idx = quantize_topk_fused(flat, embed, k)
+    assert quantize_topk_fused.launches_by_route[TENSOR_CORE] == before + 1
+    assert not bool((idx % 2).any())
+    if k == 2:
+        assert torch.equal(q[:, :DIM], q[:, DIM:])  # round 2 takes the twin
+
+
+@pytest.mark.cuda
+def test_routes_agree_and_cuda_core_route_is_forced(cuda_device):
+    """bf16 latents through both kernels: the CUDA-core kernel when asked
+    for it; the two agree but for near-ties."""
+    g = torch.Generator(device=cuda_device).manual_seed(14)
+    flat = torch.randn(8192, DIM, device=cuda_device,
+                       generator=g).to(torch.bfloat16)
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    before = dict(quantize_topk_fused.launches_by_route)
+    launches = quantize_topk_fused.launches
+    tc = quantize_topk_fused(flat, embed, K)
+    cc = quantize_topk_fused(flat, embed, K, route=CUDA_CORE)
+    torch.cuda.synchronize()
+    assert quantize_topk_fused.launches == launches + 2
+    assert quantize_topk_fused.launches_by_route == {
+        TENSOR_CORE: before[TENSOR_CORE] + 1,
+        CUDA_CORE: before[CUDA_CORE] + 1}
+    agree = (tc[2] == cc[2]) & (tc[0] == cc[0]).all(dim=1)
+    assert int((~agree).sum()) <= 2
+    assert torch.equal(tc[0][agree], cc[0][agree])
+
+
+@pytest.mark.cuda
+def test_tensor_core_route_rejects_misaligned_latents(cuda_device):
+    """cp.async copies 16-byte chunks: latents 2 bytes off raise."""
+    store = torch.zeros(64 * 65, device=cuda_device, dtype=torch.bfloat16)
+    flat = store[1:1 + 64 * 64].view(64, DIM)
+    embed = torch.randn(DIM, 256, device=cuda_device)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quantize_topk_fused(flat, embed, K)
 
 
 @pytest.mark.cuda

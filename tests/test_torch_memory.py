@@ -11,6 +11,12 @@ Tolerances: codewords are gathered, not computed, so equal indices give
 equal values; 1e-5 absolute covers the straight-through ``z + (q - z)``
 round trip.  Commit distances are means of the same squared differences
 summed in another order: 1e-5 relative.
+
+The tensor-core kernel (``csrc/quantize_topk_mma.cu``) splits the float32
+codebook into three bf16 parts; its arithmetic is mirrored here in plain
+PyTorch (the split is exact, and the split products rank as the plain
+version does under the near-tie rule), and :func:`lookup_route` is held to
+its rule.
 """
 
 import jax.numpy as jnp
@@ -23,13 +29,20 @@ from ammcnet_aaai2021_tpu.ops.memory import quantize_topk as j_quantize_topk
 from ammcnet_aaai2021_tpu.ops.memory_pallas import quantize_topk_pallas
 from ammcnet_aaai2021_torch.ops.memory import Codebook, quantize_topk
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
+    CUDA_CORE,
+    TENSOR_CORE,
+    lookup_route,
     quantize_topk_fused,
     quantize_topk_fused_ref,
+    topk_smallest,
 )
 
 torch.set_num_threads(2)
 
 DIM, N_EMBED, K = 64, 64, 2
+# a top-k index may differ from the plain version's only where the two
+# codewords' float64 distances differ by less than this (chip_smoke.py)
+NEAR_TIE_REL = 1e-5
 
 
 def _inputs(seed, n, dup=False):
@@ -162,3 +175,88 @@ def test_quantize_topk_train_is_the_training_slices():
     assert new is not tcb and float(new.cluster_size.sum()) == pytest.approx(
         0.01 * 4)  # (1 - decay) * 4 rows
     assert torch.equal(tcb.embed, embed) and not tcb.cluster_size.any()
+
+
+def split_bf16x3(embed):
+    """The tensor-core kernel's split of the f32 codebook: hi = bf16(E),
+    mid = bf16(E - hi), lo = bf16(E - hi - mid), each subtraction in f32."""
+    hi = embed.to(torch.bfloat16)
+    r1 = embed - hi.float()
+    mid = r1.to(torch.bfloat16)
+    lo = (r1 - mid.float()).to(torch.bfloat16)
+    return hi, mid, lo
+
+
+# binary exponents of normal, tiny and large entries: the split is exact
+# from 2^-110 (below it lo would need bf16 subnormals finer than 2^-133) to
+# bf16's largest finite value, 3.39e38
+@pytest.mark.parametrize("exponents", [(-10, 10), (-110, -100), (100, 126)],
+                         ids=["normal", "tiny", "large"])
+def test_split_bf16x3_is_exact(exponents):
+    rng = np.random.default_rng(8)
+    mantissa = rng.uniform(1.0, 2.0, size=(DIM, 256))
+    sign = rng.choice([-1.0, 1.0], size=(DIM, 256))
+    embed = torch.from_numpy(np.ldexp(sign * mantissa, rng.integers(
+        *exponents, size=(DIM, 256), endpoint=True)).astype(np.float32))
+    hi, mid, lo = split_bf16x3(embed)
+    rebuilt = (hi.float() + mid.float()) + lo.float()  # the kernel's gather
+    assert torch.equal(rebuilt.view(torch.int32), embed.view(torch.int32))
+    # each part carries the next 8 significant bits: lo is 2^-16 of E or less
+    assert bool((lo.float().abs() <= embed.abs() * 2.0 ** -16).all())
+
+
+def test_split_products_pick_the_plain_versions_indices():
+    """bf16 latents times each part are exact in f32, so their sum ranks the
+    codewords as the plain version's f32 product does, up to near-ties; rows
+    whose indices agree gather bitwise equal codewords from the parts."""
+    rng = np.random.default_rng(9)
+    n, n_embed, k = 2048, 256, 2
+    flat = torch.from_numpy((rng.normal(size=(n, DIM)) * 0.5)
+                            .astype(np.float32)).to(torch.bfloat16)
+    embed = torch.from_numpy(rng.normal(size=(DIM, n_embed))
+                             .astype(np.float32))
+    hi, mid, lo = split_bf16x3(embed)
+    z = flat.float()
+    cross = z @ lo.float()  # the smallest terms first, as the kernel adds
+    cross = cross + z @ mid.float()
+    cross = cross + z @ hi.float()
+    dist = torch.addcmul((embed * embed).sum(0, keepdim=True), cross,
+                         torch.full_like(cross, -2.0))
+    idx = topk_smallest(dist, k)
+    rebuilt = ((hi.float() + mid.float()) + lo.float()).t()
+    q = rebuilt[idx].reshape(n, k * DIM)
+
+    rq, _, _ = quantize_topk_fused_ref(flat, embed, k)
+    ref_idx = topk_smallest(-2.0 * (z @ embed) + (embed * embed).sum(0), k)
+    agree = (idx == ref_idx).all(1)
+    assert torch.equal(q[agree], rq[agree])
+    assert int((~agree).sum()) <= 2  # near-ties only, at this size
+    z64, e64 = z[~agree].double(), embed.t().double()
+    d_split = (z64[:, None] - e64[idx[~agree]]).square().sum(-1)
+    d_ref = (z64[:, None] - e64[ref_idx[~agree]]).square().sum(-1)
+    gap = (d_split - d_ref).abs() / torch.maximum(d_split, d_ref)
+    assert bool((gap < NEAR_TIE_REL).all())
+
+
+@pytest.mark.parametrize("dtype,dim,n_embed,k,route", [
+    (torch.bfloat16, 64, 256, 2, TENSOR_CORE),  # the released configuration
+    (torch.bfloat16, 64, 256, 1, TENSOR_CORE),  # TopKMemory's default k
+    (torch.bfloat16, 64, 32, 4, TENSOR_CORE),
+    (torch.bfloat16, 64, 512, 3, TENSOR_CORE),
+    (torch.float32, 64, 256, 2, CUDA_CORE),  # f32 latents: the parity path
+    (torch.bfloat16, 64, 256, 5, CUDA_CORE),  # k past the instantiated 4
+    (torch.bfloat16, 32, 256, 2, CUDA_CORE),  # another latent width
+    (torch.bfloat16, 64, 96, 2, CUDA_CORE),  # no kernel takes this codebook
+])
+def test_lookup_route(dtype, dim, n_embed, k, route):
+    assert lookup_route(dtype, dim, n_embed, k) == route
+
+
+def test_wrapper_rejects_a_tensor_core_route_the_rule_does_not_give():
+    flat, embed = (torch.from_numpy(a) for a in _inputs(10, 16))
+    with pytest.raises(ValueError, match="route"):
+        quantize_topk_fused(flat, embed, K, route=TENSOR_CORE)  # f32 latents
+    got = quantize_topk_fused(flat.to(torch.bfloat16), embed, K,
+                              route=CUDA_CORE)  # every input may take it
+    want = quantize_topk_fused_ref(flat.to(torch.bfloat16), embed, K)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
