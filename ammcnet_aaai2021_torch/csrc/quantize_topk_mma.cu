@@ -1,12 +1,15 @@
 // Fused top-k memory lookup for bf16 latents on Hopper's tensor cores
 // (sm_90a, warp-level mma.sync): distance, top-k and gather in one pass.
 //
-// Kernel B1, tensor-core route.  It replaces the Pallas TPU kernel
+// Kernels B1 and B2, tensor-core route.  B1 replaces the Pallas TPU kernel
 // `_quantize_kernel` called by `quantize_topk_pallas`
-// (ammcnet_aaai2021_tpu/ops/memory_pallas.py:48-82, :201-255) for bf16
-// latents of width 64 with k <= 4; float32 latents and larger k take the
-// CUDA-core kernel in quantize_topk.cu.  The routing rule is
-// `lookup_route` in ammcnet_aaai2021_torch/ops/memory_kernels.py.
+// (ammcnet_aaai2021_tpu/ops/memory_pallas.py:48-82, :201-255); B2, this
+// lookup followed by `ema_stats_kernel` (below), replaces
+// `_quantize_train_kernel` called by `quantize_topk_pallas_train`
+// (memory_pallas.py:84-135, :137-198).  Both take bf16 latents of width 64
+// with k <= 4; float32 latents and larger k take the CUDA-core kernels in
+// quantize_topk.cu.  The routing rule is `lookup_route` in
+// ammcnet_aaai2021_torch/ops/memory_kernels.py.
 //
 // It computes what the CUDA-core kernel computes: for each latent row z
 // (64 bf16) against the codebook E (64, n_embed) f32 the ranking distance
@@ -85,10 +88,65 @@
 //    (8 at k = 4, 4 at n_embed 512), one block an SM: 197,632 B of shared
 //    memory and at most 168 registers a thread at n_embed 256, k 2.
 //
+// B2 adds the EMA statistics of the top-1 picks: counts (n_embed,) f32, the
+// number of rows whose top-1 is j, and embed_sum (64, n_embed) f32 =
+// flat^T . one_hot(top-1).  The TPU kernel summed them on its matrix unit
+// across a sequential grid.  Here the lookup above runs unchanged (so B2's
+// q_topk, q1 and idx are bitwise B1's) and a second kernel on the same
+// stream reads idx and flat back.
+//
+// What bounds the statistics.  They add N*64 values: N*128 B of z and N*4 B
+// of idx, already counted as B1's input and output, so the compulsory
+// traffic grows only by the statistics written (66 KiB at n_embed 256).
+// What costs is where the rows go: any row may belong to any codeword, and
+// GPU blocks run in no order, so a plain sum per codeword across blocks
+// needs float atomics (an order that changes from run to run) or partials
+// and a second pass (a workspace that scales with the blocks).  And the
+// rows are skewed: a fifth to a half of them may pick one codeword
+// (codebooks collapse in training; random latents much smaller than the
+// codewords pick the shortest ones), so a codeword's rows must not be left
+// to one SM.  At the training path's N = 4,096 the work is tiny and the
+// chain of dependent steps (idx, then the rows, then the partials of other
+// blocks) sets the time.
+//
+// What the design does about it (ema_stats_kernel).
+//  * A cluster of 8 blocks (Hopper's thread-block clusters) owns a group of
+//    J = n_embed / 32 codewords: 32 clusters, 256 blocks of 4 warps, three
+//    an SM, so all are resident at once.  Block c of a cluster sums rows
+//    [c N/8, (c + 1) N/8), so a codeword's rows spread over 8 SMs, and the
+//    blocks combine their partials through distributed shared memory.
+//    Every (d, j) entry is summed inside one cluster: no atomics, no
+//    workspace, no second pass, and n_embed 512 runs (the CUDA-core B2 keeps
+//    a dim x n_embed partial in shared memory and cannot).
+//  * Each warp scans a contiguous part of its block's rows in idx, four
+//    indices a lane (16-byte loads, 256 a step), the next step's loads in
+//    flight while it adds the current one's rows.  Ballots and popcounts
+//    rank the matches in row order into a per-warp list in shared memory.
+//    The warp stages the listed rows into shared memory with cp.async, 32 at
+//    a time with the next 32 in flight, and adds each batch on the tensor
+//    cores as partial += one_hot(code)^T . z (mma.m16n8k16, codewords as
+//    the 16 rows of A, ldmatrix.trans for z): the products are exact and
+//    each MMA starts from 0, so it sums at most 16 exact terms, and the
+//    batch sums add into f32 registers in row order.  A column of ones
+//    counts the rows, exactly.  One MMA pass costs the same for any mix of
+//    codewords, where adding row by row into per-codeword sums cost a
+//    dependent shared-memory round trip a row.
+//  * The block adds its 4 warp partials in warp order and pushes each
+//    8-d slice (float4 stores into the other blocks' shared memory) to the
+//    block that writes it out; after one cluster barrier each block adds the
+//    8 slices it received in block order.  No block reads another's shared
+//    memory after the barrier, so none waits for the others to finish.
+//  * So every entry is a fixed sum (16-row MMA sums in row order within a
+//    warp's part, then the parts in order): two calls are bitwise equal.
+//  * Cost.  Each cluster reads all of idx (32 x N*4 B from L2, 25 MB at
+//    N = 196,608), and a cluster's time grows with its codewords' share of
+//    the rows.
+
 // Plain C interface, built with nvcc into a shared library and bound with
 // ctypes (ammcnet_aaai2021_torch/ops/memory_kernels.py).  Launches go on
 // the caller's stream; every entry point returns a cudaError_t.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -96,6 +154,8 @@
 #include <type_traits>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kDim = 64;             // latent width the kernel is built for
 constexpr int kChunks = kDim / 8;    // 16-byte chunks (8 bf16) in a row
@@ -143,6 +203,23 @@ __device__ __forceinline__ void cp_async_wait_prev() {
   asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// four 8x8 b16 matrices from shared memory, transposed: lane l gives the
+// address of row l % 8 of matrix l / 8 and receives, of matrix m, the
+// elements (rows 2 (l % 4), + 1; column l / 4) in r[m]
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(a)
+      : "memory");
+}
+
 // c += A (16x16 bf16, row) * B (16x8 bf16, col), f32 accumulate
 __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
@@ -151,6 +228,13 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+constexpr uint32_t kOnes2 = 0x3f803f80u;  // two bf16 ones
+
+// two bf16 entries of a one-hot column: 1 where the code is q, else 0
+__device__ __forceinline__ uint32_t one_hot2(int code_lo, int code_hi, int q) {
+  return (code_lo == q ? 0x3f80u : 0u) | (code_hi == q ? 0x3f800000u : 0u);
 }
 
 __device__ __forceinline__ uint32_t pack2(__nv_bfloat16 lo, __nv_bfloat16 hi) {
@@ -493,6 +577,288 @@ quantize_topk_mma_kernel(const __nv_bfloat16* __restrict__ flat,
   }
 }
 
+// ema_stats_kernel's shape for a codebook of NE codewords
+template <int NE>
+struct StatsCfg {
+  static constexpr int kCluster = 8;  // blocks a cluster: row parts
+  // clusters, each owning kJ codewords: at three blocks an SM an H100 holds
+  // all 32 at once (45 clusters of 8)
+  static constexpr int kGroups = 32;
+  static constexpr int kJ = NE / kGroups;
+  static constexpr int kBlocks = kGroups * kCluster;
+  static constexpr int kWarps = 4;
+  static constexpr int kThreads = kWarps * 32;
+  // blocks an SM: 170 registers a thread, no spills (128 at four)
+  static constexpr int kMinBlocks = 3;
+  static constexpr int kUnroll = 2;            // 128-index chunks a step
+  static constexpr int kStep = kUnroll * 128;  // indices a warp scans a step
+  static constexpr int kBatch = 32;  // listed rows a warp stages at once,
+                                     // one a lane; two batches in flight
+  static constexpr int kD = kDim / kCluster;  // d a block writes out
+  // shared memory: the warps' staged rows [warp][2][batch][128 B]; their
+  // partials [warp][J][64] f32 and counts [warp][J] int32; the block
+  // partials pushed to this block, [rank][J][kD] f32, and their counts
+  // [rank][J] int32; the warps' lists [warp][kStep] uint16
+  static constexpr int kStageBytes = kWarps * 2 * kBatch * kRowBytes;
+  static constexpr int kPart = kWarps * kJ * kDim;
+  static constexpr int kRecv = kCluster * kJ * kD;
+  static constexpr int kSmem =
+      kStageBytes + (kPart + kWarps * kJ + kRecv + kCluster * kJ) * 4 +
+      kWarps * kStep * 2;
+};
+
+// idx of rows [r, r + 4) (r a multiple of 4), -1 from `end` on
+__device__ __forceinline__ int4 load_idx4(const int* __restrict__ idx, int r,
+                                          int end) {
+  if (r + 4 <= end) return __ldg(reinterpret_cast<const int4*>(idx + r));
+  int4 v = make_int4(-1, -1, -1, -1);
+  if (r < end) v.x = __ldg(idx + r);
+  if (r + 1 < end) v.y = __ldg(idx + r + 1);
+  if (r + 2 < end) v.z = __ldg(idx + r + 2);
+  return v;
+}
+
+// counts[j] and embed_sum[:, j] for the J codewords cluster blockIdx.x / 8
+// owns, from the lookup's idx and the latents (see "B2" above).
+// 0 < n < 2^31 - 8.
+template <int NE>
+__global__ void __cluster_dims__(StatsCfg<NE>::kCluster, 1, 1)
+__launch_bounds__(StatsCfg<NE>::kThreads, StatsCfg<NE>::kMinBlocks)
+ema_stats_kernel(const __nv_bfloat16* __restrict__ flat,
+                 const int* __restrict__ idx, float* __restrict__ counts,
+                 float* __restrict__ embed_sum, int n) {
+  using C = StatsCfg<NE>;
+  constexpr int J = C::kJ;
+  static_assert(J <= 32 && C::kStep * 32 <= 65536, "list entries are 16 bits");
+  static_assert(C::kBatch == 32 && J <= 16, "a lane holds a staged row's "
+                "code; codewords are the 16 rows of an MMA tile");
+  extern __shared__ __align__(16) unsigned char smem[];
+  unsigned char* stage = smem;
+  float* part = reinterpret_cast<float*>(smem + C::kStageBytes);
+  int* part_n = reinterpret_cast<int*>(part + C::kPart);
+  float* recv = reinterpret_cast<float*>(part_n + C::kWarps * J);
+  int* recv_n = reinterpret_cast<int*>(recv + C::kRecv);
+  // a warp's matches of one step: (row - step start) << 5 | (j - j0)
+  unsigned short* lists =
+      reinterpret_cast<unsigned short*>(recv_n + C::kCluster * J);
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int j0 = blockIdx.x / C::kCluster * J;
+  const unsigned char* z = reinterpret_cast<const unsigned char*>(flat);
+  const unsigned below = (1u << lane) - 1u;
+  unsigned char* my_stage = stage + warp * 2 * C::kBatch * kRowBytes;
+  unsigned short* my_list = lists + warp * C::kStep;
+
+  // block `rank` sums rows [rank seg_b, (rank + 1) seg_b), its warp w the
+  // w-th part of those; both lengths multiples of 4
+  const int seg_b = static_cast<int>(
+      ((static_cast<unsigned>(n) + C::kCluster - 1) / C::kCluster + 3) & ~3u);
+  const int seg_w = ((seg_b + C::kWarps - 1) / C::kWarps + 3) & ~3;
+  const int block_end = min(n, (rank + 1) * seg_b);
+  const int begin = rank * seg_b + warp * seg_w;
+  const int end = min(block_end, begin + seg_w);
+
+  // The warp's partial of its J codewords, as the accumulator fragments of
+  // mma.m16n8k16 (rows: codeword j0 + q, q < 16; columns: d, 8 a tile):
+  // lane (g, tq) holds q = g, g + 8 and d = 8 nt + 2 tq, + 1.  cnt[h]: the
+  // rows of codeword j0 + g + 8 h.
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  float acc[kDim / 8][4];
+  float cnt[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < kDim / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+  }
+  // Adds a staged batch of 32 rows on the tensor cores, 16 rows a k-step:
+  // partial += one_hot(code)^T . z, with the code of batch row l in lane l
+  // (-1: none of this cluster's).  The products are exact and each MMA
+  // starts from 0, so it sums at most 16 exact terms; its sum then adds into
+  // the f32 accumulators, k-steps in row order.  A column of ones counts
+  // the rows.
+  auto add_batch = [&](const unsigned char* st, int code) {
+#pragma unroll
+    for (int ks = 0; ks < C::kBatch / 16; ++ks) {
+      const int r = 16 * ks + 2 * tq;
+      const int k0 = __shfl_sync(kFull, code, r);
+      const int k1 = __shfl_sync(kFull, code, r + 1);
+      const int k8 = __shfl_sync(kFull, code, r + 8);
+      const int k9 = __shfl_sync(kFull, code, r + 9);
+      const uint32_t a0 = one_hot2(k0, k1, g);
+      const uint32_t a1 = one_hot2(k0, k1, g + 8);
+      const uint32_t a2 = one_hot2(k8, k9, g);
+      const uint32_t a3 = one_hot2(k8, k9, g + 8);
+      // lane l gives ldmatrix row 16 ks + 8 ((l / 8) % 2) + l % 8 of
+      // chunk 2 np + l / 16: b[0], b[1] are tile 2 np's, b[2], b[3] the
+      // next tile's
+      const int lr = 16 * ks + ((lane >> 3) & 1) * 8 + (lane & 7);
+#pragma unroll
+      for (int np = 0; np < kDim / 16; ++np) {
+        uint32_t b[4];
+        ldmatrix_x4_trans(
+            b, st + lr * kRowBytes + (((2 * np + (lane >> 4)) ^ (lr & 7)) << 4));
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma_bf16(c, a0, a1, a2, a3, b[2 * h], b[2 * h + 1]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[2 * np + h][e] += c[e];
+        }
+      }
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_bf16(c, a0, a1, a2, a3, kOnes2, kOnes2);
+      cnt[0] += c[0];
+      cnt[1] += c[2];
+    }
+  };
+  int4 cur[C::kUnroll];  // lane l: rows base + 128 u + 4 l + {0..3}
+#pragma unroll
+  for (int u = 0; u < C::kUnroll; ++u) {
+    cur[u] = load_idx4(idx, begin + u * 128 + 4 * lane, end);
+  }
+  for (int base = begin; base < end; base += C::kStep) {
+    // list the step's matches in row order: chunk, then lane, then s
+    int listed = 0;
+#pragma unroll
+    for (int u = 0; u < C::kUnroll; ++u) {
+      const int v[4] = {cur[u].x, cur[u].y, cur[u].z, cur[u].w};
+      unsigned m = 0;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        m |= (static_cast<unsigned>(v[s] - j0) < static_cast<unsigned>(J))
+             << s;
+      }
+      int at = listed;
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        const unsigned b = __ballot_sync(kFull, (m >> s) & 1u);
+        at += __popc(b & below);  // matches of the lower lanes
+        listed += __popc(b);
+      }
+#pragma unroll
+      for (int s = 0; s < 4; ++s) {
+        if ((m >> s) & 1u) {
+          my_list[at++] = static_cast<unsigned short>(
+              ((u * 128 + 4 * lane + s) << 5) | (v[s] - j0));
+        }
+      }
+    }
+    __syncwarp();
+    // the next step's indices are in flight while this step's rows add up
+#pragma unroll
+    for (int u = 0; u < C::kUnroll; ++u) {
+      cur[u] = load_idx4(idx, base + C::kStep + u * 128 + 4 * lane, end);
+    }
+    // Stage the listed rows in batches of 32, the next batch in flight
+    // while the warp adds the current one: lane l copies 16-byte chunk
+    // c = l % 8 of rows l / 8 + 4 t, stored at chunk c ^ (row % 8) (so
+    // ldmatrix reads 8 rows of one chunk without bank conflicts); rows past
+    // the list are zero-filled.
+    auto stage_batch = [&](int i, int buf) {
+      const int rows = min(listed - i, C::kBatch);
+      unsigned char* dst = my_stage + buf * C::kBatch * kRowBytes;
+      const int c = lane & 7;
+#pragma unroll
+      for (int t = 0; t < C::kBatch / 4; ++t) {
+        const int r = (lane >> 3) + 4 * t;
+        const bool ok = r < rows;
+        const int64_t row = ok ? base + (my_list[i + r] >> 5) : 0;
+        cp_async16(dst + r * kRowBytes + ((c ^ (r & 7)) << 4),
+                   z + row * kRowBytes + c * 16, ok ? 16 : 0);
+      }
+      cp_async_commit();
+    };
+    if (listed > 0) stage_batch(0, 0);
+    for (int i = 0, buf = 0; i < listed; i += C::kBatch, buf ^= 1) {
+      if (i + C::kBatch < listed) {
+        stage_batch(i + C::kBatch, buf ^ 1);
+        cp_async_wait_prev();
+      } else {
+        cp_async_wait_all();
+      }
+      __syncwarp();
+      add_batch(my_stage + buf * C::kBatch * kRowBytes,
+                lane < listed - i ? my_list[i + lane] & 31 : -1);
+      __syncwarp();  // this buffer is restaged two batches on
+    }
+    __syncwarp();  // the list is rewritten next step
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int q = g + 8 * h;
+    if (q < J) {
+#pragma unroll
+      for (int nt = 0; nt < kDim / 8; ++nt) {
+        reinterpret_cast<float2*>(part + (warp * J + q) * kDim + 8 * nt)[tq] =
+            make_float2(acc[nt][2 * h], acc[nt][2 * h + 1]);
+      }
+      if (tq == 0) part_n[warp * J + q] = static_cast<int>(cnt[h]);
+    }
+  }
+  __syncthreads();
+
+  // The block's partial, the warps' in warp order, four d a thread; each
+  // float4 pushed to the block that writes those d out (d / kD), and the
+  // counts to block 0.
+  for (int t = threadIdx.x; t < J * kDim / 4; t += C::kThreads) {
+    const int q = 4 * t / kDim;
+    const int d = 4 * t % kDim;
+    float4 s = reinterpret_cast<const float4*>(part)[t];
+#pragma unroll
+    for (int w = 1; w < C::kWarps; ++w) {
+      const float4 o = reinterpret_cast<const float4*>(part + w * J * kDim)[t];
+      s.x += o.x;
+      s.y += o.y;
+      s.z += o.z;
+      s.w += o.w;
+    }
+    float* to = cluster.map_shared_rank(recv, d / C::kD);
+    *reinterpret_cast<float4*>(to + (rank * J + q) * C::kD + d % C::kD) = s;
+  }
+  if (threadIdx.x < J) {
+    int c = 0;
+#pragma unroll
+    for (int w = 0; w < C::kWarps; ++w) c += part_n[w * J + threadIdx.x];
+    cluster.map_shared_rank(recv_n, 0)[rank * J + threadIdx.x] = c;
+  }
+  cluster.sync();
+
+  // The pushed partials of d in [kD rank, kD rank + kD), in block order;
+  // thread t takes (d, j0 + q), t = (d - kD rank) J + q, so neighbours
+  // write adjacent codewords.  Nothing remote is read after the sync, so
+  // no block waits for the others to finish.
+  for (int t = threadIdx.x; t < C::kD * J; t += C::kThreads) {
+    const int dl = t / J;
+    const int q = t % J;
+    float s = recv[q * C::kD + dl];
+#pragma unroll
+    for (int r = 1; r < C::kCluster; ++r) s += recv[(r * J + q) * C::kD + dl];
+    embed_sum[(rank * C::kD + dl) * NE + j0 + q] = s;
+  }
+  if (rank == 0 && threadIdx.x < J) {
+    int c = 0;
+#pragma unroll
+    for (int r = 0; r < C::kCluster; ++r) c += recv_n[r * J + threadIdx.x];
+    counts[j0 + threadIdx.x] = static_cast<float>(c);
+  }
+}
+
+template <int NE, int K>
+cudaError_t launch_lookup(const void* flat, const void* embed, void* q_topk,
+                          void* q1, void* idx, int grid, int n,
+                          cudaStream_t stream) {
+  quantize_topk_mma_kernel<NE, K>
+      <<<grid, Cfg<NE, K>::kThreads, Cfg<NE, K>::kSmem, stream>>>(
+          static_cast<const __nv_bfloat16*>(flat),
+          static_cast<const float*>(embed), static_cast<float*>(q_topk),
+          static_cast<float*>(q1), static_cast<int*>(idx), n);
+  return cudaGetLastError();
+}
+
 template <int NE, int K>
 cudaError_t grid_size(int n, int* grid) {
   auto kernel = quantize_topk_mma_kernel<NE, K>;
@@ -500,6 +866,12 @@ cudaError_t grid_size(int n, int* grid) {
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
+  // B2's statistics kernel, launched after the lookup: its grid is fixed
+  if ((err = cudaFuncSetAttribute(ema_stats_kernel<NE>,
+                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                  StatsCfg<NE>::kSmem)) != cudaSuccess) {
+    return err;
+  }
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -575,10 +947,10 @@ const char* ammc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Blocks a launch takes for these sizes on the current device.  It also
-// raises the kernel's shared-memory limit to what the codebook needs, so
-// call it once per device and sizes before the first launch; the wrapper
-// caches it.
+// Blocks a lookup launch takes for these sizes on the current device.  It
+// also raises the shared-memory limits of the lookup kernel and of B2's
+// statistics kernel to what they need, so call it once per device and
+// sizes before the first launch of B1 or B2; the wrappers cache it.
 int ammc_quantize_topk_mma_grid(int n, int n_embed, int k, int* grid) {
   return with_ne(n_embed, [&](auto ne) {
     return with_k(k, [&](auto kk) {
@@ -597,16 +969,35 @@ int ammc_quantize_topk_mma(const void* flat, const void* embed, void* q_topk,
                            int k, void* stream) {
   return with_ne(n_embed, [&](auto ne) {
     return with_k(k, [&](auto kk) {
-      constexpr int NE = decltype(ne)::value;
-      constexpr int K = decltype(kk)::value;
-      quantize_topk_mma_kernel<NE, K>
-          <<<grid, Cfg<NE, K>::kThreads, Cfg<NE, K>::kSmem,
-             static_cast<cudaStream_t>(stream)>>>(
-              static_cast<const __nv_bfloat16*>(flat),
-              static_cast<const float*>(embed), static_cast<float*>(q_topk),
-              static_cast<float*>(q1), static_cast<int*>(idx), n);
-      return cudaGetLastError();
+      return launch_lookup<decltype(ne)::value, decltype(kk)::value>(
+          flat, embed, q_topk, q1, idx, grid, n,
+          static_cast<cudaStream_t>(stream));
     });
+  });
+}
+
+// B2 for bf16 latents: B1's launch, then the statistics on the same
+// stream.  B1's arguments plus counts (n_embed,) f32 and embed_sum
+// (64, n_embed) f32, contiguous; idx is read back, so it must be 16-byte
+// aligned; `grid` from ammc_quantize_topk_mma_grid with the same sizes.
+int ammc_quantize_topk_mma_train(const void* flat, const void* embed,
+                                 void* q_topk, void* q1, void* idx,
+                                 void* counts, void* embed_sum, int grid,
+                                 int n, int n_embed, int k, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return with_ne(n_embed, [&](auto ne) {
+    constexpr int NE = decltype(ne)::value;
+    cudaError_t err = with_k(k, [&](auto kk) {
+      return launch_lookup<decltype(ne)::value, decltype(kk)::value>(
+          flat, embed, q_topk, q1, idx, grid, n, s);
+    });
+    if (err != cudaSuccess) return err;
+    using SC = StatsCfg<NE>;
+    ema_stats_kernel<NE><<<SC::kBlocks, SC::kThreads, SC::kSmem, s>>>(
+            static_cast<const __nv_bfloat16*>(flat),
+            static_cast<const int*>(idx), static_cast<float*>(counts),
+            static_cast<float*>(embed_sum), n);
+    return cudaGetLastError();
   });
 }
 

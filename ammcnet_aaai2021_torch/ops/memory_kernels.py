@@ -3,18 +3,19 @@
 Counterparts of the JAX package's two Pallas kernels: B1
 ``quantize_topk_pallas`` (``ammcnet_aaai2021_tpu/ops/memory_pallas.py:201-255``)
 and B2 ``quantize_topk_pallas_train`` (``memory_pallas.py:137-198``), the
-training variant that also returns the EMA statistics.  B1 has two CUDA
-routes, chosen by :func:`lookup_route`: bf16 latents of width 64 with
-k <= 4 go to the tensor-core kernel ``csrc/quantize_topk_mma.cu``; the rest
-(float32 latents, other widths, larger k) to the CUDA-core kernel
-``csrc/quantize_topk.cu``, which also holds B2.  Each file's header says
-what bounds its kernels on an H100 and what the design does about that.
+training variant that also returns the EMA statistics.  Each has two CUDA
+routes, chosen by one rule, :func:`lookup_route`: bf16 latents of width 64
+with k <= 4 go to the tensor-core kernels ``csrc/quantize_topk_mma.cu``
+(B2: B1's kernel, then a statistics kernel); the rest (float32 latents,
+other widths, larger k) to the CUDA-core kernels ``csrc/quantize_topk.cu``.
+Each file's header says what bounds its kernels on an H100 and what the
+design does about that.
 
 * :func:`quantize_topk_fused` (B1) and :func:`quantize_topk_train_fused`
-  (B2) are the wrappers: each checks its inputs, launches its kernel for
-  CUDA tensors (or raises) and counts its launches in its own ``launches``
-  attribute (B1 also by route, in ``launches_by_route``); for CPU tensors
-  it returns the plain version's result.
+  (B2) are the wrappers: each checks its inputs, launches its route's
+  kernels for CUDA tensors (or raises) and counts its launches in its own
+  ``launches`` attribute, and by route in ``launches_by_route``; for CPU
+  tensors it returns the plain version's result.
 * :func:`quantize_topk_fused_ref` and :func:`quantize_topk_train_fused_ref`
   are the plain PyTorch versions, the same formula (``-2 flat@E + ||E||^2``
   in fp32 with TF32 off) and the same tie-break (lowest index), used by the
@@ -34,8 +35,8 @@ from . import cuda_build
 
 # codebook sizes the kernels are instantiated for
 KERNEL_N_EMBEDS = (32, 64, 128, 256, 512)
-# B1's routes: the tensor-core kernel (mma.sync, bf16 latents) and the
-# CUDA-core kernel
+# the routes of B1 and B2: the tensor-core kernels (mma.sync, bf16 latents)
+# and the CUDA-core kernels
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 ROUTES = (TENSOR_CORE, CUDA_CORE)
 # what the tensor-core kernel is built for: latent width, largest k
@@ -43,9 +44,9 @@ MMA_DIM, MMA_MAX_K = 64, 4
 
 
 def lookup_route(dtype: torch.dtype, dim: int, n_embed: int, k: int) -> str:
-    """B1's kernel for these inputs: bf16 latents of width ``MMA_DIM``,
-    ``k <= MMA_MAX_K`` and ``n_embed`` in ``KERNEL_N_EMBEDS`` take the
-    tensor-core kernel; everything else the CUDA-core kernel."""
+    """The route of B1 and B2 for these inputs: bf16 latents of width
+    ``MMA_DIM``, ``k <= MMA_MAX_K`` and ``n_embed`` in ``KERNEL_N_EMBEDS``
+    take the tensor-core kernels; everything else the CUDA-core kernels."""
     if (dtype == torch.bfloat16 and dim == MMA_DIM and 1 <= k <= MMA_MAX_K
             and n_embed in KERNEL_N_EMBEDS):
         return TENSOR_CORE
@@ -128,8 +129,8 @@ def _check(flat: torch.Tensor, embed: torch.Tensor, k: int) -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built CUDA-core kernel library (B1's other route and B2), its C
-    functions typed (once per process)."""
+    """The built CUDA-core kernel library (the other route of B1 and B2),
+    its C functions typed (once per process)."""
     lib = cuda_build.load("quantize_topk")
     ptr = ctypes.c_void_p
     lib.ammc_quantize_topk.argtypes = [
@@ -154,13 +155,18 @@ def _library() -> ctypes.CDLL:
 
 @functools.cache
 def _mma_library() -> ctypes.CDLL:
-    """The built tensor-core kernel library (B1's bf16 route), typed."""
+    """The built tensor-core kernel library (the bf16 route of B1 and B2),
+    typed."""
     lib = cuda_build.load("quantize_topk_mma")
     ptr = ctypes.c_void_p
     lib.ammc_quantize_topk_mma.argtypes = [
         ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ptr]
     lib.ammc_quantize_topk_mma.restype = ctypes.c_int
+    lib.ammc_quantize_topk_mma_train.argtypes = [
+        ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ptr]
+    lib.ammc_quantize_topk_mma_train.restype = ctypes.c_int
     lib.ammc_quantize_topk_mma_grid.argtypes = [
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
     lib.ammc_quantize_topk_mma_grid.restype = ctypes.c_int
@@ -219,7 +225,8 @@ def _grid(device: int, bf16: bool, n: int, dim: int, n_embed: int,
 
 @functools.cache
 def _mma_grid(device: int, n: int, n_embed: int, k: int) -> int:
-    """Blocks one launch of the tensor-core kernel takes (as :func:`_grid`)."""
+    """Blocks one launch of the tensor-core lookup takes (as :func:`_grid`),
+    for B1 and B2 alike; the C call also readies B2's statistics kernel."""
     lib = _mma_library()
     with torch.cuda.device(device):
         _check_smem(lib, lib.ammc_quantize_topk_mma_smem_bytes(n_embed, k),
@@ -237,6 +244,27 @@ def _kernel_device(flat: torch.Tensor, embed: torch.Tensor) -> None:
     if embed.shape[1] not in KERNEL_N_EMBEDS:
         raise ValueError(f"the kernel takes n_embed in {KERNEL_N_EMBEDS}, "
                          f"got {embed.shape[1]}")
+
+
+def _route(flat: torch.Tensor, n_embed: int, k: int,
+           route: Optional[str]) -> str:
+    """The route a wrapper takes: ``route`` if given and allowed, else
+    :func:`lookup_route`'s.  The CUDA-core kernels take every input; a
+    tensor-core route the rule would not give raises."""
+    dim = flat.shape[1]
+    rule = lookup_route(flat.dtype, dim, n_embed, k)
+    if route is None:
+        return rule
+    if route not in ROUTES or (route == TENSOR_CORE and rule != route):
+        raise ValueError(f"route {route!r} does not take {flat.dtype} "
+                         f"latents of width {dim}, n_embed {n_embed}, k {k}")
+    return route
+
+
+def _check_aligned(flat: torch.Tensor) -> None:
+    if flat.data_ptr() % 16:
+        raise ValueError("the tensor-core kernel needs flat's data "
+                         "16-byte aligned")
 
 
 def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
@@ -259,12 +287,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     _check(flat, embed, k)
     n, dim = flat.shape
     n_embed = embed.shape[1]
-    rule = lookup_route(flat.dtype, dim, n_embed, k)
-    if route is None:
-        route = rule
-    elif route not in ROUTES or (route == TENSOR_CORE and rule != route):
-        raise ValueError(f"route {route!r} does not take {flat.dtype} "
-                         f"latents of width {dim}, n_embed {n_embed}, k {k}")
+    route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_fused_ref(flat, embed, k)
     _kernel_device(flat, embed)
@@ -275,9 +298,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
         return q_topk, q1, idx
     stream = torch.cuda.current_stream(flat.device).cuda_stream
     if route == TENSOR_CORE:
-        if flat.data_ptr() % 16:
-            raise ValueError("the tensor-core kernel needs flat's data "
-                             "16-byte aligned")
+        _check_aligned(flat)
         lib = _mma_library()
         grid = _mma_grid(flat.device.index, n, n_embed, k)
         with torch.cuda.device(flat.device):
@@ -304,24 +325,28 @@ quantize_topk_fused.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def quantize_topk_train_fused(
-        flat: torch.Tensor, embed: torch.Tensor, k: int
+        flat: torch.Tensor, embed: torch.Tensor, k: int,
+        route: Optional[str] = None
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
            torch.Tensor]:
     """Fused distance + top-k + gather + EMA statistics (kernel B2).
 
-    Args: as :func:`quantize_topk_fused`.
+    Args: as :func:`quantize_topk_fused`, ``route`` and its rule included.
+    On the tensor-core route the lookup is B1's kernel, so ``q_topk``,
+    ``q1`` and ``top1_idx`` are bitwise B1's on the same input.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32,
       counts (n_embed,) f32, embed_sum (dim, n_embed) f32)``; the statistics
-      are bitwise equal across calls on the same input.
+      are bitwise equal across calls on the same input and route.
     """
     _check(flat, embed, k)
+    n, dim = flat.shape
+    n_embed = embed.shape[1]
+    route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_train_fused_ref(flat, embed, k)
     _kernel_device(flat, embed)
-    n, dim = flat.shape
-    n_embed = embed.shape[1]
     dev = flat.device
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=dev)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=dev)
@@ -332,23 +357,36 @@ def quantize_topk_train_fused(
                 torch.zeros((dim, n_embed), dtype=torch.float32, device=dev))
     counts = torch.empty((n_embed,), dtype=torch.float32, device=dev)
     embed_sum = torch.empty((dim, n_embed), dtype=torch.float32, device=dev)
-    lib = _library()
-    bf16 = flat.dtype == torch.bfloat16
-    grid = _grid(dev.index, bf16, n, dim, n_embed, True)
-    # one workspace: grid partial embed_sums (f32), then grid partial counts
-    # (int32, the same 4 bytes an entry)
-    work = torch.empty((grid * (dim + 1) * n_embed,), dtype=torch.float32,
-                       device=dev)
-    part_counts = work[grid * dim * n_embed:]
-    with torch.cuda.device(dev):
-        err = lib.ammc_quantize_topk_train(
-            flat.data_ptr(), int(bf16), embed.data_ptr(), q_topk.data_ptr(),
-            q1.data_ptr(), idx.data_ptr(), counts.data_ptr(),
-            embed_sum.data_ptr(), work.data_ptr(), part_counts.data_ptr(),
-            grid, n, dim, n_embed, k, torch.cuda.current_stream().cuda_stream)
-    _raise_on(lib, err, "quantize_topk_train kernel launch")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if route == TENSOR_CORE:
+        _check_aligned(flat)
+        lib = _mma_library()
+        grid = _mma_grid(dev.index, n, n_embed, k)
+        with torch.cuda.device(dev):
+            err = lib.ammc_quantize_topk_mma_train(
+                flat.data_ptr(), embed.data_ptr(), q_topk.data_ptr(),
+                q1.data_ptr(), idx.data_ptr(), counts.data_ptr(),
+                embed_sum.data_ptr(), grid, n, n_embed, k, stream)
+    else:
+        lib = _library()
+        bf16 = flat.dtype == torch.bfloat16
+        grid = _grid(dev.index, bf16, n, dim, n_embed, True)
+        # one workspace: grid partial embed_sums (f32), then grid partial
+        # counts (int32, the same 4 bytes an entry)
+        work = torch.empty((grid * (dim + 1) * n_embed,), dtype=torch.float32,
+                           device=dev)
+        part_counts = work[grid * dim * n_embed:]
+        with torch.cuda.device(dev):
+            err = lib.ammc_quantize_topk_train(
+                flat.data_ptr(), int(bf16), embed.data_ptr(),
+                q_topk.data_ptr(), q1.data_ptr(), idx.data_ptr(),
+                counts.data_ptr(), embed_sum.data_ptr(), work.data_ptr(),
+                part_counts.data_ptr(), grid, n, dim, n_embed, k, stream)
+    _raise_on(lib, err, f"quantize_topk_train kernel launch ({route})")
     quantize_topk_train_fused.launches += 1
+    quantize_topk_train_fused.launches_by_route[route] += 1
     return q_topk, q1, idx, counts, embed_sum
 
 
-quantize_topk_train_fused.launches = 0
+quantize_topk_train_fused.launches = 0  # the sum over routes
+quantize_topk_train_fused.launches_by_route = dict.fromkeys(ROUTES, 0)

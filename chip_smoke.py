@@ -10,14 +10,14 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles every CUDA kernel of the paths from ``csrc/`` (nvcc);
-3. kernel check: each kernel (B1, the inference memory lookup, on its
-   tensor-core route for bf16 latents and its CUDA-core route for float32,
-   and B2, the training lookup with the EMA statistics) against its plain
+3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
+   training lookup with the EMA statistics, each on its tensor-core route
+   for bf16 latents and its CUDA-core route for float32) against its plain
    PyTorch version on the card at the paths' shapes, plus edge cases, with
    the device time of each (CUDA graphs timed by CUDA events), the kernel's
    back-to-back eager time (host work included), the card's bound for the
-   same work, and for B1's bf16 cases the CUDA-core kernel's device time
-   on the same input;
+   same work, and for the bf16 cases the CUDA-core kernel's device time on
+   the same input; B2's tensor-core lookup must be bitwise B1's;
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16:
    the lookups' indices first, then the outputs of the samples whose
@@ -33,7 +33,8 @@ Phases, one JSON line each; any failure exits non-zero:
    configuration (bf16, batch 4, 256x256) for 30 steps on a numpy training
    tree, then resumes from its step-30 checkpoint to step 40; checks the
    scalars, the codebook, the checkpoint and the kernels' launches (B2 twice
-   per step, B1 twice per train-PSNR forward);
+   per step, B1 twice per train-PSNR forward, all on the tensor-core
+   route);
 8. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
@@ -262,24 +263,47 @@ def train_lookup_bound(n: int, dim: int, n_embed: int, k: int,
                  f"{p}*2*N*dim*n_embed + N*dim")
 
 
-def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
-    """B2 against its plain version: its own q_topk, q1 and idx under the
-    near-tie rule; counts equal to the histogram of the kernel's own top-1
-    indices (and to the plain version's counts where no top-1 index
-    flipped); embed_sum within ``ESUM_REL`` of the plain sum over the
-    kernel's own indices; a second call bitwise equal; the lookup equal to
-    B1's on the same input under the near-tie rule (B1 takes its own route:
-    the tensor-core kernel for bf16 latents)."""
-    res = compare_lookup(torch, mk.quantize_topk_train_fused,
-                         mk.quantize_topk_train_fused_ref, flat, embed, k)
+def train_on(mk, route: str):
+    """B2's wrapper on ``route``: the rule's choice where the rule gives
+    that route (so the rule is exercised), else forced."""
+    def kernel(flat, embed, k):
+        rule = mk.lookup_route(flat.dtype, flat.shape[1], embed.shape[1], k)
+        return mk.quantize_topk_train_fused(
+            flat, embed, k, route=None if route == rule else route)
+    return kernel
+
+
+def compare_train_lookup(torch, mk, flat, embed, k: int, route: str) -> dict:
+    """B2 on ``route`` against its plain version: its own q_topk, q1 and
+    idx under the near-tie rule; counts equal to the histogram of the
+    kernel's own top-1 indices (and to the plain version's counts where no
+    top-1 index flipped); embed_sum within ``ESUM_REL`` of the plain sum
+    over the kernel's own indices; a second call bitwise equal; the lookup
+    bitwise equal to B1's on the same input on the tensor-core route (which
+    runs B1's kernel), and under the near-tie rule on the CUDA-core route
+    (B1 takes its own route: the tensor-core kernel for bf16 latents).
+    Fails unless each call took ``route``."""
+    kernel = train_on(mk, route)
+    before = dict(mk.quantize_topk_train_fused.launches_by_route)
+    res = compare_lookup(torch, kernel, mk.quantize_topk_train_fused_ref,
+                         flat, embed, k)
     q, q1, idx, counts, esum = res["out"]
-    _, _, idx2, counts2, esum2 = mk.quantize_topk_train_fused(flat, embed, k)
+    _, _, idx2, counts2, esum2 = kernel(flat, embed, k)
     b1 = mk.quantize_topk_fused(flat, embed, k)
     torch.cuda.synchronize()
+    took = {r: c - before[r] for r, c in
+            mk.quantize_topk_train_fused.launches_by_route.items()}
+    if took != {r: 2 * (r == route) for r in took}:
+        fail(f"B2 on {flat.dtype} N={flat.shape[0]} n_embed={embed.shape[1]}"
+             f" k={k} launched {took}, want both calls on {route!r}")
     if not (torch.equal(counts, counts2) and torch.equal(esum, esum2)
             and torch.equal(idx, idx2)):
         fail("B2: two calls on the same input gave different statistics")
     vs_b1 = compare_outputs(torch, flat, (q, q1, idx), b1, k)
+    if route == mk.TENSOR_CORE and not all(
+            torch.equal(a, b) for a, b in zip((q, q1, idx), b1)):
+        fail(f"B2's tensor-core lookup differs from B1's on the same input "
+             f"({vs_b1['flips']} flips): it must be B1's kernel, bitwise")
     n_embed = embed.shape[1]
     hist = torch.bincount(idx.long(), minlength=n_embed).float()
     if not torch.equal(counts, hist):
@@ -296,7 +320,10 @@ def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
     if bool((err > ESUM_REL * mag).any()):
         fail(f"B2 embed_sum off by {worst:.3g} of the summed magnitude "
              f"(> {ESUM_REL})")
-    return {"rows": res["rows"], "flips": res["flips"],
+    return {"route": route, "rows": res["rows"],
+            # the share of rows whose top-1 is the most picked codeword
+            "top1_max_share": float(hist.max()) / max(flat.shape[0], 1),
+            "flips": res["flips"],
             "flip_max_rel_gap": res["flip_max_rel_gap"],
             "top1_flips": top1_flips, "max_abs_err": res["max_abs_err"],
             "flips_vs_b1": vs_b1["flips"],
@@ -306,47 +333,73 @@ def compare_train_lookup(torch, mk, flat, embed, k: int) -> dict:
 
 def train_kernel_phase(torch, mk) -> dict:
     """B2 at the training path's shape (N = 4 clips * 32 * 32 = 4,096 rows)
-    and at B1's (N = 196,608), in bf16 and f32, plus a ragged N and a
-    codebook of duplicated codewords."""
+    and at B1's (N = 196,608): bf16 on the tensor-core route (timed beside
+    the CUDA-core B2 and B1's kernel alone on the same input) and on the
+    CUDA-core route, float32 on the CUDA-core route; plus a ragged N,
+    codebooks of duplicated codewords in bf16 and f32, and n_embed 512 (runs
+    in bf16, raises in f32)."""
     g = torch.Generator(device="cuda").manual_seed(2)
     dim, n_embed, k = 64, 256, 2
+    tc, cc = mk.TENSOR_CORE, mk.CUDA_CORE
+    ref = mk.quantize_topk_train_fused_ref
     embed = torch.randn(dim, n_embed, device="cuda", generator=g)
     z32 = torch.randn(192 * 32 * 32, dim, device="cuda", generator=g) * 0.5
     out = {}
     for n in (4 * 32 * 32, 192 * 32 * 32):
-        for name, flat in (("bfloat16", z32[:n].to(torch.bfloat16)),
-                           ("float32", z32[:n].contiguous())):
-            res = public(compare_train_lookup(torch, mk, flat, embed, k))
-            row = {"shape": [n, dim, n_embed, k], **res,
-                   **time_pair(torch, mk.quantize_topk_train_fused,
-                               mk.quantize_topk_train_fused_ref,
-                               flat, embed, k),
-                   **train_lookup_bound(n, dim, n_embed, k,
-                                        flat.element_size())}
+        zb = z32[:n].to(torch.bfloat16)
+        for name, flat, route in (("bfloat16", zb, tc), ("bfloat16", zb, cc),
+                                  ("float32", z32[:n].contiguous(), cc)):
+            row = {"shape": [n, dim, n_embed, k], **public(
+                compare_train_lookup(torch, mk, flat, embed, k, route))}
+            if (name, route) == ("bfloat16", cc):  # timed in the tc row
+                emit("kernel_check", kernel="quantize_topk_train_fused",
+                     input=f"N={n} {name} {route}", **row)
+                continue
+            row.update(time_pair(torch, train_on(mk, route), ref, flat,
+                                 embed, k))
+            if route == tc:
+                row["previous_kernel_ms"] = graph_ms(
+                    torch, lambda: mk.quantize_topk_train_fused(
+                        flat, embed, k, route=cc))
+                # B1's kernel alone: the statistics kernel takes the rest
+                row["lookup_ms"] = graph_ms(
+                    torch, lambda: mk.quantize_topk_fused(flat, embed, k))
+                row["stats_ms"] = row["kernel_ms"] - row["lookup_ms"]
+            row.update(train_lookup_bound(n, dim, n_embed, k,
+                                          flat.element_size()))
             out[(n, name)] = row
             emit("kernel_check", kernel="quantize_topk_train_fused",
-                 input=f"N={n} {name}", **row)
+                 input=f"N={n} {name} {route}", **row)
 
     ragged = compare_train_lookup(torch, mk, z32[:1037].to(torch.bfloat16),
-                                  embed, k)
+                                  embed, k, tc)
     emit("kernel_check", kernel="quantize_topk_train_fused",
          input="ragged N=1037 bf16", **public(ragged))
     dup = embed.clone()
     dup[:, 1::2] = dup[:, 0::2]
-    res = compare_train_lookup(torch, mk, z32[:65536], dup, k)
-    if bool((res["idx"] % 2 != 0).any()) or bool(res["counts"][1::2].any()):
-        fail("B2 tie-break: a higher index of equal codewords was picked")
+    for name, flat, route in (("bf16", z32[:65536].to(torch.bfloat16), tc),
+                              ("f32", z32[:65536], cc)):
+        res = compare_train_lookup(torch, mk, flat, dup, k, route)
+        if (bool((res["idx"] % 2 != 0).any())
+                or bool(res["counts"][1::2].any())):
+            fail(f"B2 tie-break ({route}): a higher index of equal "
+                 f"codewords was picked")
+        emit("kernel_check", kernel="quantize_topk_train_fused",
+             input=f"duplicated codewords {name}", lowest_index_wins=True,
+             **public(res))
+    big = torch.randn(dim, 512, device="cuda", generator=g)
+    res = compare_train_lookup(torch, mk, z32[:4096].to(torch.bfloat16), big,
+                               k, tc)
     emit("kernel_check", kernel="quantize_topk_train_fused",
-         input="duplicated codewords f32", lowest_index_wins=True,
-         **public(res))
+         input="n_embed=512 bf16", **public(res))
     try:
-        mk.quantize_topk_train_fused(z32[:64], torch.randn(
-            dim, 512, device="cuda", generator=g), k)
+        mk.quantize_topk_train_fused(z32[:64], big, k)
     except ValueError as exc:
         emit("kernel_check", kernel="quantize_topk_train_fused",
-             input="n_embed=512 f32", raises=str(exc))
+             input="n_embed=512 f32", route=cc, raises=str(exc))
     else:
-        fail("B2 at n_embed 512 (over the shared-memory limit) did not raise")
+        fail("B2 at n_embed 512 in f32 (over the CUDA-core kernel's shared "
+             "memory) did not raise")
     return out
 
 
@@ -570,10 +623,10 @@ def write_ped2_tree(root: str, lengths) -> None:
 
 
 def reset_launches(mk) -> None:
-    """Every kernel's launch count to 0 (B1's by route too)."""
-    mk.quantize_topk_fused.launches = 0
-    mk.quantize_topk_fused.launches_by_route = dict.fromkeys(mk.ROUTES, 0)
-    mk.quantize_topk_train_fused.launches = 0
+    """Every kernel's launch count to 0, by route too."""
+    for wrapper in (mk.quantize_topk_fused, mk.quantize_topk_train_fused):
+        wrapper.launches = 0
+        wrapper.launches_by_route = dict.fromkeys(mk.ROUTES, 0)
 
 
 def main_path_phase(torch, mk, n_videos: int) -> dict:
@@ -649,7 +702,8 @@ def main_path_phase(torch, mk, n_videos: int) -> dict:
 def train_check_phase(torch, mk) -> dict:
     """One float32 step (TF32 off, cuDNN deterministic) of the released
     generator at 256x256, batch 4, from one state and batch: through the
-    kernels (B2 in the forward) and with ``use_memory_kernel=False``."""
+    kernels (B2 in the forward, on its CUDA-core route: float32 latents)
+    and with ``use_memory_kernel=False``."""
     import copy
     import dataclasses
 
@@ -681,12 +735,16 @@ def train_check_phase(torch, mk) -> dict:
         state.generator.load_state_dict(init[0])
         state.discriminator.load_state_dict(init[1])
         before = mk.quantize_topk_train_fused.launches
+        before_cc = mk.quantize_topk_train_fused.launches_by_route[
+            mk.CUDA_CORE]
         metrics = make_twostream_train_step(LossConfig())(state, batch, flownet)
         torch.cuda.synchronize()
         launched = mk.quantize_topk_train_fused.launches - before
-        if launched != (2 if use_kernel else 0):
+        on_cc = (mk.quantize_topk_train_fused.launches_by_route[mk.CUDA_CORE]
+                 - before_cc)
+        if launched != (2 if use_kernel else 0) or on_cc != launched:
             fail(f"train step (use_memory_kernel={use_kernel}) launched B2 "
-                 f"{launched} times")
+                 f"{launched} times, {on_cc} on {mk.CUDA_CORE!r}")
         runs.append(({k: float(v) for k, v in metrics.items()},
                      {k: v.clone() for k, v in
                       codebook_buffers(state.generator).items()}))
@@ -703,7 +761,7 @@ def train_check_phase(torch, mk) -> dict:
         fail(f"train step: codebooks differ by {cb_err:.3g} "
              f"(> {TRAIN_CODEBOOK_TOL}) or cluster_size did not move")
     out = {"batch": 4, "image_size": IMAGE_SIZE, "dtype": "float32",
-           "loss_max_rel_err": loss_err, "loss_tol": TRAIN_LOSS_REL,
+           "b2_route": mk.CUDA_CORE, "loss_max_rel_err": loss_err, "loss_tol": TRAIN_LOSS_REL,
            "codebook_max_abs_err": cb_err, "codebook_tol": TRAIN_CODEBOOK_TOL,
            "cluster_size_equal": cs_equal, "g_loss": m_k["g_loss"]}
     emit("train_check", **out)
@@ -782,6 +840,7 @@ def train_path_phase(torch, mk) -> dict:
         b1 = mk.quantize_topk_fused.launches
         b1_by_route = dict(mk.quantize_topk_fused.launches_by_route)
         b2 = mk.quantize_topk_train_fused.launches
+        b2_by_route = dict(mk.quantize_topk_train_fused.launches_by_route)
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
         scalars = [read_scalars(run1), read_scalars(run2)]
@@ -792,6 +851,9 @@ def train_path_phase(torch, mk) -> dict:
         if b2 != 2 * RESUME_STEPS:
             fail(f"B2 launched {b2} times in the training path, want 2 per "
                  f"step = {2 * RESUME_STEPS}")
+        if b2_by_route[mk.TENSOR_CORE] != b2:
+            fail(f"B2 launches by route in the training path {b2_by_route}:"
+                 f" want all {b2} on {mk.TENSOR_CORE!r}")
         log_steps = RESUME_STEPS // 10
         if b1 != 2 * log_steps:
             fail(f"B1 launched {b1} times in the training path, want 2 per "
@@ -846,6 +908,7 @@ def train_path_phase(torch, mk) -> dict:
            "resumed_steps_per_s": scalars[1]["steps_per_sec"],
            "first_run_wall_s": wall1, "peak_mem_gib": peak,
            "data_write_s": data_s, "quantize_topk_train_launches": b2,
+           "quantize_topk_train_launches_by_route": b2_by_route,
            "quantize_topk_launches": b1,
            "quantize_topk_launches_by_route": b1_by_route,
            "g_loss_by_step": scalars[0]["g_loss"],
@@ -881,7 +944,7 @@ def main(argv=None) -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    # B1's CUDA-core route and B2; B1's tensor-core route
+    # the CUDA-core route of B1 and B2; their tensor-core route
     seconds = cuda_build.build(["quantize_topk", "quantize_topk_mma"])
     ptxas = [line.strip() for log in cuda_build.build_log.values()
              for line in log.splitlines()
@@ -917,6 +980,8 @@ def main(argv=None) -> None:
     b2 = train_checks[(4 * 32 * 32, "bfloat16")]
     b2_f32 = train_checks[(4 * 32 * 32, "float32")]
     b2_big = train_checks[(192 * 32 * 32, "bfloat16")]
+    b2_keys = ("kernel_ms", "kernel_eager_ms", "previous_kernel_ms",
+               "lookup_ms", "stats_ms", "plain_ms", "bound_ms", "bound_by")
     print(json.dumps({"kernels": [{
         "name": "quantize_topk_fused",
         "route": "cuda",
@@ -953,25 +1018,28 @@ def main(argv=None) -> None:
     }, {
         "name": "quantize_topk_train_fused",
         "route": "cuda",
-        "source": "ammcnet_aaai2021_torch/csrc/quantize_topk.cu",
+        "kernel_route": mk.TENSOR_CORE,
+        "source": "ammcnet_aaai2021_torch/csrc/quantize_topk_mma.cu",
         "replaces": "ammcnet_aaai2021_tpu/ops/memory_pallas.py:84",
         "launches": train_run["quantize_topk_train_launches"],
+        "launches_by_route": train_run[
+            "quantize_topk_train_launches_by_route"],
         "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"]),
         "esum_max_rel_err": max(b2["esum_max_rel_err"],
                                 b2_f32["esum_max_rel_err"]),
-        "flips": b2["flips"] + b2_f32["flips"],
+        "flips": b2["flips"],
+        "flips_vs_b1": b2["flips_vs_b1"],
         "ms": b2["kernel_ms"],
-        "kernel_ms": b2["kernel_ms"],
-        "kernel_eager_ms": b2["kernel_eager_ms"],
-        "plain_ms": b2["plain_ms"],
-        "bound_ms": b2["bound_ms"],
-        "bound_by": b2["bound_by"],
+        **{key: b2[key] for key in b2_keys},
+        "previous_source": "ammcnet_aaai2021_torch/csrc/quantize_topk.cu",
         "library_ms": None,
-        "at_n_196608": {"kernel_ms": b2_big["kernel_ms"],
-                        "kernel_eager_ms": b2_big["kernel_eager_ms"],
-                        "plain_ms": b2_big["plain_ms"],
-                        "bound_ms": b2_big["bound_ms"],
-                        "bound_by": b2_big["bound_by"]},
+        "at_n_196608": {key: b2_big[key] for key in b2_keys},
+        "float32_route": {"kernel_route": mk.CUDA_CORE,
+                          "source": "ammcnet_aaai2021_torch/csrc/"
+                                    "quantize_topk.cu",
+                          **{key: b2_f32[key] for key in (
+                              "kernel_ms", "plain_ms", "bound_ms",
+                              "bound_by", "flips", "esum_max_rel_err")}},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -42,6 +42,9 @@ from ammcnet_aaai2021_torch.train.steps import (
 )
 
 DIM, K = 64, 2
+# B2's embed_sum against a float64 sum: within this much of the magnitude
+# summed into each entry (float32 sums in another order)
+ESUM_REL = 1e-5
 
 
 @pytest.fixture
@@ -182,19 +185,28 @@ def test_generator_kernel_route_matches_plain_route(cuda_device):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [1037, 4096])
-@pytest.mark.parametrize("n_embed", [64, 256])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_train_kernel_matches_plain_version(cuda_device, dtype, n_embed, n):
-    g = torch.Generator(device=cuda_device).manual_seed(9)
-    flat = torch.randn(n, DIM, device=cuda_device, generator=g).to(dtype)
-    embed = torch.randn(DIM, n_embed, device=cuda_device, generator=g)
-    before = quantize_topk_train_fused.launches
-    q, q1, idx, counts, esum = quantize_topk_train_fused(flat, embed, K)
+def _train_launch(flat, embed, k, route=None):
+    """B2 on ``route`` (by default the rule's), failing unless that route
+    and no other counted the launch."""
+    want = route or memory_kernels.lookup_route(flat.dtype, flat.shape[1],
+                                                embed.shape[1], k)
+    before = dict(quantize_topk_train_fused.launches_by_route)
+    launches = quantize_topk_train_fused.launches
+    out = quantize_topk_train_fused(flat, embed, k, route=route)
     torch.cuda.synchronize()
-    assert quantize_topk_train_fused.launches == before + 1
-    rq, rq1, ridx, rcounts, _ = quantize_topk_train_fused_ref(flat, embed, K)
+    assert quantize_topk_train_fused.launches == launches + 1
+    assert quantize_topk_train_fused.launches_by_route == {
+        r: before[r] + (r == want) for r in before}
+    return out
+
+
+def _assert_train_outputs(flat, embed, k, out):
+    """B2's outputs against its plain version: near-ties only, counts the
+    histogram of its own top-1, embed_sum within ESUM_REL of the summed
+    magnitude."""
+    q, q1, idx, counts, esum = out
+    n_embed = embed.shape[1]
+    rq, rq1, ridx, rcounts, _ = quantize_topk_train_fused_ref(flat, embed, k)
     agree = (idx == ridx) & (q == rq).all(dim=1)
     assert int((~agree).sum()) <= 2  # near-ties only, at this size
     assert torch.equal(q[agree], rq[agree]) and torch.equal(q1[agree], rq1[agree])
@@ -205,19 +217,103 @@ def test_train_kernel_matches_plain_version(cuda_device, dtype, n_embed, n):
     one_hot = torch.nn.functional.one_hot(idx.long(), n_embed).double()
     want = flat.double().t() @ one_hot
     mag = flat.double().abs().t() @ one_hot
-    assert bool(((esum.double() - want).abs() <= 1e-5 * mag).all())
+    assert bool(((esum.double() - want).abs() <= ESUM_REL * mag).all())
 
 
 @pytest.mark.cuda
-def test_train_kernel_statistics_are_deterministic(cuda_device):
+@pytest.mark.parametrize("n", [1037, 4096])
+@pytest.mark.parametrize("n_embed", [64, 256])
+@pytest.mark.parametrize("dtype,route", [(torch.float32, CUDA_CORE),
+                                         (torch.bfloat16, CUDA_CORE),
+                                         (torch.bfloat16, TENSOR_CORE)])
+def test_train_kernel_matches_plain_version(cuda_device, dtype, route,
+                                            n_embed, n):
+    g = torch.Generator(device=cuda_device).manual_seed(9)
+    flat = torch.randn(n, DIM, device=cuda_device, generator=g).to(dtype)
+    embed = torch.randn(DIM, n_embed, device=cuda_device, generator=g)
+    out = _train_launch(flat, embed, K, route)
+    _assert_train_outputs(flat, embed, K, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", [TENSOR_CORE, CUDA_CORE])
+def test_train_kernel_statistics_are_deterministic(cuda_device, route):
     g = torch.Generator(device=cuda_device).manual_seed(10)
     flat = torch.randn(196_608, DIM, device=cuda_device,
                        generator=g).to(torch.bfloat16)
     embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
-    first = quantize_topk_train_fused(flat, embed, K)
+    first = quantize_topk_train_fused(flat, embed, K, route=route)
     for _ in range(3):
-        again = quantize_topk_train_fused(flat, embed, K)
+        again = quantize_topk_train_fused(flat, embed, K, route=route)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_train_kernel_tensor_core_route_takes_n_embed_512(cuda_device, k):
+    """Without a shared-memory partial, n_embed 512 runs on the tensor-core
+    route (the CUDA-core route raises for it)."""
+    g = torch.Generator(device=cuda_device).manual_seed(15)
+    flat = torch.randn(4099, DIM, device=cuda_device,
+                       generator=g).to(torch.bfloat16)
+    embed = torch.randn(DIM, 512, device=cuda_device, generator=g)
+    out = _train_launch(flat, embed, k)
+    _assert_train_outputs(flat, embed, k, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1037, 4096, 196_608])
+def test_train_kernel_lookup_is_b1s_on_the_tensor_core_route(cuda_device, n):
+    """B2's tensor-core route runs B1's kernel: its q_topk, q1 and idx are
+    bitwise B1's on the same input."""
+    g = torch.Generator(device=cuda_device).manual_seed(16)
+    flat = torch.randn(n, DIM, device=cuda_device,
+                       generator=g).to(torch.bfloat16) * 0.5
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    b2 = _train_launch(flat, embed, K, TENSOR_CORE)
+    b1 = quantize_topk_fused(flat, embed, K)
+    assert all(torch.equal(a, b) for a, b in zip(b2[:3], b1))
+
+
+@pytest.mark.cuda
+def test_train_kernel_routes_agree(cuda_device):
+    """The two routes on one bf16 input: the same lookup but for near-ties,
+    the same counts where no top-1 flipped, and embed_sums within ESUM_REL
+    of the summed magnitude (two summation orders)."""
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    flat = torch.randn(65_536, DIM, device=cuda_device,
+                       generator=g).to(torch.bfloat16)
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    tc = _train_launch(flat, embed, K, TENSOR_CORE)
+    cc = _train_launch(flat, embed, K, CUDA_CORE)
+    agree = (tc[2] == cc[2]) & (tc[0] == cc[0]).all(dim=1)
+    assert int((~agree).sum()) <= 2
+    assert torch.equal(tc[0][agree], cc[0][agree])
+    same = tc[2] == cc[2]
+    if bool(same.all()):
+        assert torch.equal(tc[3], cc[3])
+    # entries of codewords that no flipped row touched
+    touched = torch.zeros(256, dtype=torch.bool, device=cuda_device)
+    touched[tc[2][~same].long()] = True
+    touched[cc[2][~same].long()] = True
+    mag = flat.double().abs().t() @ torch.nn.functional.one_hot(
+        tc[2].long(), 256).double()
+    err = (tc[4].double() - cc[4].double()).abs()
+    assert bool((err[:, ~touched] <= ESUM_REL * mag[:, ~touched]).all())
+    assert torch.equal(tc[3][~touched], cc[3][~touched])
+
+
+@pytest.mark.cuda
+def test_train_kernel_counts_launches_by_route(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    flat = torch.randn(300, DIM, device=cuda_device, generator=g)
+    embed = torch.randn(DIM, 64, device=cuda_device, generator=g)
+    for f, route in ((flat, None), (flat.to(torch.bfloat16), None),
+                     (flat.to(torch.bfloat16), CUDA_CORE),
+                     (flat.to(torch.bfloat16), TENSOR_CORE)):
+        _train_launch(f, embed, K, route)
+    with pytest.raises(ValueError, match="route"):
+        quantize_topk_train_fused(flat, embed, K, route=TENSOR_CORE)
 
 
 @pytest.mark.cuda
@@ -240,6 +336,21 @@ def test_wrappers_size_each_launch_shape_once(cuda_device):
         quantize_topk_train_fused(flat, embed, K)
     info = memory_kernels._grid.cache_info()
     assert (info.misses, info.hits) == (2, 4)
+
+
+@pytest.mark.cuda
+def test_tensor_core_wrappers_size_each_launch_shape_once(cuda_device):
+    """On the tensor-core route too: B1 and B2 share one sizing call (the
+    lookup's grid, and B2's statistics kernel readied) per device and
+    shape."""
+    flat = torch.randn(300, DIM, device=cuda_device).to(torch.bfloat16)
+    embed = torch.randn(DIM, 64, device=cuda_device)
+    memory_kernels._mma_grid.cache_clear()
+    for _ in range(3):
+        quantize_topk_fused(flat, embed, K)
+        quantize_topk_train_fused(flat, embed, K)
+    info = memory_kernels._mma_grid.cache_info()
+    assert (info.misses, info.hits) == (1, 5)
 
 
 @pytest.mark.cuda

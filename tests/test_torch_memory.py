@@ -15,8 +15,8 @@ summed in another order: 1e-5 relative.
 The tensor-core kernel (``csrc/quantize_topk_mma.cu``) splits the float32
 codebook into three bf16 parts; its arithmetic is mirrored here in plain
 PyTorch (the split is exact, and the split products rank as the plain
-version does under the near-tie rule), and :func:`lookup_route` is held to
-its rule.
+version does under the near-tie rule), :func:`lookup_route` is held to its
+rule, and B1's and B2's wrappers to :func:`lookup_route`.
 """
 
 import jax.numpy as jnp
@@ -34,6 +34,8 @@ from ammcnet_aaai2021_torch.ops.memory_kernels import (
     lookup_route,
     quantize_topk_fused,
     quantize_topk_fused_ref,
+    quantize_topk_train_fused,
+    quantize_topk_train_fused_ref,
     topk_smallest,
 )
 
@@ -238,7 +240,7 @@ def test_split_products_pick_the_plain_versions_indices():
     assert bool((gap < NEAR_TIE_REL).all())
 
 
-@pytest.mark.parametrize("dtype,dim,n_embed,k,route", [
+ROUTE_CASES = [
     (torch.bfloat16, 64, 256, 2, TENSOR_CORE),  # the released configuration
     (torch.bfloat16, 64, 256, 1, TENSOR_CORE),  # TopKMemory's default k
     (torch.bfloat16, 64, 32, 4, TENSOR_CORE),
@@ -247,7 +249,10 @@ def test_split_products_pick_the_plain_versions_indices():
     (torch.bfloat16, 64, 256, 5, CUDA_CORE),  # k past the instantiated 4
     (torch.bfloat16, 32, 256, 2, CUDA_CORE),  # another latent width
     (torch.bfloat16, 64, 96, 2, CUDA_CORE),  # no kernel takes this codebook
-])
+]
+
+
+@pytest.mark.parametrize("dtype,dim,n_embed,k,route", ROUTE_CASES)
 def test_lookup_route(dtype, dim, n_embed, k, route):
     assert lookup_route(dtype, dim, n_embed, k) == route
 
@@ -260,3 +265,27 @@ def test_wrapper_rejects_a_tensor_core_route_the_rule_does_not_give():
                               route=CUDA_CORE)  # every input may take it
     want = quantize_topk_fused_ref(flat.to(torch.bfloat16), embed, K)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("dtype,dim,n_embed,k,route", ROUTE_CASES)
+def test_train_wrapper_applies_lookup_route(dtype, dim, n_embed, k, route):
+    """B2's wrapper takes B1's rule: a forced tensor-core route passes
+    exactly where :func:`lookup_route` gives it, and any route returns the
+    plain version for CPU tensors without counting a launch."""
+    rng = np.random.default_rng(11)
+    flat = torch.from_numpy(rng.normal(size=(40, dim)).astype(np.float32)
+                            ).to(dtype)
+    embed = torch.from_numpy(rng.normal(size=(dim, n_embed))
+                             .astype(np.float32))
+    want = quantize_topk_train_fused_ref(flat, embed, k)
+    before = dict(quantize_topk_train_fused.launches_by_route)
+    for asked in (None, CUDA_CORE, TENSOR_CORE):
+        if asked == TENSOR_CORE and route != TENSOR_CORE:
+            with pytest.raises(ValueError, match="route"):
+                quantize_topk_train_fused(flat, embed, k, route=asked)
+            continue
+        got = quantize_topk_train_fused(flat, embed, k, route=asked)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert quantize_topk_train_fused.launches_by_route == before
+    with pytest.raises(ValueError, match="route"):
+        quantize_topk_train_fused(flat, embed, k, route="tensor_cores")

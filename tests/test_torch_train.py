@@ -76,6 +76,8 @@ from ammcnet_aaai2021_torch.models import (
 )
 from ammcnet_aaai2021_torch.ops import memory
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
+    CUDA_CORE,
+    TENSOR_CORE,
     quantize_topk_train_fused,
     quantize_topk_train_fused_ref,
 )
@@ -162,6 +164,19 @@ def test_train_wrapper_on_cpu_takes_plain_version_without_counting():
     assert quantize_topk_train_fused.launches == before
     with pytest.raises(ValueError):
         quantize_topk_train_fused(flat.to(torch.float16), embed, K)
+
+
+def test_train_wrapper_rejects_a_tensor_core_route_the_rule_does_not_give():
+    rng = np.random.default_rng(4)
+    flat = torch.from_numpy(rng.normal(size=(24, DIM)).astype(np.float32))
+    embed = torch.from_numpy(rng.normal(size=(DIM, N_EMBED)).astype(np.float32))
+    with pytest.raises(ValueError, match="route"):
+        quantize_topk_train_fused(flat, embed, K, route=TENSOR_CORE)  # f32
+    bf16 = flat.to(torch.bfloat16)
+    want = quantize_topk_train_fused_ref(bf16, embed, K)
+    for route in (TENSOR_CORE, CUDA_CORE):  # the CPU takes the plain version
+        got = quantize_topk_train_fused(bf16, embed, K, route=route)
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_ema_apply_matches_jax():
