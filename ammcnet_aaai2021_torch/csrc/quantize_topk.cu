@@ -1,11 +1,15 @@
-// Fused top-k memory lookup for Hopper (sm_90a): distance, top-k, gather,
-// and (training variant) the EMA codebook statistics.
+// Fused top-k memory lookup for Hopper (sm_90a) on the CUDA cores: distance,
+// top-k, gather, and (training variant) the EMA codebook statistics.  The
+// route for every input the tensor-core kernels (quantize_topk_mma.cu) do not
+// take: float32 latents, other latent widths, k > 4, any codebook size.
 //
 // Kernel B1 replaces the Pallas TPU kernel `_quantize_kernel` called by
 // `quantize_topk_pallas` (ammcnet_aaai2021_tpu/ops/memory_pallas.py:48-82,
-// :201-255); kernel B2 (the same kernel with kStats = true, plus a reduction
-// pass) replaces `_quantize_train_kernel` called by
-// `quantize_topk_pallas_train` (memory_pallas.py:84-135, :137-198).
+// :201-255); kernel B2 (B1's kernel, then `ema_stats_kernel`) replaces
+// `_quantize_train_kernel` called by `quantize_topk_pallas_train`
+// (memory_pallas.py:84-135, :137-198).  Like the TPU kernels they take any
+// n_embed >= k and any latent width; the limits are k <= kMaxK and a width
+// whose staged rows fit shared memory (`smem_bytes`).
 //
 // For each latent row z (dim values, bf16 or f32) against the
 // codebook E (dim, n_embed) f32 it computes the ranking distance
@@ -14,62 +18,54 @@
 // and writes the chosen codewords: q_topk (N, k*dim) f32, q1 (N, dim) f32
 // (the top-1 codeword) and idx (N,) int32 (the top-1 index).
 //
-// What bounds it on this card.  At the main path's shape (N = 196,608,
-// dim 64, n_embed 256, k 2) the distances are 2*N*dim*n_embed = 6.4 GFLOP
-// of fp32 FMA outside the tensor cores (67 TFLOP/s: about 0.1 ms), against
-// about 177 MB of compulsory traffic (bf16 rows in, f32 codewords out:
-// about 0.05 ms at 3.35 TB/s).  So the FMA issue rate is the bound, and the
-// risk is that shared-memory loads, not FMAs, set the pace.
+// What bounds it on this card.  At N = 196,608, dim 64, n_embed 256, k 2
+// the distances are 2*N*dim*n_embed = 6.4 GFLOP of fp32 FMA outside the
+// tensor cores (67 TFLOP/s: about 0.1 ms), against about 177 MB of
+// compulsory traffic (about 0.05 ms at 3.35 TB/s): the FMA issue rate, and
+// the shared-memory loads that feed it.
 //
-// What the design does about that.
-//  * The whole codebook lives in dynamic shared memory (64 KiB at
-//    n_embed 256, 128 KiB at 512), loaded once per block; blocks are
-//    persistent (one wave, sized by the occupancy calculator) and walk over
-//    row groups, so the codebook crosses L2 once per block, not per row.
-//  * The codebook is stored as es[d][j] with a row pitch of n_embed + 1:
-//    lanes reading consecutive codewords j at one d hit consecutive banks
-//    (the distance loop), and lanes reading consecutive d of one codeword
-//    hit distinct banks too (the gather), so neither access conflicts.
-//  * One warp scores kRows = 4 rows at once: lane l owns codewords
-//    l, l+32, ... (n_embed/32 of them).  Each step of the dim loop is one
-//    broadcast float4 load of the 4 rows' z[d], n_embed/32 codebook loads,
-//    and 4 * n_embed/32 FMAs, so each shared load feeds about 3.5 FMAs.
-//  * Top-k is a per-lane scan (strict <, so the lowest index wins among a
-//    lane's own codewords) and a 5-step xor-shuffle reduction on
-//    (distance, index) that keeps the lower index on equal distances, the
-//    tie-break of the TPU kernel (memory_pallas.py:64-72).  The winner is
-//    masked with +inf by the lane that owns it.
-//  * The gather is a direct row copy out of shared memory: lanes write
-//    consecutive d, so each store is coalesced.  (The TPU kernel used a
-//    one-hot matmul on its matrix unit instead of a dynamic gather.)
+// What the design does about that, for any codebook size.
+//  * A prologue kernel (`prep_codebook_kernel`) writes ||E_j||^2 and a
+//    codeword-major copy of E into a scratch buffer the wrapper allocates.
+//  * The codebook streams through shared memory in chunks of kChunk = 128
+//    codewords by kSlice = 64 latent dims (33 KiB whatever n_embed and dim),
+//    beside the block's staged rows; the last chunk is ragged and its
+//    missing codewords are never ranked.  So several blocks fit an SM, and
+//    any n_embed runs; the price is that each tile of 32 rows streams the
+//    whole codebook from L2 (n_embed * dim * 4 bytes a tile).
+//  * A chunk is stored es[d][j] with a row pitch of kChunk + 1: lanes
+//    reading consecutive codewords at one d hit consecutive banks, and the
+//    staging stores (consecutive j at one d) do too.
+//  * One warp scores kRows = 4 rows at once: lane l owns codewords l, l+32,
+//    l+64, l+96 of each chunk; each step of the dim loop is one broadcast
+//    float4 load of the 4 rows' z[d], 4 codebook loads and 16 FMAs.  The
+//    dot products are sequential fmaf over d ascending, and ||E||^2 too, as
+//    in the kernel this one replaced, so the distances are bitwise its.
+//  * Each lane keeps, per row, its own running top-KMAX (distance, index)
+//    list in registers across chunks (KMAX in {2, 4, 8}, the smallest that
+//    holds k), sorted, lower index first on equal distances.  At the end
+//    k rounds of a 5-step xor-shuffle reduction on (distance, index) pick
+//    the row's winner, lowest index on ties (the TPU kernel's tie-break,
+//    memory_pallas.py:64-72), and the lane that owns it drops it.
+//  * The gather reads the k winners from the codeword-major copy (L2):
+//    lanes read and write consecutive d, so both are coalesced.
 //  * A ragged N is masked: rows past N are staged as zeros and not written.
-//    The TPU version zero-padded N to a multiple of its tile instead.
 //
 // B2, the training variant, also returns the EMA statistics of the top-1
 // picks: counts (n_embed,) = sum of one-hot(top-1) and embed_sum
 // (dim, n_embed) = flat^T . one-hot(top-1), both f32.  The TPU kernel summed
 // them across its sequential grid into revisited output blocks.
 //
-// What bounds B2.  At the training path's shape (N = 4 * 32 * 32 = 4,096,
-// dim 64, n_embed 256, k 2) the distances are 134 MFLOP (2.0 us at
-// 67 TFLOP/s) and the compulsory bytes about 3.8 MB (1.1 us at 3.35 TB/s):
-// a few microseconds of work, so launch latency and the number of blocks
-// set the time.  At B1's N = 196,608 it is FMA-bound like B1.
-//
-// What the design does about it.
-//  * GPU blocks run in parallel and in no order, so each block keeps one
-//    partial counts / embed_sum in shared memory and writes it to its own
-//    slice of a workspace; a second small kernel adds the partials up in
-//    block order.  No float atomics: two calls on the same input give
-//    bitwise equal statistics, as the TPU kernel's sequential sum does.
-//  * Inside a block, warps score row groups as in B1, the block then
-//    synchronises, and each entry (d, j) of the partial embed_sum is owned
-//    by one thread, which adds the tile's rows into it in row order.  Counts
-//    are integers (shared-memory integer atomics: exact in any order).
-//  * The partial (dim x n_embed f32) sits beside the codebook in shared
-//    memory: 138.6 KiB at dim 64, n_embed 256, which leaves one block per
-//    SM.  At n_embed 512 it would not fit; the wrapper raises for that size.
-//  * Rows >= N add nothing: no padding, so no count correction.
+// `ema_stats_kernel` (after B1's kernel on the same stream): each (codeword,
+// 128-dim slice) has one owner block, and each (codeword, d) entry one owner
+// thread.  The block scans idx in chunks of 1,024 rows, lists the chunk's
+// rows of its codeword in row order (warp ballots), and each owner adds
+// those rows into a chunk partial, then the partial into its total: a fixed
+// order, so two calls give bitwise equal statistics, with no float atomics
+// and no workspace.  Counts are the lists' lengths (exact).  Every block
+// reads all of idx (N * 4 bytes from L2), and a codeword picked by many rows
+// is summed by one block: simple, not fast; this route serves float32
+// latents and odd shapes, not the released bf16 path.
 //
 // Plain C interface, built with nvcc into a shared library and bound with
 // ctypes (ammcnet_aaai2021_torch/ops/memory_kernels.py).  Launches go on
@@ -78,85 +74,104 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <climits>
 #include <cstdint>
-#include <type_traits>
 
 namespace {
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;  // rows one warp scores at once
+constexpr int kRows = 4;                 // rows one warp scores at once
+constexpr int kChunk = 128;              // codewords a staged chunk holds
+constexpr int kPerLane = kChunk / 32;    // of them, each lane's
+constexpr int kSlice = 64;               // latent dims a staged chunk holds
+constexpr int kPitch = kChunk + 1;
+constexpr int kMaxK = 8;  // memory_kernels.CUDA_CORE_MAX_K
+constexpr int kStatThreads = 128;        // ema_stats_kernel: 4 warps
+constexpr int kStatRowsPerWarp = 256;    // rows a warp scans per chunk
+constexpr int kStatRows = 4 * kStatRowsPerWarp;
+constexpr int kStatLoads = 32;           // a thread's row loads in flight
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-size_t smem_bytes(int dim, int n_embed, bool stats) {
-  size_t words = static_cast<size_t>(kWarps) * dim * kRows  // z
-                 + n_embed                                  // ||E||^2
-                 + static_cast<size_t>(dim) * (n_embed + 1);  // E
-  if (stats) {
-    words += static_cast<size_t>(dim) * (n_embed + 1)  // partial embed_sum
-             + n_embed                                 // partial counts
-             + kWarps * kRows;                         // the tile's top-1
-  }
-  return sizeof(float) * words;
+size_t smem_bytes(int dim) {
+  return sizeof(float) * (static_cast<size_t>(kSlice) * kPitch  // chunk
+                          + static_cast<size_t>(kWarps) * dim * kRows);  // z
 }
 
-template <typename T, int CPL, bool kStats>
+// ||E_j||^2 (sequential fmaf over d) and the codeword-major copy E^T.
+__global__ void prep_codebook_kernel(const float* __restrict__ embed,
+                                     float* __restrict__ embed_t,
+                                     float* __restrict__ esq, int dim,
+                                     int n_embed) {
+  const int j = blockIdx.x * blockDim.x + threadIdx.x;
+  if (j >= n_embed) return;
+  float s = 0.f;
+  for (int d = 0; d < dim; ++d) {
+    const float e = embed[static_cast<int64_t>(d) * n_embed + j];
+    s = fmaf(e, e, s);
+    embed_t[static_cast<int64_t>(j) * dim + d] = e;
+  }
+  esq[j] = s;
+}
+
+// (d, j) before (bd, bi): the smaller distance, the lower index on ties.
+__device__ __forceinline__ bool before(float d, int j, float bd, int bi) {
+  return d < bd || (d == bd && j < bi);
+}
+
+// Insert (d, j) into a sorted top-KMAX list (all indices compile-time, so
+// the list stays in registers).
+template <int KMAX>
+__device__ __forceinline__ void insert(float (&bd)[KMAX], int (&bi)[KMAX],
+                                       float d, int j) {
+  if (!before(d, j, bd[KMAX - 1], bi[KMAX - 1])) return;
+#pragma unroll
+  for (int i = 0; i < KMAX; ++i) {
+    const bool b = before(d, j, bd[i], bi[i]);
+    const float td = bd[i];
+    const int ti = bi[i];
+    bd[i] = b ? d : td;
+    bi[i] = b ? j : ti;
+    d = b ? td : d;
+    j = b ? ti : j;
+  }
+}
+
+template <typename T, int KMAX>
 __global__ void __launch_bounds__(kThreads)
 quantize_topk_kernel(const T* __restrict__ flat,
                      const float* __restrict__ embed,
+                     const float* __restrict__ embed_t,
+                     const float* __restrict__ esq,
                      float* __restrict__ q_topk, float* __restrict__ q1,
-                     int* __restrict__ idx, float* __restrict__ part_sum,
-                     int* __restrict__ part_counts, int n, int dim, int k) {
-  constexpr int n_embed = CPL * 32;
-  constexpr int pitch = n_embed + 1;
+                     int* __restrict__ idx, int n, int dim, int n_embed,
+                     int k) {
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
-  float* zs = smem;                          // [warp][d][kRows]
-  float* esq = zs + kWarps * dim * kRows;    // [n_embed]
-  float* es = esq + n_embed;                 // [d][pitch]
-  // kStats only: the block's partial statistics and the tile's top-1 picks
-  float* psum = es + dim * pitch;                          // [d][pitch]
-  int* pcount = reinterpret_cast<int*>(psum + dim * pitch);  // [n_embed]
-  int* tile_idx = pcount + n_embed;                        // [kWarps*kRows]
+  float* es = smem;                        // [kSlice][kPitch]
+  float* zs = es + kSlice * kPitch;        // [warp][d][kRows]
+  const float inf = __int_as_float(0x7f800000);
 
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
-
-  for (int i = tid; i < dim * n_embed; i += kThreads) {
-    const int d = i / n_embed;
-    const int j = i - d * n_embed;
-    es[d * pitch + j] = embed[i];
-  }
-  if constexpr (kStats) {
-    for (int i = tid; i < dim * pitch; i += kThreads) psum[i] = 0.f;
-    for (int j = tid; j < n_embed; j += kThreads) pcount[j] = 0;
-  }
-  __syncthreads();
-  for (int j = tid; j < n_embed; j += kThreads) {
-    float s = 0.f;
-    for (int d = 0; d < dim; ++d) {
-      const float e = es[d * pitch + j];
-      s = fmaf(e, e, s);
-    }
-    esq[j] = s;
-  }
-  __syncthreads();
+  float* z = zs + warp * dim * kRows;
+  const int chunks = (n_embed + kChunk - 1) / kChunk;
 
   // A tile is kWarps row groups of kRows rows; warp w scores group
-  // tile * kWarps + w.  Blocks are persistent and walk over tiles.
-  float* z = zs + warp * dim * kRows;
+  // tile * kWarps + w.  Blocks are persistent and walk over tiles; every
+  // warp takes part in the chunk staging, active or not.
   const int64_t groups = (static_cast<int64_t>(n) + kRows - 1) / kRows;
   const int64_t tiles = (groups + kWarps - 1) / kWarps;
   for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
     const int64_t g = tile * kWarps + warp;
-    if (kStats && lane < kRows) tile_idx[warp * kRows + lane] = -1;
-    if (g < groups) {  // warp-uniform
-      const int64_t row0 = g * kRows;
+    const bool active = g < groups;  // warp-uniform
+    const int64_t row0 = g * kRows;
+    if (active) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int64_t row = row0 + r;
@@ -164,147 +179,204 @@ quantize_topk_kernel(const T* __restrict__ flat,
           z[d * kRows + r] = row < n ? to_f32(flat[row * dim + d]) : 0.f;
         }
       }
-      __syncwarp();
+    }
+    __syncwarp();
 
-      float acc[kRows][CPL];
+    float bd[kRows][KMAX];
+    int bi[kRows][KMAX];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r) {
+#pragma unroll
+      for (int i = 0; i < KMAX; ++i) {
+        bd[r][i] = inf;
+        bi[r][i] = INT_MAX;
+      }
+    }
+
+    for (int c = 0; c < chunks; ++c) {
+      const int j0 = c * kChunk;
+      float acc[kRows][kPerLane];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) acc[r][c] = 0.f;
+        for (int p = 0; p < kPerLane; ++p) acc[r][p] = 0.f;
       }
-      for (int d = 0; d < dim; ++d) {
-        const float4 zv = *reinterpret_cast<const float4*>(z + d * kRows);
-        const float* erow = es + d * pitch + lane;
+      for (int d0 = 0; d0 < dim; d0 += kSlice) {
+        const int ds = min(kSlice, dim - d0);
+        __syncthreads();  // every warp is done with the previous slice
+        for (int i = tid; i < ds * kChunk; i += kThreads) {
+          const int dd = i / kChunk;
+          const int jj = i - dd * kChunk;
+          const int j = j0 + jj;
+          es[dd * kPitch + jj] =
+              j < n_embed ? embed[static_cast<int64_t>(d0 + dd) * n_embed + j]
+                          : 0.f;
+        }
+        __syncthreads();
+        if (active) {
+          for (int dd = 0; dd < ds; ++dd) {
+            const float4 zv =
+                *reinterpret_cast<const float4*>(z + (d0 + dd) * kRows);
+            const float* erow = es + dd * kPitch + lane;
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          const float e = erow[c * 32];
-          acc[0][c] = fmaf(zv.x, e, acc[0][c]);
-          acc[1][c] = fmaf(zv.y, e, acc[1][c]);
-          acc[2][c] = fmaf(zv.z, e, acc[2][c]);
-          acc[3][c] = fmaf(zv.w, e, acc[3][c]);
+            for (int p = 0; p < kPerLane; ++p) {
+              const float e = erow[p * 32];
+              acc[0][p] = fmaf(zv.x, e, acc[0][p]);
+              acc[1][p] = fmaf(zv.y, e, acc[1][p]);
+              acc[2][p] = fmaf(zv.z, e, acc[2][p]);
+              acc[3][p] = fmaf(zv.w, e, acc[3][p]);
+            }
+          }
         }
       }
-      __syncwarp();  // z is restaged by the next group (B1)
+      if (active) {
+#pragma unroll
+        for (int p = 0; p < kPerLane; ++p) {
+          const int j = j0 + lane + 32 * p;
+          if (j < n_embed) {  // the ragged last chunk's gap is never ranked
+            const float e2 = esq[j];
+#pragma unroll
+            for (int r = 0; r < kRows; ++r) {
+              float dist = fmaf(-2.f, acc[r][p], e2);
+              dist = dist == dist ? dist : inf;  // NaN ranks last
+              insert<KMAX>(bd[r], bi[r], dist, j);
+            }
+          }
+        }
+      }
+    }
 
+    if (active) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int64_t row = row0 + r;
-        if (row >= n) continue;  // warp-uniform
-        float dist[CPL];
+        if (row < n) {  // warp-uniform
+          float* out = q_topk + row * k * dim;
+          for (int j = 0; j < k; ++j) {
+            float best = bd[r][0];
+            int best_i = bi[r][0];
 #pragma unroll
-        for (int c = 0; c < CPL; ++c) {
-          dist[c] = fmaf(-2.f, acc[r][c], esq[lane + 32 * c]);
-        }
-        float* out = q_topk + row * k * dim;
-        for (int j = 0; j < k; ++j) {
-          float best = dist[0];
-          int best_i = lane;
+            for (int off = 16; off > 0; off >>= 1) {
+              const float o = __shfl_xor_sync(0xffffffffu, best, off);
+              const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
+              if (before(o, oi, best, best_i)) {
+                best = o;
+                best_i = oi;
+              }
+            }
+            const float* word = embed_t + static_cast<int64_t>(best_i) * dim;
+            for (int d = lane; d < dim; d += 32) {
+              const float v = word[d];
+              out[j * dim + d] = v;
+              if (j == 0) q1[row * dim + d] = v;
+            }
+            if (j == 0 && lane == 0) idx[row] = best_i;
+            if (bi[r][0] == best_i) {  // the owner drops its winner
 #pragma unroll
-          for (int c = 1; c < CPL; ++c) {
-            if (dist[c] < best) {
-              best = dist[c];
-              best_i = lane + 32 * c;
+              for (int i = 0; i + 1 < KMAX; ++i) {
+                bd[r][i] = bd[r][i + 1];
+                bi[r][i] = bi[r][i + 1];
+              }
+              bd[r][KMAX - 1] = inf;
+              bi[r][KMAX - 1] = INT_MAX;
             }
           }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-            const float o = __shfl_xor_sync(0xffffffffu, best, off);
-            const int oi = __shfl_xor_sync(0xffffffffu, best_i, off);
-            if (o < best || (o == best && oi < best_i)) {
-              best = o;
-              best_i = oi;
-            }
-          }
-          for (int d = lane; d < dim; d += 32) {
-            const float v = es[d * pitch + best_i];
-            out[j * dim + d] = v;
-            if (j == 0) q1[row * dim + d] = v;
-          }
-          if (j == 0 && lane == 0) {
-            idx[row] = best_i;
-            if (kStats) tile_idx[warp * kRows + r] = best_i;
-          }
-#pragma unroll
-          for (int c = 0; c < CPL; ++c) {
-            if (lane + 32 * c == best_i) dist[c] = __int_as_float(0x7f800000);
-          }
         }
       }
     }
-
-    if constexpr (kStats) {
-      // every warp's z and top-1 picks of this tile are staged
-      __syncthreads();
-      if (tid < kWarps * kRows && tile_idx[tid] >= 0) {
-        atomicAdd(&pcount[tile_idx[tid]], 1);  // integer: exact in any order
-      }
-      // entry (d, j) belongs to thread (j % owners) * dim + d, which adds the
-      // tile's rows into it in row order
-      const int owners = dim < kThreads ? kThreads / dim : 1;
-      for (int s = tid; s < dim * owners; s += kThreads) {
-        const int d = s % dim;
-        const int q = s / dim;
-        float* col = psum + d * pitch;
-        for (int rr = 0; rr < kWarps * kRows; ++rr) {
-          const int j = tile_idx[rr];
-          if (j >= 0 && j % owners == q) {
-            col[j] += zs[((rr / kRows) * dim + d) * kRows + rr % kRows];
-          }
-        }
-      }
-      __syncthreads();  // before the next tile restages z and tile_idx
-    }
-  }
-
-  if constexpr (kStats) {
-    float* my_sum = part_sum + static_cast<int64_t>(blockIdx.x) * dim * n_embed;
-    for (int i = tid; i < dim * n_embed; i += kThreads) {
-      const int d = i / n_embed;
-      my_sum[i] = psum[d * pitch + (i - d * n_embed)];
-    }
-    int* my_count = part_counts + static_cast<int64_t>(blockIdx.x) * n_embed;
-    for (int j = tid; j < n_embed; j += kThreads) my_count[j] = pcount[j];
   }
 }
 
-// B2's second pass: embed_sum and counts are the block partials added up in
-// block order, one thread per output entry (a fixed order: deterministic).
-__global__ void reduce_stats_kernel(const float* __restrict__ part_sum,
-                                    const int* __restrict__ part_counts,
-                                    float* __restrict__ embed_sum,
-                                    float* __restrict__ counts, int blocks,
-                                    int sum_size, int n_embed) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < sum_size) {
-    float s = 0.f;
-    for (int b = 0; b < blocks; ++b) {
-      s += part_sum[static_cast<int64_t>(b) * sum_size + i];
+// B2's statistics: block (j, s) owns codeword j's entries d in
+// [s * kStatThreads, (s + 1) * kStatThreads); thread t owns one of them.
+template <typename T>
+__global__ void __launch_bounds__(kStatThreads)
+ema_stats_kernel(const T* __restrict__ flat, const int* __restrict__ idx,
+                 float* __restrict__ counts, float* __restrict__ embed_sum,
+                 int n, int dim, int n_embed) {
+  __shared__ int rows[kStatRows];  // warp w's list at w * kStatRowsPerWarp
+  __shared__ int listed[4];
+  const int j = blockIdx.x;
+  const int d = blockIdx.y * kStatThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float total = 0.f;
+  int count = 0;
+  for (int64_t base = 0; base < n; base += kStatRows) {
+    // warp w lists its 256 rows of the chunk that picked j, in row order
+    const int64_t first = base + warp * kStatRowsPerWarp + lane;
+    int picked[kStatRowsPerWarp / 32];
+#pragma unroll
+    for (int s = 0; s < kStatRowsPerWarp / 32; ++s) {
+      const int64_t r = first + 32 * s;
+      picked[s] = r < n ? idx[r] : -1;
     }
-    embed_sum[i] = s;
-  } else if (i < sum_size + n_embed) {
-    const int j = i - sum_size;
-    int c = 0;
-    for (int b = 0; b < blocks; ++b) {
-      c += part_counts[static_cast<int64_t>(b) * n_embed + j];
+    int* list = rows + warp * kStatRowsPerWarp;
+    int found = 0;
+#pragma unroll
+    for (int s = 0; s < kStatRowsPerWarp / 32; ++s) {
+      const bool hit = picked[s] == j;
+      const unsigned mask = __ballot_sync(0xffffffffu, hit);
+      if (hit) {
+        list[found + __popc(mask & ((1u << lane) - 1u))] =
+            static_cast<int>(first + 32 * s);
+      }
+      found += __popc(mask);
     }
-    counts[j] = static_cast<float>(c);
+    if (lane == 0) listed[warp] = found;
+    __syncthreads();
+    if (d < dim) {
+      float part = 0.f;  // this chunk's rows, in row order
+      for (int w = 0; w < 4; ++w) {
+        const int* lw = rows + w * kStatRowsPerWarp;
+        const int m = listed[w];
+        int i = 0;
+        for (; i + kStatLoads <= m; i += kStatLoads) {
+          float v[kStatLoads];  // loads in flight before the in-order adds
+#pragma unroll
+          for (int u = 0; u < kStatLoads; ++u) {
+            v[u] = to_f32(flat[static_cast<int64_t>(lw[i + u]) * dim + d]);
+          }
+#pragma unroll
+          for (int u = 0; u < kStatLoads; ++u) part += v[u];
+        }
+        for (; i < m; ++i) {
+          part += to_f32(flat[static_cast<int64_t>(lw[i]) * dim + d]);
+        }
+      }
+      total += part;
+    }
+    count += listed[0] + listed[1] + listed[2] + listed[3];
+    __syncthreads();  // before the next chunk overwrites the lists
+  }
+  if (d < dim) embed_sum[static_cast<int64_t>(d) * n_embed + j] = total;
+  if (blockIdx.y == 0 && threadIdx.x == 0) {
+    counts[j] = static_cast<float>(count);
   }
 }
 
 // Blocks a launch uses: one wave of persistent blocks (the occupancy
 // calculator's count per SM times the SMs), or fewer when N is small.
-template <typename T, int CPL, bool kStats>
+template <typename T, int KMAX>
 cudaError_t grid_size(int n, int dim, int* grid) {
-  auto kernel = quantize_topk_kernel<T, CPL, kStats>;
-  const size_t smem = smem_bytes(dim, CPL * 32, kStats);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return err;
+  auto kernel = quantize_topk_kernel<T, KMAX>;
+  const size_t smem = smem_bytes(dim);
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  int optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  // the opt-in maximum, not this width's need: one instantiation serves
+  // every width, and a later call for a narrower one must not lower it
+  if ((err = cudaDeviceGetAttribute(&optin,
+                                    cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                    dev)) != cudaSuccess ||
+      (err = cudaFuncSetAttribute(
+           kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin)) !=
+          cudaSuccess) {
+    return err;
+  }
   if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                     dev)) != cudaSuccess) {
     return err;
@@ -321,29 +393,19 @@ cudaError_t grid_size(int n, int dim, int* grid) {
   return cudaSuccess;
 }
 
-template <typename T, int CPL, bool kStats>
-cudaError_t launch(const void* flat, const float* embed, float* q_topk,
-                   float* q1, int* idx, float* part_sum, int* part_counts,
-                   int grid, int n, int dim, int k, cudaStream_t stream) {
-  const size_t smem = smem_bytes(dim, CPL * 32, kStats);
-  quantize_topk_kernel<T, CPL, kStats><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(flat), embed, q_topk, q1, idx, part_sum,
-      part_counts, n, dim, k);
-  return cudaGetLastError();
-}
+// Calls f(KMax<KMAX>{}) with the smallest list length that holds k.
+template <int KMAX>
+struct KMax {
+  static constexpr int value = KMAX;
+};
 
-// Calls f(std::integral_constant<int, n_embed / 32>) for the codebook sizes
-// the kernel is instantiated for.
 template <typename F>
-cudaError_t with_cpl(int n_embed, F&& f) {
-  switch (n_embed) {
-    case 32: return f(std::integral_constant<int, 1>{});
-    case 64: return f(std::integral_constant<int, 2>{});
-    case 128: return f(std::integral_constant<int, 4>{});
-    case 256: return f(std::integral_constant<int, 8>{});
-    case 512: return f(std::integral_constant<int, 16>{});
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t with_kmax(int k, F&& f) {
+  if (k < 1) return cudaErrorInvalidValue;
+  if (k <= 2) return f(KMax<2>{});
+  if (k <= 4) return f(KMax<4>{});
+  if (k <= kMaxK) return f(KMax<8>{});
+  return cudaErrorInvalidValue;
 }
 
 template <typename F>
@@ -352,14 +414,56 @@ cudaError_t with_type(int flat_bf16, F&& f) {
   return f(float{});
 }
 
+template <typename T, int KMAX>
+cudaError_t launch(const void* flat, const float* embed, const float* embed_t,
+                   const float* esq, float* q_topk, float* q1, int* idx,
+                   int grid, int n, int dim, int n_embed, int k,
+                   cudaStream_t stream) {
+  quantize_topk_kernel<T, KMAX><<<grid, kThreads, smem_bytes(dim), stream>>>(
+      static_cast<const T*>(flat), embed, embed_t, esq, q_topk, q1, idx, n,
+      dim, n_embed, k);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_stats(const void* flat, const int* idx, float* counts,
+                         float* embed_sum, int n, int dim, int n_embed,
+                         cudaStream_t stream) {
+  const dim3 blocks(n_embed, (dim + kStatThreads - 1) / kStatThreads);
+  ema_stats_kernel<T><<<blocks, kStatThreads, 0, stream>>>(
+      static_cast<const T*>(flat), idx, counts, embed_sum, n, dim, n_embed);
+  return cudaGetLastError();
+}
+
+// The prologue, then B1's kernel.  scratch holds n_embed * (dim + 1) f32.
+cudaError_t launch_lookup(const void* flat, int flat_bf16, const float* embed,
+                          float* scratch, float* q_topk, float* q1, int* idx,
+                          int grid, int n, int dim, int n_embed, int k,
+                          cudaStream_t stream) {
+  float* embed_t = scratch;
+  float* esq = scratch + static_cast<int64_t>(n_embed) * dim;
+  prep_codebook_kernel<<<(n_embed + 127) / 128, 128, 0, stream>>>(
+      embed, embed_t, esq, dim, n_embed);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  return with_type(flat_bf16, [&](auto t) {
+    using T = decltype(t);
+    return with_kmax(k, [&](auto km) {
+      return launch<T, decltype(km)::value>(flat, embed, embed_t, esq, q_topk,
+                                            q1, idx, grid, n, dim, n_embed, k,
+                                            stream);
+    });
+  });
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared memory one block needs for a (dim, n_embed) codebook; stats != 0
-// for the training variant (B2).
-long long ammc_quantize_topk_smem_bytes(int dim, int n_embed, int stats) {
-  return static_cast<long long>(smem_bytes(dim, n_embed, stats != 0));
+// Dynamic shared memory one block of the lookup kernel needs at this
+// latent width (whatever n_embed and k).
+long long ammc_quantize_topk_smem_bytes(int dim) {
+  return static_cast<long long>(smem_bytes(dim));
 }
 
 // The most dynamic shared memory a block may opt in to on the current device.
@@ -375,70 +479,55 @@ const char* ammc_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Blocks a launch of B1 (stats == 0) or B2 (stats != 0) takes for these
-// sizes on the current device.  It also raises the kernel's shared-memory
-// limit to what the codebook needs, so call it once per device and sizes
-// before the first launch; the wrappers cache it.  B2's workspace holds
-// `grid` partials (grid * dim * n_embed f32 and grid * n_embed int32).
-int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int n_embed,
-                            int stats, int* grid) {
+// Blocks a launch of the lookup kernel (B1, and B2's lookup) takes for
+// these sizes on the current device.  It also raises the kernel's
+// shared-memory limit to the card's opt-in maximum, so call it once per
+// device and sizes before the first launch; the wrapper caches it.
+int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int k,
+                            int* grid) {
   return with_type(flat_bf16, [&](auto t) {
     using T = decltype(t);
-    return with_cpl(n_embed, [&](auto cpl) {
-      constexpr int CPL = decltype(cpl)::value;
-      return stats ? grid_size<T, CPL, true>(n, dim, grid)
-                   : grid_size<T, CPL, false>(n, dim, grid);
+    return with_kmax(k, [&](auto km) {
+      return grid_size<T, decltype(km)::value>(n, dim, grid);
     });
   });
 }
 
 // B1.  flat (n, dim) bf16 if flat_bf16 else f32; embed (dim, n_embed) f32;
-// q_topk (n, k*dim) f32; q1 (n, dim) f32; idx (n,) int32.  All contiguous
-// and on the current device; n_embed in {32, 64, 128, 256, 512}; n > 0;
-// `grid` from ammc_quantize_topk_grid(..., stats = 0) with the same sizes.
+// scratch n_embed * (dim + 1) f32; q_topk (n, k*dim) f32; q1 (n, dim) f32;
+// idx (n,) int32.  All contiguous and on the current device; 1 <= k <=
+// min(n_embed, kMaxK); n > 0; `grid` from ammc_quantize_topk_grid with the
+// same sizes.
 int ammc_quantize_topk(const void* flat, int flat_bf16, const void* embed,
-                       void* q_topk, void* q1, void* idx, int grid, int n,
-                       int dim, int n_embed, int k, void* stream) {
-  return with_type(flat_bf16, [&](auto t) {
-    using T = decltype(t);
-    return with_cpl(n_embed, [&](auto cpl) {
-      return launch<T, decltype(cpl)::value, false>(
-          flat, static_cast<const float*>(embed), static_cast<float*>(q_topk),
-          static_cast<float*>(q1), static_cast<int*>(idx), nullptr, nullptr,
-          grid, n, dim, k, static_cast<cudaStream_t>(stream));
-    });
-  });
+                       void* scratch, void* q_topk, void* q1, void* idx,
+                       int grid, int n, int dim, int n_embed, int k,
+                       void* stream) {
+  return launch_lookup(flat, flat_bf16, static_cast<const float*>(embed),
+                       static_cast<float*>(scratch),
+                       static_cast<float*>(q_topk), static_cast<float*>(q1),
+                       static_cast<int*>(idx), grid, n, dim, n_embed, k,
+                       static_cast<cudaStream_t>(stream));
 }
 
-// B2.  B1's arguments plus counts (n_embed,) f32, embed_sum (dim, n_embed)
-// f32, and the workspace part_sum / part_counts for `grid` blocks (from
-// ammc_quantize_topk_grid(..., stats = 1) with the same sizes).
+// B2.  B1's arguments plus counts (n_embed,) f32 and embed_sum
+// (dim, n_embed) f32: B1's kernels, then ema_stats_kernel.
 int ammc_quantize_topk_train(const void* flat, int flat_bf16,
-                             const void* embed, void* q_topk, void* q1,
-                             void* idx, void* counts, void* embed_sum,
-                             void* part_sum, void* part_counts, int grid,
-                             int n, int dim, int n_embed, int k,
-                             void* stream) {
+                             const void* embed, void* scratch, void* q_topk,
+                             void* q1, void* idx, void* counts,
+                             void* embed_sum, int grid, int n, int dim,
+                             int n_embed, int k, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = with_type(flat_bf16, [&](auto t) {
-    using T = decltype(t);
-    return with_cpl(n_embed, [&](auto cpl) {
-      return launch<T, decltype(cpl)::value, true>(
-          flat, static_cast<const float*>(embed), static_cast<float*>(q_topk),
-          static_cast<float*>(q1), static_cast<int*>(idx),
-          static_cast<float*>(part_sum), static_cast<int*>(part_counts), grid,
-          n, dim, k, s);
-    });
-  });
+  cudaError_t err = launch_lookup(
+      flat, flat_bf16, static_cast<const float*>(embed),
+      static_cast<float*>(scratch), static_cast<float*>(q_topk),
+      static_cast<float*>(q1), static_cast<int*>(idx), grid, n, dim, n_embed,
+      k, s);
   if (err != cudaSuccess) return err;
-  const int sum_size = dim * n_embed;
-  const int threads = 256;
-  const int blocks = (sum_size + n_embed + threads - 1) / threads;
-  reduce_stats_kernel<<<blocks, threads, 0, s>>>(
-      static_cast<const float*>(part_sum),
-      static_cast<const int*>(part_counts), static_cast<float*>(embed_sum),
-      static_cast<float*>(counts), grid, sum_size, n_embed);
-  return cudaGetLastError();
+  return with_type(flat_bf16, [&](auto t) {
+    return launch_stats<decltype(t)>(
+        flat, static_cast<const int*>(idx), static_cast<float*>(counts),
+        static_cast<float*>(embed_sum), n, dim, n_embed, s);
+  });
 }
 
 }  // extern "C"

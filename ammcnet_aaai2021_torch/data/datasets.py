@@ -1,10 +1,11 @@
 """File-tree data: frame-folder scanning, per-frame decoding, and the
-stage-2 training sampler.
+training samplers.
 
 The port's copy of the scoring and training paths' part of the JAX
 package's data layer (reference ``Code/dataset/two_stream_dataset.py``):
 :class:`VideoIndex`, the decoders, :class:`FrameCache`, :class:`ClipLoader`,
-:class:`TwoStreamTrainSampler` and :func:`parallel_batches`, in numpy.
+:class:`TwoStreamTrainSampler` (stage 2), :class:`SingleStreamTrainSampler`
+(stage 1) and :func:`parallel_batches`, in numpy.
 
 Preprocessing parity (two_stream_dataset.py:72-98):
   RGB: decode (BGR) -> BGR2RGB -> cv2.resize to 256x256 (uint8, INTER_LINEAR).
@@ -302,6 +303,46 @@ class TwoStreamTrainSampler:
         self.loader_op.load_clip_into(op_paths, out["op"][i])
 
     def batch(self, batch_size: int) -> Dict[str, np.ndarray]:
+        out = self.alloc_batch(batch_size)
+        for i in range(batch_size):
+            self.load_into(self.draw(), out, i)
+        return out
+
+
+class SingleStreamTrainSampler:
+    """Stage-1 random clips of one modality (reference clip_Train_DS): a
+    video, then an offset, drawn from ``default_rng(seed)`` in the JAX
+    sampler's order.  With a ``packed`` loader a batch is ``(b, t, h, w,
+    c)``."""
+
+    def __init__(self, index: VideoIndex, clip_length: int, loader: ClipLoader,
+                 seed: int = 2017):
+        self.index = index
+        self.clip_length = clip_length
+        self.loader = loader
+        self.rng = np.random.default_rng(seed)
+
+    def draw(self) -> Tuple[str, int]:
+        names = self.index.names
+        name = names[self.rng.integers(len(names))]
+        offset = int(self.rng.integers(
+            self.index.length(name) - self.clip_length + 1))
+        return name, offset
+
+    def alloc_batch(self, batch_size: int) -> np.ndarray:
+        return np.empty(
+            (batch_size, *self.loader.clip_shape(self.clip_length)),
+            self.loader.clip_dtype())
+
+    def load_into(self, coord: Tuple[str, int], out: np.ndarray,
+                  i: int) -> None:
+        """Assemble one drawn clip into batch row ``i`` (thread-safe)."""
+        name, offset = coord
+        self.loader.load_clip_into(
+            self.index.videos[name][offset: offset + self.clip_length],
+            out[i])
+
+    def batch(self, batch_size: int) -> np.ndarray:
         out = self.alloc_batch(batch_size)
         for i in range(batch_size):
             self.load_into(self.draw(), out, i)

@@ -3,18 +3,21 @@
 Port of ``ammcnet_aaai2021_tpu/models/__init__.py``.
 ``unet_vq_twostream`` and its as-shipped alias ``twostream_concat_dire``
 (the reference wires the same additive AMFT bridge into both,
-unet.py:1043) build :class:`TwoStreamUNetMem`.  The four tags that dispatch
-to non-runnable reference classes raise ``ValueError`` as in the JAX
-package; the other runnable tags come with the model-family slice.
-``build_model(cfg, "training")`` also returns the PatchGAN discriminator and
-the FlowNet2-SD teacher (models/__init__.py:140-152).
+unet.py:1043) build :class:`TwoStreamUNetMem`; ``unet_vq_topk_res`` builds
+the stage-1 single-stream :class:`UNetMemStream` for ``cfg.data_type``
+(rgb: 4x3 channels in, 3 out; op: 3x2 in, 2 out).  The four tags that
+dispatch to non-runnable reference classes raise ``ValueError`` as in the
+JAX package; the other runnable tags come with the model-family slice.
+``build_model(cfg, "training")`` also returns the PatchGAN discriminator
+(on the c-channel prediction) and the FlowNet2-SD teacher
+(models/__init__.py:140-152).
 """
 
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -51,14 +54,25 @@ NET_TAGS = (
 )
 
 
+def _single(cfg: NetConfig, channels: Tuple[int, int]) -> int:
+    """The rgb or op entry of an (rgb, op) channel pair: single-stream nets
+    read the one matching their data_type (JAX ``_single_out``)."""
+    return channels[1] if cfg.data_type == "op" else channels[0]
+
+
 def build_generator(cfg: NetConfig, per_sample_diff: bool = False
-                    ) -> TwoStreamUNetMem:
+                    ) -> nn.Module:
     """net_tag -> constructed generator (reference net_map dispatch).
 
     ``per_sample_diff=True`` makes the memory blocks emit per-frame commit
     distances (for the scorer) instead of batch-mean scalars.
     """
     tag = cfg.net_tag
+    if tag == "unet_vq_topk_res":
+        return UNetMemStream(
+            _single(cfg, cfg.in_channel), _single(cfg, cfg.out_channel),
+            cfg.embed_dim, cfg.n_embed, cfg.k, cfg.use_memory_kernel,
+            per_sample_diff, dtype=getattr(torch, cfg.dtype))
     if tag in ("unet_vq", "unet_vq_res", "unet_vq_topk",
                "twostream_add_dire"):
         # UNetMem_v1/v2/v3 and twostream_add_dire are non-runnable in the
@@ -128,11 +142,20 @@ class Model:
 
 
 def build_model(cfg: NetConfig, mode: str = "testing",
-                per_sample_diff: bool = False) -> Model:
+                per_sample_diff: bool = False, with_flow: bool = True
+                ) -> Model:
+    """The generator, and in training mode the discriminator (on the RGB
+    prediction, or on a single-stream net's own c channels) and, with
+    ``with_flow`` (the loss tags with a flow term), the FlowNet2-SD
+    teacher."""
     gen = build_generator(cfg, per_sample_diff)
     if mode != "training":
         return Model(generator=gen)
     dtype = getattr(torch, cfg.dtype)
+    d_in = 3
+    if cfg.net_tag == "unet_vq_topk_res":
+        d_in = _single(cfg, cfg.out_channel)
     return Model(generator=gen,
-                 discriminator=PixelDiscriminator(DISC_FILTERS, dtype=dtype),
-                 flow_network=FlowNet2SD(dtype=dtype))
+                 discriminator=PixelDiscriminator(DISC_FILTERS, d_in,
+                                                  dtype=dtype),
+                 flow_network=FlowNet2SD(dtype=dtype) if with_flow else None)

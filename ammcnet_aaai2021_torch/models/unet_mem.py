@@ -19,7 +19,7 @@ straight-through codes.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -29,12 +29,19 @@ from .memory_module import EncQuanDecResTopK
 
 
 class UNetMemStream(nn.Module):
-    """UNetMem_v7: residual memory at the 512-ch bottleneck (unet.py:908-938)."""
+    """UNetMem_v7: residual memory at the 512-ch bottleneck (unet.py:908-938).
+
+    Alone it is the stage-1 generator: its forward casts the input to
+    ``dtype`` (when given) and returns ``(tanh frame, commit distance,
+    straight-through code)``.  The two-stream generator drives its
+    encode / memory / decode phases itself."""
 
     def __init__(self, in_channels: int, out_channels: int = 3,
                  embed_dim: int = 64, n_embed: int = 512, k: int = 1,
-                 use_kernel: bool = False, per_sample_diff: bool = False):
+                 use_kernel: bool = False, per_sample_diff: bool = False,
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.dtype = dtype
         self.inc = InConv(in_channels, 64)
         self.down1 = Down(64, 128)
         self.down2 = Down(128, 256)
@@ -65,6 +72,8 @@ class UNetMemStream(nn.Module):
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
         x1, x2, x3, x4 = self.encode(x)
         x4, diff, q_st = self.memory(x4)
         return self.decode(x4, (x1, x2, x3)), diff, q_st

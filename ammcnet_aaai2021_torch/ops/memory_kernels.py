@@ -5,9 +5,12 @@ Counterparts of the JAX package's two Pallas kernels: B1
 and B2 ``quantize_topk_pallas_train`` (``memory_pallas.py:137-198``), the
 training variant that also returns the EMA statistics.  Each has two CUDA
 routes, chosen by one rule, :func:`lookup_route`: bf16 latents of width 64
-with k <= 4 go to the tensor-core kernels ``csrc/quantize_topk_mma.cu``
-(B2: B1's kernel, then a statistics kernel); the rest (float32 latents,
-other widths, larger k) to the CUDA-core kernels ``csrc/quantize_topk.cu``.
+with k <= 4 and a codebook size the tensor-core kernels are built for go
+to ``csrc/quantize_topk_mma.cu``; the rest (float32 latents, other widths
+and codebook sizes, larger k) to the CUDA-core kernels
+``csrc/quantize_topk.cu``, which stream the codebook through shared memory
+and so take any n_embed.  On both routes B2 is B1's kernel, then a
+statistics kernel.
 Each file's header says what bounds its kernels on an H100 and what the
 design does about that.
 
@@ -33,8 +36,10 @@ import torch
 
 from . import cuda_build
 
-# codebook sizes the kernels are instantiated for
+# codebook sizes the tensor-core kernel is instantiated for
 KERNEL_N_EMBEDS = (32, 64, 128, 256, 512)
+# the largest k the CUDA-core kernel's top-k lists hold (csrc kMaxK)
+CUDA_CORE_MAX_K = 8
 # the routes of B1 and B2: the tensor-core kernels (mma.sync, bf16 latents)
 # and the CUDA-core kernels
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
@@ -134,20 +139,18 @@ def _library() -> ctypes.CDLL:
     lib = cuda_build.load("quantize_topk")
     ptr = ctypes.c_void_p
     lib.ammc_quantize_topk.argtypes = [
-        ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
+        ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
     lib.ammc_quantize_topk.restype = ctypes.c_int
     lib.ammc_quantize_topk_train.argtypes = [
-        ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ptr]
+        ptr, ctypes.c_int, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
     lib.ammc_quantize_topk_train.restype = ctypes.c_int
     lib.ammc_quantize_topk_grid.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
     lib.ammc_quantize_topk_grid.restype = ctypes.c_int
-    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_int]
+    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int]
     lib.ammc_quantize_topk_smem_bytes.restype = ctypes.c_longlong
     _type_common(lib)
     return lib
@@ -191,34 +194,30 @@ def _raise_on(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what} failed: CUDA error {err} ({msg})")
 
 
-def _check_smem(lib: ctypes.CDLL, smem: int, dim: int, n_embed: int,
-                what: str) -> None:
+def _check_smem(lib: ctypes.CDLL, smem: int, what: str) -> None:
     limit = ctypes.c_int(0)
     _raise_on(lib, lib.ammc_max_optin_smem(ctypes.byref(limit)),
               "reading the shared-memory limit")
     if smem > limit.value:
-        raise ValueError(
-            f"a ({dim}, {n_embed}) codebook needs {smem} B of shared memory "
-            f"per block in {what}; this card allows {limit.value} B")
+        raise ValueError(f"{what} needs {smem} B of shared memory per block; "
+                         f"this card allows {limit.value} B")
 
 
 @functools.cache
-def _grid(device: int, bf16: bool, n: int, dim: int, n_embed: int,
-          stats: bool) -> int:
-    """Blocks one launch of the CUDA-core kernel takes, after checking that
-    the codebook (and B2's partial statistics) fit the card's shared
-    memory.  The C sizing call queries the device and sets the kernel's
-    shared-memory attribute, so it runs once per device and sizes, not on
-    every launch."""
+def _grid(device: int, bf16: bool, n: int, dim: int, k: int) -> int:
+    """Blocks one launch of the CUDA-core lookup kernel takes (B1, and B2's
+    lookup), after checking that the width's staged rows fit the card's
+    shared memory (the codebook streams through in fixed chunks, so
+    n_embed sets no limit).  The C sizing call queries the device and sets
+    the kernel's shared-memory attribute, so it runs once per device and
+    sizes, not on every launch."""
     lib = _library()
     with torch.cuda.device(device):
-        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(
-            dim, n_embed, int(stats)), dim, n_embed,
-            "the training kernel (codebook and statistics)" if stats
-            else "the kernel")
+        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(dim),
+                    f"the CUDA-core kernel at latent width {dim}")
         grid = ctypes.c_int(0)
         _raise_on(lib, lib.ammc_quantize_topk_grid(
-            int(bf16), n, dim, n_embed, int(stats), ctypes.byref(grid)),
+            int(bf16), n, dim, k, ctypes.byref(grid)),
             "sizing the quantize_topk launch")
     return grid.value
 
@@ -230,7 +229,7 @@ def _mma_grid(device: int, n: int, n_embed: int, k: int) -> int:
     lib = _mma_library()
     with torch.cuda.device(device):
         _check_smem(lib, lib.ammc_quantize_topk_mma_smem_bytes(n_embed, k),
-                    MMA_DIM, n_embed, "the tensor-core kernel")
+                    f"the tensor-core kernel at n_embed {n_embed}")
         grid = ctypes.c_int(0)
         _raise_on(lib, lib.ammc_quantize_topk_mma_grid(
             n, n_embed, k, ctypes.byref(grid)),
@@ -238,19 +237,31 @@ def _mma_grid(device: int, n: int, n_embed: int, k: int) -> int:
     return grid.value
 
 
-def _kernel_device(flat: torch.Tensor, embed: torch.Tensor) -> None:
+def _kernel_device(flat: torch.Tensor, k: int, route: str) -> None:
+    """Raise for what no kernel takes: a device other than CUDA, or a k
+    over the CUDA-core kernel's top-k lists (its other limit, the latent
+    width, is the shared-memory check of :func:`_grid`)."""
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
-    if embed.shape[1] not in KERNEL_N_EMBEDS:
-        raise ValueError(f"the kernel takes n_embed in {KERNEL_N_EMBEDS}, "
-                         f"got {embed.shape[1]}")
+    if route == CUDA_CORE and k > CUDA_CORE_MAX_K:
+        raise ValueError(f"the CUDA-core kernel takes k <= {CUDA_CORE_MAX_K}"
+                         f", got {k}")
+
+
+def _cuda_core_scratch(embed: torch.Tensor) -> torch.Tensor:
+    """The CUDA-core kernels' scratch: a codeword-major copy of the codebook
+    and its squared norms, n_embed * (dim + 1) float32, written by the
+    kernels' prologue."""
+    dim, n_embed = embed.shape
+    return torch.empty((n_embed * (dim + 1),), dtype=torch.float32,
+                       device=embed.device)
 
 
 def _route(flat: torch.Tensor, n_embed: int, k: int,
            route: Optional[str]) -> str:
     """The route a wrapper takes: ``route`` if given and allowed, else
-    :func:`lookup_route`'s.  The CUDA-core kernels take every input; a
-    tensor-core route the rule would not give raises."""
+    :func:`lookup_route`'s.  The CUDA-core kernels may be asked for any
+    input; a tensor-core route the rule would not give raises."""
     dim = flat.shape[1]
     rule = lookup_route(flat.dtype, dim, n_embed, k)
     if route is None:
@@ -278,8 +289,10 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
       k: codewords per row.
       route: the kernel for a CUDA launch, ``TENSOR_CORE`` or
         ``CUDA_CORE``; by default :func:`lookup_route` decides.  The
-        CUDA-core kernel takes every input; asking for the tensor-core
-        kernel where the rule would not give it raises.
+        CUDA-core kernel takes any n_embed, k up to ``CUDA_CORE_MAX_K`` and
+        any latent width whose staged rows fit shared memory (it raises
+        ``ValueError`` naming the limit otherwise); asking for the
+        tensor-core kernel where the rule would not give it raises.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32)``.
@@ -290,7 +303,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_fused_ref(flat, embed, k)
-    _kernel_device(flat, embed)
+    _kernel_device(flat, k, route)
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=flat.device)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=flat.device)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
@@ -308,12 +321,13 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(flat.device.index, bf16, n, dim, n_embed, False)
+        grid = _grid(flat.device.index, bf16, n, dim, k)
+        scratch = _cuda_core_scratch(embed)
         with torch.cuda.device(flat.device):
             err = lib.ammc_quantize_topk(
                 flat.data_ptr(), int(bf16), embed.data_ptr(),
-                q_topk.data_ptr(), q1.data_ptr(), idx.data_ptr(), grid, n,
-                dim, n_embed, k, stream)
+                scratch.data_ptr(), q_topk.data_ptr(), q1.data_ptr(),
+                idx.data_ptr(), grid, n, dim, n_embed, k, stream)
     _raise_on(lib, err, f"quantize_topk kernel launch ({route})")
     quantize_topk_fused.launches += 1
     quantize_topk_fused.launches_by_route[route] += 1
@@ -332,8 +346,8 @@ def quantize_topk_train_fused(
     """Fused distance + top-k + gather + EMA statistics (kernel B2).
 
     Args: as :func:`quantize_topk_fused`, ``route`` and its rule included.
-    On the tensor-core route the lookup is B1's kernel, so ``q_topk``,
-    ``q1`` and ``top1_idx`` are bitwise B1's on the same input.
+    On either route the lookup is B1's kernel of that route, so ``q_topk``,
+    ``q1`` and ``top1_idx`` are bitwise B1's on the same input and route.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32,
@@ -346,7 +360,7 @@ def quantize_topk_train_fused(
     route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_train_fused_ref(flat, embed, k)
-    _kernel_device(flat, embed)
+    _kernel_device(flat, k, route)
     dev = flat.device
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=dev)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=dev)
@@ -370,18 +384,14 @@ def quantize_topk_train_fused(
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(dev.index, bf16, n, dim, n_embed, True)
-        # one workspace: grid partial embed_sums (f32), then grid partial
-        # counts (int32, the same 4 bytes an entry)
-        work = torch.empty((grid * (dim + 1) * n_embed,), dtype=torch.float32,
-                           device=dev)
-        part_counts = work[grid * dim * n_embed:]
+        grid = _grid(dev.index, bf16, n, dim, k)  # B1's lookup, shared
+        scratch = _cuda_core_scratch(embed)
         with torch.cuda.device(dev):
             err = lib.ammc_quantize_topk_train(
                 flat.data_ptr(), int(bf16), embed.data_ptr(),
-                q_topk.data_ptr(), q1.data_ptr(), idx.data_ptr(),
-                counts.data_ptr(), embed_sum.data_ptr(), work.data_ptr(),
-                part_counts.data_ptr(), grid, n, dim, n_embed, k, stream)
+                scratch.data_ptr(), q_topk.data_ptr(), q1.data_ptr(),
+                idx.data_ptr(), counts.data_ptr(), embed_sum.data_ptr(), grid,
+                n, dim, n_embed, k, stream)
     _raise_on(lib, err, f"quantize_topk_train kernel launch ({route})")
     quantize_topk_train_fused.launches += 1
     quantize_topk_train_fused.launches_by_route[route] += 1

@@ -12,7 +12,11 @@ teacher (the latter the inverse of the JAX package's
 ``tools/torch_convert.convert_twostream``: it takes the flax
 ``{'params', 'batch_stats', 'codebook'}`` tree of the two-stream generator
 (numpy arrays) and returns a state dict with the reference torch names,
-which :class:`~..models.TwoStreamUNetMem` loads with ``load_state_dict``.
+which :class:`~..models.TwoStreamUNetMem` loads with ``load_state_dict``;
+:func:`single_stream_state_from_jax` inverts ``convert_unetmem_stream`` for
+the stage-1 generator (the same stream's names without the ``rgb.`` /
+``op.`` prefix).  A stage-1 ``.pth`` in those names loads as it is
+(:func:`load_generator_checkpoint`), and ``run_train --pretrain`` grafts it.
 
 ==============================================  ================================
 flax path                                       torch key
@@ -123,6 +127,16 @@ def state_dict_from_jax(variables: Mapping) -> StateDict:
                                      params["bridge"][flax_name],
                                      stats["bridge"][flax_name]))
     return out
+
+
+def single_stream_state_from_jax(variables: Mapping) -> StateDict:
+    """The JAX stage-1 generator's variables (``UNetMemStream``, tag
+    ``unet_vq_topk_res``) -> the port's :class:`~..models.UNetMemStream`
+    state dict: one stream's entries without a prefix, the inverse of the
+    JAX package's ``convert_unetmem_stream``."""
+    sd = stream_state("s", variables["params"], variables["batch_stats"],
+                      variables["codebook"])
+    return {k[len("s."):]: v for k, v in sd.items()}
 
 
 def discriminator_state_from_jax(params: Mapping) -> StateDict:

@@ -98,7 +98,7 @@ def prefetch(batch_iter: Iterator, depth: int = 2) -> Iterator:
 
 
 def train_loop(state: TrainState, train_step: Callable,
-               batch_iter: Iterator, flownet: torch.nn.Module,
+               batch_iter: Iterator, flownet: Optional[torch.nn.Module],
                iterations: int, run_dir: str, logger=None,
                psnr_fn: Optional[Callable] = None,
                step_log: int = STEP_LOG, step_summary: int = STEP_SUMMARY,
@@ -106,6 +106,10 @@ def train_loop(state: TrainState, train_step: Callable,
                keep_ckpts: Optional[int] = None,
                keep_every: Optional[int] = None) -> TrainState:
     """Step ``state`` until ``state.step == iterations``.
+
+    ``batch_iter`` yields what ``train_step(state, batch, flownet)`` takes:
+    a ``{"rgb", "op"}`` dict of tensors (stage 2) or one clip tensor (stage
+    1); ``flownet`` is None where no loss term reads it.
 
     ``psnr_fn(state, batch)`` gives the train PSNR the reference logs every
     ``step_log`` (train_helper.py:347-386).  Summary scalars are written at

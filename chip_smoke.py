@@ -17,7 +17,11 @@ Phases, one JSON line each; any failure exits non-zero:
    the device time of each (CUDA graphs timed by CUDA events), the kernel's
    back-to-back eager time (host work included), the card's bound for the
    same work, and for the bf16 cases the CUDA-core kernel's device time on
-   the same input; B2's tensor-core lookup must be bitwise B1's;
+   the same input; B2's tensor-core lookup must be bitwise B1's; then the
+   CUDA-core route at the shapes its old kernel raised for (``c1_check``:
+   n_embed 100, 512 and 1024, width 128, k 1, 2 and 8, float32 and bf16,
+   ragged N; B2's lookup bitwise B1's CUDA-core lookup), timed at
+   n_embed 1024;
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16:
    the lookups' indices first, then the outputs of the samples whose
@@ -35,7 +39,15 @@ Phases, one JSON line each; any failure exits non-zero:
    scalars, the codebook, the checkpoint and the kernels' launches (B2 twice
    per step, B1 twice per train-PSNR forward, all on the tensor-core
    route);
-8. the ``kernels`` summary line, then the last line
+8. the stage-1 path: ``runners.run_train.main`` runs the released recipe
+   from stage 1 at full width (bf16, batch 4, 256x256): stage 1 rgb and op
+   on the device-resident backend, 20 steps each, then stage 2
+   ``--pretrain`` from both step dirs on the framepack backend (a pack the
+   script writes with ``pack_video_tree``) for 10 steps, then 5 stage-1
+   steps at ``--n_embed 1024``; each run logs finite scalars and moves its
+   codebook, every B2 launch of the released-configuration runs takes the
+   tensor-core route and those of the n_embed 1024 run the CUDA-core route;
+9. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -392,14 +404,57 @@ def train_kernel_phase(torch, mk) -> dict:
                                k, tc)
     emit("kernel_check", kernel="quantize_topk_train_fused",
          input="n_embed=512 bf16", **public(res))
-    try:
-        mk.quantize_topk_train_fused(z32[:64], big, k)
-    except ValueError as exc:
-        emit("kernel_check", kernel="quantize_topk_train_fused",
-             input="n_embed=512 f32", route=cc, raises=str(exc))
-    else:
-        fail("B2 at n_embed 512 in f32 (over the CUDA-core kernel's shared "
-             "memory) did not raise")
+    return out
+
+
+# c1_check's shapes (dim, n_embed, k, N): codebook sizes no tensor-core
+# kernel is built for (1024 and the non-power-of-two 100), the width 128,
+# k 1, 2 and 8, ragged N, and float32 B2 at n_embed 512
+C1_CASES = ((64, 1024, 2, 4096), (64, 100, 2, 4096), (128, 1024, 8, 4099),
+            (128, 100, 1, 1037), (64, 1024, 8, 1037), (64, 512, 2, 4096))
+# c1_check's timed shapes (N, n_embed), float32, k 2, dim 64: the old
+# kernel's shapes (n_embed 256 at N = 196,608 for B1 and 4,096 for B2 are
+# kernel_check's float32 rows) and n_embed 1024
+C1_TIMED = ((196_608, 1024), (4_096, 1024))
+
+
+def c1_phase(torch, mk) -> dict:
+    """The CUDA-core route of B1 and B2 at the shapes the old kernel raised
+    for, against their plain versions under the near-tie rule (B2: counts
+    the histogram, embed_sum within ``ESUM_REL``, two calls bitwise equal,
+    its lookup bitwise B1's CUDA-core lookup), in float32 and bf16; then
+    device and eager times with the bound at n_embed 1024."""
+    g = torch.Generator(device="cuda").manual_seed(4)
+    cc = mk.CUDA_CORE
+    out = {}
+    for dim, n_embed, k, n in C1_CASES:
+        embed = torch.randn(dim, n_embed, device="cuda", generator=g)
+        z32 = torch.randn(n, dim, device="cuda", generator=g) * 0.5
+        for name, flat in (("float32", z32), ("bfloat16", z32.to(torch.bfloat16))):
+            if n_embed == 512 and name == "bfloat16":
+                continue  # the tensor-core route's size (kernel_check)
+            b1 = b1_check(torch, mk, flat, embed, k, cc)
+            b2 = compare_train_lookup(torch, mk, flat, embed, k, cc)
+            lookup = mk.quantize_topk_train_fused(flat, embed, k, route=cc)[:3]
+            if not all(torch.equal(a, b) for a, b in zip(lookup, b1["out"])):
+                fail(f"B2's CUDA-core lookup differs from B1's at {name} "
+                     f"dim={dim} n_embed={n_embed} k={k}")
+            emit("c1_check", input=f"{name} N={n} dim={dim} n_embed={n_embed} "
+                 f"k={k}", b1=public(b1), b2=public(b2))
+    for n, n_embed in C1_TIMED:
+        embed = torch.randn(64, n_embed, device="cuda", generator=g)
+        flat = torch.randn(n, 64, device="cuda", generator=g) * 0.5
+        for kernel, plain, bound_fn in (
+                (mk.quantize_topk_fused, mk.quantize_topk_fused_ref,
+                 lookup_bound),
+                (mk.quantize_topk_train_fused, mk.quantize_topk_train_fused_ref,
+                 train_lookup_bound)):
+            row = {"shape": [n, 64, n_embed, 2], "route": cc,
+                   **time_pair(torch, kernel, plain, flat, embed, 2),
+                   **bound_fn(n, 64, n_embed, 2, 4)}
+            out[(kernel.__name__, n, n_embed)] = row
+            emit("c1_check", kernel=kernel.__name__,
+                 input=f"float32 N={n} n_embed={n_embed} timed", **row)
     return out
 
 
@@ -905,6 +960,7 @@ def train_path_phase(torch, mk) -> dict:
            "first_step_s": scalars[0]["first_step_s"][1],
            "steps_per_s_by_period": rates,
            "steady_steps_per_s": sum(steady) / len(steady),
+           "data_stall_frac_by_period": scalars[0]["data_stall_frac"],
            "resumed_steps_per_s": scalars[1]["steps_per_sec"],
            "first_run_wall_s": wall1, "peak_mem_gib": peak,
            "data_write_s": data_s, "quantize_topk_train_launches": b2,
@@ -915,6 +971,138 @@ def train_path_phase(torch, mk) -> dict:
            "train_psnr_by_step": scalars[0]["train_psnr"],
            "restored_bit_exact": True}
     emit("train_path", **out)
+    return out
+
+
+# the stage-1 path: steps of each stage-1 run, of the stage-2 run grafted
+# from them, and of the n_embed 1024 run; log period (one train-PSNR
+# forward each)
+STAGE1_STEPS, STAGE2_STEPS, C1_RUN_STEPS, STAGE1_LOG = 20, 10, 5, 5
+STAGE1_RECIPES = (("rgb", "rgb_int_gdl_flow_adv_vq"), ("op", "op_int_adv_vq"))
+
+
+def launch_counts(mk) -> dict:
+    """Each wrapper's launches by route, read after a run."""
+    return {"b1": dict(mk.quantize_topk_fused.launches_by_route),
+            "b2": dict(mk.quantize_topk_train_fused.launches_by_route)}
+
+
+def timed_run(torch, mk, run_train, argv, steps: int, memories: int,
+              route: str) -> dict:
+    """``run_train.main(argv)`` with every count set to 0 just before and
+    read just after; fails unless it reached ``steps``, logged finite
+    scalars and launched B2 ``memories`` times a step and B1 ``memories``
+    times a train-PSNR forward, all on ``route``."""
+    import re
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    run_dir, state = run_train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = launch_counts(mk)
+    want = {"b2": memories * steps, "b1": memories * (steps // STAGE1_LOG)}
+    for kernel, n in want.items():
+        if counts[kernel] != {r: n * (r == route) for r in mk.ROUTES}:
+            fail(f"{argv[-1]}: {kernel} launched {counts[kernel]}, want {n} "
+                 f"all on {route!r}")
+    if state.step != steps:
+        fail(f"{argv[-1]}: ended at step {state.step}, want {steps}")
+    scalars = read_scalars(run_dir)
+    for tag, vals in scalars.items():
+        if not all(math.isfinite(v) for v in vals.values()):
+            fail(f"{argv[-1]}: scalar {tag} not finite: {vals}")
+    with open(os.path.join(run_dir, "log_dir", "info.log")) as fh:
+        resident = re.search(r"resident_bytes=(\d+)", fh.read())
+    rates = scalars["steps_per_sec"]
+    steady = [rates[s] for s in rates if s > STAGE1_LOG]  # after period 1
+    return {"run_dir": run_dir, "state": state, "steps": steps,
+            "wall_s": wall, "first_step_s": scalars["first_step_s"][1],
+            "steps_per_s_by_period": rates,
+            "steady_steps_per_s": sum(steady) / len(steady) if steady else None,
+            "data_stall_frac_by_period": scalars["data_stall_frac"],
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "resident_bytes": int(resident.group(1)) if resident else None,
+            "launches_by_route": counts,
+            "g_loss_by_step": scalars["g_loss"],
+            "train_psnr_by_step": scalars["train_psnr"]}
+
+
+def stage1_path_phase(torch, mk) -> dict:
+    """The released recipe from stage 1, at full width (the released
+    configuration, bf16, batch 4, 256x256) on a numpy-written training tree:
+    ``run_train`` stage 1 rgb and op on the device-resident backend, then
+    stage 2 ``--pretrain`` from both step dirs on the framepack backend (a
+    pack ``pack_video_tree`` writes), then stage 1 rgb at ``--n_embed 1024``
+    (the CUDA-core route).  Each run logs finite scalars and moves its
+    codebook; every B2 launch of the released-configuration runs takes the
+    tensor-core route, those of the n_embed 1024 run the CUDA-core route."""
+    from ammcnet_aaai2021_torch.data.framepack import pack_video_tree
+    from ammcnet_aaai2021_torch.runners import run_train
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_train_tree(tmp)
+        base = os.path.join(tmp, "ped2", "training")
+        for name, data_type in (("frames", "rgb"), ("flows", "op")):
+            pack_video_tree(os.path.join(base, name),
+                            os.path.join(base, name + ".fpk"),
+                            image_size=IMAGE_SIZE, data_type=data_type)
+        data_s = time.perf_counter() - t0
+
+        def argv(steps, *extra):
+            return ["--dataset_name", "ped2", "--data_dir", tmp,
+                    "--save_dir", os.path.join(tmp, "runs"),
+                    "--registry", os.path.join(tmp, "runs", "registry.json"),
+                    "--step_log", str(STAGE1_LOG), "--step_summary",
+                    str(STAGE1_LOG), "--step_save", str(steps),
+                    "--iterations", str(steps), *extra]
+
+        step_dirs = {}
+        for data_type, loss_tag in STAGE1_RECIPES:
+            run = timed_run(torch, mk, run_train, argv(
+                STAGE1_STEPS, "--net_tag", "unet_vq_topk_res", "--data_type",
+                data_type, "--loss_tag", loss_tag, "--backend", "device",
+                "--exp_tag", f"stage1-{data_type}"), STAGE1_STEPS, 1,
+                mk.TENSOR_CORE)
+            cb = run["state"].generator.vq_down3.quan.quantize
+            if not bool(cb.cluster_size.any()):
+                fail(f"stage 1 {data_type}: cluster_size did not move")
+            if not run["resident_bytes"]:
+                fail(f"stage 1 {data_type}: no resident_bytes logged")
+            step_dirs[data_type] = (os.path.join(
+                run["run_dir"], "training", "checkpoints",
+                f"{STAGE1_STEPS:06d}"), cb.embed.clone())
+            out[f"stage1_{data_type}"] = run
+
+        run = timed_run(torch, mk, run_train, argv(
+            STAGE2_STEPS, "--pretrain", "--rgb_model_path",
+            step_dirs["rgb"][0], "--op_model_path", step_dirs["op"][0],
+            "--backend", "framepack", "--exp_tag", "stage2-pretrained"),
+            STAGE2_STEPS, 2, mk.TENSOR_CORE)
+        gen = run["state"].generator
+        for stream in ("rgb", "op"):
+            if torch.equal(getattr(gen, stream).vq_down3.quan.quantize.embed,
+                           step_dirs[stream][1]):
+                fail(f"stage 2: the grafted {stream} codebook did not move")
+        out["stage2_framepack"] = run
+
+        run = timed_run(torch, mk, run_train, argv(
+            C1_RUN_STEPS, "--net_tag", "unet_vq_topk_res", "--data_type",
+            "rgb", "--loss_tag", "rgb_int_gdl_flow_adv_vq", "--n_embed",
+            "1024", "--backend", "device", "--exp_tag", "stage1-n1024"),
+            C1_RUN_STEPS, 1, mk.CUDA_CORE)
+        if not bool(run["state"].generator.vq_down3.quan.quantize
+                    .cluster_size.any()):
+            fail("stage 1 at n_embed 1024: cluster_size did not move")
+        out["stage1_n_embed_1024"] = run
+    for name, run in out.items():
+        emit("stage1_path", run=name, batch=4, image_size=IMAGE_SIZE,
+             data_write_s=data_s, **{k: v for k, v in run.items()
+                                     if k not in ("run_dir", "state")})
     return out
 
 
@@ -961,6 +1149,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.allow_tf32 = False
     checks = kernel_phase(torch, mk)
     train_checks = train_kernel_phase(torch, mk)
+    c1_times = c1_phase(torch, mk)
     model_phase(torch, mk)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     main_run = main_path_phase(torch, mk, args.videos)
@@ -973,6 +1162,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.deterministic = deterministic
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     train_run = train_path_phase(torch, mk)
+    stage1_runs = stage1_path_phase(torch, mk)
 
     bf16 = checks[("bfloat16", 192 * 32 * 32, 2)]
     video = checks[("bfloat16", 176 * 32 * 32, 2)]
@@ -980,8 +1170,21 @@ def main(argv=None) -> None:
     b2 = train_checks[(4 * 32 * 32, "bfloat16")]
     b2_f32 = train_checks[(4 * 32 * 32, "float32")]
     b2_big = train_checks[(192 * 32 * 32, "bfloat16")]
+    b2_f32_big = train_checks[(192 * 32 * 32, "float32")]
     b2_keys = ("kernel_ms", "kernel_eager_ms", "previous_kernel_ms",
                "lookup_ms", "stats_ms", "plain_ms", "bound_ms", "bound_by")
+    cc_keys = ("kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+               "bound_by")
+
+    def cc_times(name):
+        """The CUDA-core route's timed rows of one wrapper at n_embed 1024."""
+        return {f"at_n_{n}": {key: c1_times[(name, n, n_embed)][key]
+                              for key in cc_keys}
+                for n, n_embed in C1_TIMED}
+
+    def stage1_launches(kernel):
+        return {name: run["launches_by_route"][kernel]
+                for name, run in stage1_runs.items()}
     print(json.dumps({"kernels": [{
         "name": "quantize_topk_fused",
         "route": "cuda",
@@ -991,7 +1194,8 @@ def main(argv=None) -> None:
         "launches": main_run["quantize_topk_launches"],
         "launches_by_route": main_run["quantize_topk_launches_by_route"],
         "launches_by_path": {"score": main_run["quantize_topk_launches"],
-                             "train": train_run["quantize_topk_launches"]},
+                             "train": train_run["quantize_topk_launches"],
+                             **stage1_launches("b1")},
         "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
         "flips": bf16["flips"],
         "ms": bf16["kernel_ms"],
@@ -1013,8 +1217,9 @@ def main(argv=None) -> None:
                           "source": "ammcnet_aaai2021_torch/csrc/"
                                     "quantize_topk.cu",
                           **{key: checks["float32"][key] for key in (
-                              "kernel_ms", "plain_ms", "bound_ms",
-                              "bound_by", "flips")}},
+                              "kernel_ms", "kernel_eager_ms", "plain_ms",
+                              "bound_ms", "bound_by", "flips")},
+                          "at_n_embed_1024": cc_times("quantize_topk_fused")},
     }, {
         "name": "quantize_topk_train_fused",
         "route": "cuda",
@@ -1024,6 +1229,8 @@ def main(argv=None) -> None:
         "launches": train_run["quantize_topk_train_launches"],
         "launches_by_route": train_run[
             "quantize_topk_train_launches_by_route"],
+        "launches_by_path": {"train": train_run["quantize_topk_train_launches"],
+                             **stage1_launches("b2")},
         "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"]),
         "esum_max_rel_err": max(b2["esum_max_rel_err"],
                                 b2_f32["esum_max_rel_err"]),
@@ -1038,8 +1245,13 @@ def main(argv=None) -> None:
                           "source": "ammcnet_aaai2021_torch/csrc/"
                                     "quantize_topk.cu",
                           **{key: b2_f32[key] for key in (
-                              "kernel_ms", "plain_ms", "bound_ms",
-                              "bound_by", "flips", "esum_max_rel_err")}},
+                              "kernel_ms", "kernel_eager_ms", "plain_ms",
+                              "bound_ms", "bound_by", "flips",
+                              "esum_max_rel_err")},
+                          "at_n_196608": {key: b2_f32_big[key]
+                                          for key in cc_keys},
+                          "at_n_embed_1024": cc_times(
+                              "quantize_topk_train_fused")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

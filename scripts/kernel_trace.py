@@ -9,7 +9,7 @@ from __future__ import annotations
 # coarse kernel groups, first match wins (cuDNN / ATen / the port's kernel
 # names, lower case)
 GROUPS = (
-    ("memory lookup kernels (B1, B2)", ("quantize_topk", "reduce_stats",
+    ("memory lookup kernels (B1, B2)", ("quantize_topk", "prep_codebook",
                                         "ema_stats")),
     ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),

@@ -45,6 +45,9 @@ DIM, K = 64, 2
 # B2's embed_sum against a float64 sum: within this much of the magnitude
 # summed into each entry (float32 sums in another order)
 ESUM_REL = 1e-5
+# a top-k index may differ from the plain version's only where the two
+# codewords' float64 distances differ by less than this (chip_smoke.py)
+NEAR_TIE_REL = 1e-5
 
 
 @pytest.fixture
@@ -152,12 +155,82 @@ def test_tensor_core_route_rejects_misaligned_latents(cuda_device):
         quantize_topk_fused(flat, embed, K)
 
 
+def _assert_lookup(flat, embed, k, out):
+    """B1's outputs (or B2's lookup) against the plain version: rows whose
+    indices agree bitwise equal, and in each other row every differing
+    round's two codewords a near-tie in float64."""
+    q, q1, idx = out[:3]
+    dim = flat.shape[1]
+    rq, rq1, ridx = quantize_topk_fused_ref(flat, embed, k)
+    assert q.shape == rq.shape and torch.equal(q1, q[:, :dim])
+    agree = (idx == ridx) & (q == rq).all(dim=1)
+    assert torch.equal(q[agree], rq[agree]) and torch.equal(q1[agree], rq1[agree])
+    assert int((~agree).sum()) <= max(2, flat.shape[0] // 100)
+    z = flat[~agree].double()
+    for j in range(k):
+        words = [t[~agree, j * dim:(j + 1) * dim].double() for t in (q, rq)]
+        da, db = ((z - w).square().sum(1) for w in words)
+        gap = (da - db).abs() / torch.maximum(da, db).clamp_min(1e-300)
+        assert bool((gap < NEAR_TIE_REL).all()), float(gap.max())
+
+
 @pytest.mark.cuda
-def test_kernel_rejects_codebook_over_shared_memory(cuda_device):
-    flat = torch.zeros(8, 512, device=cuda_device)
-    embed = torch.zeros(512, 512, device=cuda_device)
+def test_kernel_takes_a_codebook_over_the_shared_memory_of_a_block(cuda_device):
+    """A (512, 512) codebook (1 MiB) streams through shared memory in
+    chunks: it runs on the CUDA-core route and matches the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(19)
+    flat = torch.randn(517, 512, device=cuda_device, generator=g)
+    embed = torch.randn(512, 512, device=cuda_device, generator=g)
+    before = quantize_topk_fused.launches_by_route[CUDA_CORE]
+    out = quantize_topk_fused(flat, embed, K)
+    torch.cuda.synchronize()
+    assert quantize_topk_fused.launches_by_route[CUDA_CORE] == before + 1
+    _assert_lookup(flat, embed, K, out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim,n_embed,k", [(64, 100, 2), (64, 1024, 2),
+                                           (128, 1024, 8), (128, 100, 1),
+                                           (64, 37, 8), (100, 300, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_core_route_takes_any_codebook_size(cuda_device, dtype, dim,
+                                                 n_embed, k):
+    """Non-powers of two, n_embed over the old 512, k up to 8, other widths,
+    a ragged N: the CUDA-core route against the plain version."""
+    g = torch.Generator(device=cuda_device).manual_seed(20)
+    flat = torch.randn(1037, dim, device=cuda_device, generator=g).to(dtype)
+    embed = torch.randn(dim, n_embed, device=cuda_device, generator=g)
+    before = quantize_topk_fused.launches_by_route[CUDA_CORE]
+    out = quantize_topk_fused(flat, embed, k, route=CUDA_CORE)
+    torch.cuda.synchronize()
+    assert quantize_topk_fused.launches_by_route[CUDA_CORE] == before + 1
+    _assert_lookup(flat, embed, k, out)
+
+
+@pytest.mark.cuda
+def test_cuda_core_route_lowest_index_wins_ties_across_chunks(cuda_device):
+    """Codeword j + 512 equals codeword j: every tie spans two chunks, and
+    the lower index wins both rounds' picks in order."""
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    flat = torch.randn(2048, DIM, device=cuda_device, generator=g)
+    half = torch.randn(DIM, 512, device=cuda_device, generator=g)
+    embed = torch.cat([half, half], dim=1)
+    q, _, idx = quantize_topk_fused(flat, embed, K)
+    assert bool((idx < 512).all())
+    assert torch.equal(q[:, :DIM], q[:, DIM:])  # round 2 takes the twin
+
+
+@pytest.mark.cuda
+def test_cuda_core_route_names_its_limits(cuda_device):
+    flat = torch.zeros(8, DIM, device=cuda_device)
+    embed = torch.zeros(DIM, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="k <= 8"):
+        quantize_topk_fused(flat, embed, 9)
+    with pytest.raises(ValueError, match="k <= 8"):
+        quantize_topk_train_fused(flat, embed, 9)
+    wide = torch.zeros(8, 4096, device=cuda_device)
     with pytest.raises(ValueError, match="shared memory"):
-        quantize_topk_fused(flat, embed, K)
+        quantize_topk_fused(wide, torch.zeros(4096, 64, device=cuda_device), K)
 
 
 @pytest.mark.cuda
@@ -206,10 +279,8 @@ def _assert_train_outputs(flat, embed, k, out):
     magnitude."""
     q, q1, idx, counts, esum = out
     n_embed = embed.shape[1]
-    rq, rq1, ridx, rcounts, _ = quantize_topk_train_fused_ref(flat, embed, k)
-    agree = (idx == ridx) & (q == rq).all(dim=1)
-    assert int((~agree).sum()) <= 2  # near-ties only, at this size
-    assert torch.equal(q[agree], rq[agree]) and torch.equal(q1[agree], rq1[agree])
+    _assert_lookup(flat, embed, k, out)
+    _, _, ridx, rcounts, _ = quantize_topk_train_fused_ref(flat, embed, k)
     assert torch.equal(counts, torch.bincount(idx.long(), minlength=n_embed)
                        .float())
     if bool((idx == ridx).all()):
@@ -251,8 +322,7 @@ def test_train_kernel_statistics_are_deterministic(cuda_device, route):
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2])
 def test_train_kernel_tensor_core_route_takes_n_embed_512(cuda_device, k):
-    """Without a shared-memory partial, n_embed 512 runs on the tensor-core
-    route (the CUDA-core route raises for it)."""
+    """n_embed 512 on the tensor-core route."""
     g = torch.Generator(device=cuda_device).manual_seed(15)
     flat = torch.randn(4099, DIM, device=cuda_device,
                        generator=g).to(torch.bfloat16)
@@ -317,17 +387,40 @@ def test_train_kernel_counts_launches_by_route(cuda_device):
 
 
 @pytest.mark.cuda
-def test_train_kernel_rejects_statistics_over_shared_memory(cuda_device):
-    flat = torch.zeros(8, DIM, device=cuda_device)
-    embed = torch.zeros(DIM, 512, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        quantize_topk_train_fused(flat, embed, K)
+@pytest.mark.parametrize("dim,n_embed,k", [(64, 512, 2), (64, 100, 2),
+                                           (64, 1024, 2), (128, 1024, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_train_kernel_takes_any_codebook_size(cuda_device, dtype, dim,
+                                              n_embed, k):
+    """float32 B2 at n_embed 512 (over the old kernel's shared memory),
+    non-powers of two, 1024, k 8, width 128: the CUDA-core route against the
+    plain version, its lookup bitwise B1's CUDA-core lookup."""
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    flat = torch.randn(1037, dim, device=cuda_device, generator=g).to(dtype)
+    embed = torch.randn(dim, n_embed, device=cuda_device, generator=g)
+    out = _train_launch(flat, embed, k, CUDA_CORE)
+    _assert_train_outputs(flat, embed, k, out)
+    b1 = quantize_topk_fused(flat, embed, k, route=CUDA_CORE)
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], b1))
+
+
+@pytest.mark.cuda
+def test_train_kernel_statistics_are_deterministic_at_n_embed_1024(cuda_device):
+    g = torch.Generator(device=cuda_device).manual_seed(23)
+    flat = torch.randn(65_536, DIM, device=cuda_device, generator=g)
+    embed = torch.randn(DIM, 1024, device=cuda_device, generator=g)
+    first = _train_launch(flat, embed, K, CUDA_CORE)
+    _assert_train_outputs(flat, embed, K, first)
+    for _ in range(2):
+        again = quantize_topk_train_fused(flat, embed, K)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
 
 
 @pytest.mark.cuda
 def test_wrappers_size_each_launch_shape_once(cuda_device):
     """The shared-memory check and grid sizing (device queries, occupancy)
-    run once per device and shape, not on every launch."""
+    run once per device and shape, not on every launch; B1 and B2 share
+    them on the CUDA-core route too."""
     flat = torch.randn(300, DIM, device=cuda_device)
     embed = torch.randn(DIM, 64, device=cuda_device)
     memory_kernels._grid.cache_clear()
@@ -335,7 +428,7 @@ def test_wrappers_size_each_launch_shape_once(cuda_device):
         quantize_topk_fused(flat, embed, K)
         quantize_topk_train_fused(flat, embed, K)
     info = memory_kernels._grid.cache_info()
-    assert (info.misses, info.hits) == (2, 4)
+    assert (info.misses, info.hits) == (1, 5)  # B2's lookup is B1's kernel
 
 
 @pytest.mark.cuda

@@ -8,6 +8,9 @@
   generator) and the same AUC;
 * the port's ``run_test`` CLI on the CPU: golden-schema pickle, the
   "the optimal auc =" line, the same AUC as ``evaluate`` on its records;
+* both ``run_test`` CLIs on one ``.pth`` and the JAX package's JPEG toydata
+  tree, in three flag sets: the records to 1e-4 of their scale and the
+  same printed result line;
 * the port and ``chip_smoke.py`` import nothing of JAX.
 """
 
@@ -246,11 +249,77 @@ def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
         run_test.main(argv)
 
 
+@pytest.fixture(scope="module")
+def jpeg_toydata(tmp_path_factory):
+    """The JAX package's toydata JPEG tree (2 test videos of 24 frames,
+    64x64) and one ``.pth`` of the port's seeded init (the released
+    configuration, bf16)."""
+    from ammcnet_aaai2021_tpu.tools.make_toydata import make_toydata
+
+    root = str(tmp_path_factory.mktemp("cli_parity"))
+    make_toydata(root, num_train_videos=2, num_test_videos=2,
+                 frames_per_video=24, image_size=SIZE)
+    net = init_weights(build_generator(NetConfig()),
+                       torch.Generator().manual_seed(3))
+    ckpt = os.path.join(root, "generator.pth")
+    torch.save(net.state_dict(), ckpt)
+    return root, ckpt
+
+
+CLI_FLAG_SETS = {
+    "default": [],
+    "eer_ssim_epe": ["--eval_type", "compute_eer", "--metric", "ssim",
+                     "--op_metric", "epe", "--fix_flow_bug", "--batch_commit"],
+    "pr_mse_batch": ["--eval_type", "precision_recall_auc", "--metric", "mse",
+                     "--reproduce_op_psnr_bug", "--scorer_mode", "batch",
+                     "--batch_size", "5"],
+}
+
+
+@pytest.mark.parametrize("flags", list(CLI_FLAG_SETS.values()),
+                         ids=list(CLI_FLAG_SETS))
+def test_run_test_cli_matches_the_jax_cli(jpeg_toydata, tmp_path, capsys,
+                                          flags):
+    """Both ``run_test`` CLIs on one checkpoint (``--ckptfile``): the four
+    record lists within 1e-4 of their scale (bf16 convolutions of two
+    frameworks on the CPU) and the same printed result line."""
+    from ammcnet_aaai2021_tpu.runners import run_test as j_run_test
+
+    root, ckpt = jpeg_toydata
+    base = ["--dataset_name", "toydata", "--data_dir", root, "--ckptfile",
+            ckpt, "--image_size", str(SIZE), *flags]
+
+    def result_line(out):
+        return [line for line in out.splitlines()
+                if line.startswith("the optimal") and "loss_file" not in line]
+
+    results = []
+    for name, main, extra in (("jax", j_run_test.main, []),
+                              ("torch", run_test.main, ["--device", "cpu"])):
+        res = main(base + ["--save_dir", str(tmp_path / name), *extra])
+        with open(res["pickle"], "rb") as fh:
+            results.append((result_line(capsys.readouterr().out),
+                            pickle.load(fh)))
+    (jline, want), (tline, got) = results
+    assert len(tline) == 1 and tline == jline
+    for key in RECORD_KEYS:
+        assert [len(r) for r in got[key]] == [24, 24]
+        for g, w in zip(got[key], want[key]):
+            # relative to the record's scale; SSIM lies in [-1, 1] and sits
+            # near 0 for random weights, so its scale is 1
+            scale = 1.0 if key == "rgb_img_pred_records" and "ssim" in flags \
+                else float(np.abs(w).max())
+            np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4 * scale,
+                                       err_msg=key)
+
+
 def test_port_and_chip_smoke_import_no_jax():
     modules = [
         "ammcnet_aaai2021_torch", "ammcnet_aaai2021_torch.configs",
-        "ammcnet_aaai2021_torch.data.datasets",
+        "ammcnet_aaai2021_torch.data", "ammcnet_aaai2021_torch.data.datasets",
         "ammcnet_aaai2021_torch.data.flo",
+        "ammcnet_aaai2021_torch.data.framepack",
+        "ammcnet_aaai2021_torch.data.resident",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",
         "ammcnet_aaai2021_torch.losses", "ammcnet_aaai2021_torch.models",
         "ammcnet_aaai2021_torch.ops.cuda_build",

@@ -26,7 +26,10 @@ import torch
 
 from ammcnet_aaai2021_tpu.ops.memory import Codebook as JCodebook
 from ammcnet_aaai2021_tpu.ops.memory import quantize_topk as j_quantize_topk
-from ammcnet_aaai2021_tpu.ops.memory_pallas import quantize_topk_pallas
+from ammcnet_aaai2021_tpu.ops.memory_pallas import (
+    quantize_topk_pallas,
+    quantize_topk_pallas_train,
+)
 from ammcnet_aaai2021_torch.ops.memory import Codebook, quantize_topk
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
     CUDA_CORE,
@@ -248,7 +251,10 @@ ROUTE_CASES = [
     (torch.float32, 64, 256, 2, CUDA_CORE),  # f32 latents: the parity path
     (torch.bfloat16, 64, 256, 5, CUDA_CORE),  # k past the instantiated 4
     (torch.bfloat16, 32, 256, 2, CUDA_CORE),  # another latent width
-    (torch.bfloat16, 64, 96, 2, CUDA_CORE),  # no kernel takes this codebook
+    (torch.bfloat16, 64, 96, 2, CUDA_CORE),  # no tensor-core codebook size
+    (torch.bfloat16, 64, 1024, 2, CUDA_CORE),  # over the tensor-core sizes
+    (torch.bfloat16, 64, 100, 2, CUDA_CORE),  # not a power of two
+    (torch.bfloat16, 128, 256, 2, CUDA_CORE),  # --embed_dim 128
 ]
 
 
@@ -289,3 +295,29 @@ def test_train_wrapper_applies_lookup_route(dtype, dim, n_embed, k, route):
     assert quantize_topk_train_fused.launches_by_route == before
     with pytest.raises(ValueError, match="route"):
         quantize_topk_train_fused(flat, embed, k, route="tensor_cores")
+
+
+@pytest.mark.parametrize("dim,n_embed,k", [(64, 100, 2), (64, 1024, 2),
+                                           (128, 1024, 8), (128, 100, 5)])
+def test_plain_versions_match_pallas_at_any_codebook_size(dim, n_embed, k):
+    """The codebook shapes the CUDA-core route now takes (any n_embed, other
+    widths, k up to 8): B1's and B2's plain versions, which the CPU wrappers
+    return and the card holds the kernels against, against the JAX package's
+    Pallas kernels (interpret mode) on a ragged N."""
+    rng = np.random.default_rng(12)
+    flat = rng.normal(size=(300, dim)).astype(np.float32)
+    embed = rng.normal(size=(dim, n_embed)).astype(np.float32)
+    jq, jq1, jidx = quantize_topk_pallas(jnp.asarray(flat), jnp.asarray(embed), k)
+    *_, jcounts, jesum = quantize_topk_pallas_train(
+        jnp.asarray(flat), jnp.asarray(embed), k)
+    tflat, tembed = torch.from_numpy(flat), torch.from_numpy(embed)
+    q, q1, idx = quantize_topk_fused(tflat, tembed, k)
+    _, _, idx2, counts, esum = quantize_topk_train_fused(tflat, tembed, k)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(idx2.numpy(), np.asarray(jidx))
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(q1.numpy(), np.asarray(jq1))
+    np.testing.assert_array_equal(counts.numpy(), np.asarray(jcounts))
+    onehot = np.eye(n_embed)[idx.numpy()]
+    mag = np.abs(flat.astype(np.float64)).T @ onehot
+    assert np.all(np.abs(esum.numpy() - np.asarray(jesum)) <= 1e-5 * mag + 1e-30)

@@ -792,8 +792,6 @@ def test_run_train_cuda_without_gpu_raises(train_tree, tmp_path):
 
 
 @pytest.mark.parametrize("extra,match", [
-    (["--data_type", "rgb"], "stage-1"),
-    (["--backend", "device"], "stage-1"),
     (["--fetch_every_periods", "2"], "export-and-tools"),
     (["--async_checkpoints"], "export-and-tools"),
     (["--pretrain", "--rgb_model_path", "a.msgpack", "--op_model_path",
