@@ -8,8 +8,10 @@
 // :201-255); kernel B2 (B1's kernel, then `ema_stats_kernel`) replaces
 // `_quantize_train_kernel` called by `quantize_topk_pallas_train`
 // (memory_pallas.py:84-135, :137-198).  Like the TPU kernels they take any
-// n_embed >= k and any latent width; the limits are k <= kMaxK and a width
-// whose staged rows fit shared memory (`smem_bytes`).
+// n_embed and any 1 <= k <= n_embed; the limit is shared memory
+// (`smem_bytes`): a width whose staged rows fit, and for k > kMaxK the
+// block's 32 rows of n_embed staged distances beside them (n_embed up to
+// about 1,490 at width 64).
 //
 // For each latent row z (dim values, bf16 or f32) against the
 // codebook E (dim, n_embed) f32 it computes the ranking distance
@@ -47,6 +49,12 @@
 //    k rounds of a 5-step xor-shuffle reduction on (distance, index) pick
 //    the row's winner, lowest index on ties (the TPU kernel's tie-break,
 //    memory_pallas.py:64-72), and the lane that owns it drops it.
+//  * For k > kMaxK (KMAX = kStaged) the lists would spill: 32 floats and
+//    32 indices a lane per row.  That instantiation instead stages each
+//    row's n_embed distances in shared memory (the same fmaf order, so the
+//    same distances and top-1) and takes the TPU kernel's own k rounds
+//    (memory_pallas.py:62-81): a warp-wide (minimum, lowest index) over the
+//    row, the winner masked as NaN (a real NaN distance ranks as +inf).
 //  * The gather reads the k winners from the codeword-major copy (L2):
 //    lanes read and write consecutive d, so both are coalesced.
 //  * A ragged N is masked: rows past N are staged as zeros and not written.
@@ -86,7 +94,8 @@ constexpr int kChunk = 128;              // codewords a staged chunk holds
 constexpr int kPerLane = kChunk / 32;    // of them, each lane's
 constexpr int kSlice = 64;               // latent dims a staged chunk holds
 constexpr int kPitch = kChunk + 1;
-constexpr int kMaxK = 8;  // memory_kernels.CUDA_CORE_MAX_K
+constexpr int kMaxK = 8;  // the longest per-lane top-k list
+constexpr int kStaged = 0;  // KMAX of the instantiation that stages distances
 constexpr int kStatThreads = 128;        // ema_stats_kernel: 4 warps
 constexpr int kStatRowsPerWarp = 256;    // rows a warp scans per chunk
 constexpr int kStatRows = 4 * kStatRowsPerWarp;
@@ -97,9 +106,14 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-size_t smem_bytes(int dim) {
+// Dynamic shared memory of one block: the codebook chunk, the staged rows
+// and, for k > kMaxK, the rows' staged distances.
+size_t smem_bytes(int dim, int n_embed, int k) {
+  const size_t dists = k > kMaxK ? static_cast<size_t>(kWarps) * kRows * n_embed
+                                 : 0;
   return sizeof(float) * (static_cast<size_t>(kSlice) * kPitch  // chunk
-                          + static_cast<size_t>(kWarps) * dim * kRows);  // z
+                          + static_cast<size_t>(kWarps) * dim * kRows  // z
+                          + dists);
 }
 
 // ||E_j||^2 (sequential fmaf over d) and the codeword-major copy E^T.
@@ -150,6 +164,9 @@ quantize_topk_kernel(const T* __restrict__ flat,
                      float* __restrict__ q_topk, float* __restrict__ q1,
                      int* __restrict__ idx, int n, int dim, int n_embed,
                      int k) {
+  // KMAX = kStaged: distances staged in shared memory, k rounds over them
+  constexpr bool kStage = KMAX == kStaged;
+  constexpr int kList = kStage ? 1 : KMAX;
   extern __shared__ float4 smem_f4[];
   float* smem = reinterpret_cast<float*>(smem_f4);
   float* es = smem;                        // [kSlice][kPitch]
@@ -160,6 +177,8 @@ quantize_topk_kernel(const T* __restrict__ flat,
   const int lane = tid & 31;
   const int warp = tid >> 5;
   float* z = zs + warp * dim * kRows;
+  // kStage: this warp's rows' distances, [r][n_embed]
+  float* dw = zs + kWarps * dim * kRows + warp * kRows * n_embed;
   const int chunks = (n_embed + kChunk - 1) / kChunk;
 
   // A tile is kWarps row groups of kRows rows; warp w scores group
@@ -182,12 +201,12 @@ quantize_topk_kernel(const T* __restrict__ flat,
     }
     __syncwarp();
 
-    float bd[kRows][KMAX];
-    int bi[kRows][KMAX];
+    float bd[kRows][kList];
+    int bi[kRows][kList];
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
 #pragma unroll
-      for (int i = 0; i < KMAX; ++i) {
+      for (int i = 0; i < kList; ++i) {
         bd[r][i] = inf;
         bi[r][i] = INT_MAX;
       }
@@ -239,22 +258,41 @@ quantize_topk_kernel(const T* __restrict__ flat,
             for (int r = 0; r < kRows; ++r) {
               float dist = fmaf(-2.f, acc[r][p], e2);
               dist = dist == dist ? dist : inf;  // NaN ranks last
-              insert<KMAX>(bd[r], bi[r], dist, j);
+              if constexpr (kStage) {
+                dw[r * n_embed + j] = dist;
+              } else {
+                insert<KMAX>(bd[r], bi[r], dist, j);
+              }
             }
           }
         }
       }
     }
 
+    if constexpr (kStage) __syncwarp();  // every lane's distances staged
     if (active) {
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
         const int64_t row = row0 + r;
         if (row < n) {  // warp-uniform
           float* out = q_topk + row * k * dim;
+          float* drow = dw + r * n_embed;
           for (int j = 0; j < k; ++j) {
             float best = bd[r][0];
             int best_i = bi[r][0];
+            if constexpr (kStage) {
+              // this lane's codewords lane, lane + 32, ...: the first
+              // minimum not yet taken (NaN marks a taken one)
+              best = inf;
+              best_i = INT_MAX;
+              for (int c = lane; c < n_embed; c += 32) {
+                const float d = drow[c];
+                if (d == d && before(d, c, best, best_i)) {
+                  best = d;
+                  best_i = c;
+                }
+              }
+            }
 #pragma unroll
             for (int off = 16; off > 0; off >>= 1) {
               const float o = __shfl_xor_sync(0xffffffffu, best, off);
@@ -271,7 +309,11 @@ quantize_topk_kernel(const T* __restrict__ flat,
               if (j == 0) q1[row * dim + d] = v;
             }
             if (j == 0 && lane == 0) idx[row] = best_i;
-            if (bi[r][0] == best_i) {  // the owner drops its winner
+            if constexpr (kStage) {
+              // the owner masks its winner before the next round's scan
+              if ((best_i & 31) == lane) drow[best_i] = __int_as_float(0x7fffffff);
+              __syncwarp();
+            } else if (bi[r][0] == best_i) {  // the owner drops its winner
 #pragma unroll
               for (int i = 0; i + 1 < KMAX; ++i) {
                 bd[r][i] = bd[r][i + 1];
@@ -358,9 +400,9 @@ ema_stats_kernel(const T* __restrict__ flat, const int* __restrict__ idx,
 // Blocks a launch uses: one wave of persistent blocks (the occupancy
 // calculator's count per SM times the SMs), or fewer when N is small.
 template <typename T, int KMAX>
-cudaError_t grid_size(int n, int dim, int* grid) {
+cudaError_t grid_size(int n, int dim, int n_embed, int k, int* grid) {
   auto kernel = quantize_topk_kernel<T, KMAX>;
-  const size_t smem = smem_bytes(dim);
+  const size_t smem = smem_bytes(dim, n_embed, k);
   int dev = 0;
   int sms = 0;
   int per_sm = 0;
@@ -405,7 +447,7 @@ cudaError_t with_kmax(int k, F&& f) {
   if (k <= 2) return f(KMax<2>{});
   if (k <= 4) return f(KMax<4>{});
   if (k <= kMaxK) return f(KMax<8>{});
-  return cudaErrorInvalidValue;
+  return f(KMax<kStaged>{});
 }
 
 template <typename F>
@@ -419,7 +461,8 @@ cudaError_t launch(const void* flat, const float* embed, const float* embed_t,
                    const float* esq, float* q_topk, float* q1, int* idx,
                    int grid, int n, int dim, int n_embed, int k,
                    cudaStream_t stream) {
-  quantize_topk_kernel<T, KMAX><<<grid, kThreads, smem_bytes(dim), stream>>>(
+  quantize_topk_kernel<T, KMAX>
+      <<<grid, kThreads, smem_bytes(dim, n_embed, k), stream>>>(
       static_cast<const T*>(flat), embed, embed_t, esq, q_topk, q1, idx, n,
       dim, n_embed, k);
   return cudaGetLastError();
@@ -460,10 +503,10 @@ cudaError_t launch_lookup(const void* flat, int flat_bf16, const float* embed,
 
 extern "C" {
 
-// Dynamic shared memory one block of the lookup kernel needs at this
-// latent width (whatever n_embed and k).
-long long ammc_quantize_topk_smem_bytes(int dim) {
-  return static_cast<long long>(smem_bytes(dim));
+// Dynamic shared memory one block of the lookup kernel needs for these
+// sizes (for k <= 8 it depends on the latent width only).
+long long ammc_quantize_topk_smem_bytes(int dim, int n_embed, int k) {
+  return static_cast<long long>(smem_bytes(dim, n_embed, k));
 }
 
 // The most dynamic shared memory a block may opt in to on the current device.
@@ -483,12 +526,12 @@ const char* ammc_cuda_error_string(int err) {
 // these sizes on the current device.  It also raises the kernel's
 // shared-memory limit to the card's opt-in maximum, so call it once per
 // device and sizes before the first launch; the wrapper caches it.
-int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int k,
-                            int* grid) {
+int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int n_embed,
+                            int k, int* grid) {
   return with_type(flat_bf16, [&](auto t) {
     using T = decltype(t);
     return with_kmax(k, [&](auto km) {
-      return grid_size<T, decltype(km)::value>(n, dim, grid);
+      return grid_size<T, decltype(km)::value>(n, dim, n_embed, k, grid);
     });
   });
 }
@@ -496,7 +539,7 @@ int ammc_quantize_topk_grid(int flat_bf16, int n, int dim, int k,
 // B1.  flat (n, dim) bf16 if flat_bf16 else f32; embed (dim, n_embed) f32;
 // scratch n_embed * (dim + 1) f32; q_topk (n, k*dim) f32; q1 (n, dim) f32;
 // idx (n,) int32.  All contiguous and on the current device; 1 <= k <=
-// min(n_embed, kMaxK); n > 0; `grid` from ammc_quantize_topk_grid with the
+// n_embed; n > 0; `grid` from ammc_quantize_topk_grid with the
 // same sizes.
 int ammc_quantize_topk(const void* flat, int flat_bf16, const void* embed,
                        void* scratch, void* q_topk, void* q1, void* idx,

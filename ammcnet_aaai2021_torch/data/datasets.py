@@ -16,7 +16,10 @@ Preprocessing parity (two_stream_dataset.py:72-98):
        (u/w, v/h).
 
 ``cv2`` is imported only for JPEG decoding and resizing: ``.npy`` frames at
-native size and ``.flo``/``.npy`` flows need nothing beyond numpy.
+native size and ``.flo``/``.npy`` flows need nothing beyond numpy.  Where
+cv2 is missing (the H100 machine has none), a file that needs it raises
+``ImportError`` pointing at ``--native_loader`` (``data/native.py``), which
+decodes and resizes without it.
 """
 
 from __future__ import annotations
@@ -37,21 +40,30 @@ _FLO_EXTS = (".flo",)
 _NPY_EXTS = (".npy",)
 
 
+def _cv2(path: str):
+    """cv2, or ``ImportError`` naming it and the loader that needs none."""
+    try:
+        import cv2
+    except ImportError as e:
+        raise ImportError(
+            f"{path} needs cv2 (JPEG decoding or a resize), which is not "
+            "installed; decode with the native loader instead (run_test "
+            "--native_loader, data/native.py)") from e
+    return cv2
+
+
 def _decode_rgb(path: str, size: Tuple[int, int]) -> np.ndarray:
     """uint8 RGB (h, w, 3) resized; cv2 for parity with the reference."""
     if path.endswith(".npy"):
         img = np.load(path)
     else:
-        import cv2
-
+        cv2 = _cv2(path)
         img = cv2.imread(path)  # BGR uint8
         if img is None:
             raise FileNotFoundError(path)
         img = cv2.cvtColor(img, cv2.COLOR_BGR2RGB)
     if img.shape[:2] != size:
-        import cv2
-
-        img = cv2.resize(img, (size[1], size[0]))
+        img = _cv2(path).resize(img, (size[1], size[0]))
     return img
 
 
@@ -63,9 +75,7 @@ def load_flow(path: str, size: Tuple[int, int],
     else:
         flow = read_flo(path)
     if flow.shape[:2] != size:
-        import cv2
-
-        flow = cv2.resize(flow, (size[1], size[0]))
+        flow = _cv2(path).resize(flow, (size[1], size[0]))
     h, w = size
     out = np.empty_like(flow)
     if reproduce_bug:

@@ -11,6 +11,12 @@ positions ``cnt + clip_len - 1`` hold scores, the leading ``clip_len - 1``
 frames are back-filled with the first score, and the op arrays' final
 position is copied from its predecessor.
 
+Raw video (JAX ``eval/infer.py:287-365,563,629-709``): ``use_native_loader``
+decodes JPEG frames and ``.flo`` flows with ``data/native.py`` (frames on
+the scoring device: nvJPEG on a GPU, the C++ loader on the CPU), and a
+``flow_extractor`` from :func:`make_otf_flow_extractor` makes the flows on
+the device with FlowNet2-SD, so no flow file is read.
+
 Deliberate deviations from the reference, as in the JAX package:
 * per-frame commit distance instead of the batch-mean scalar the reference
   replicates across the batch (``batch_commit=True`` restores it);
@@ -96,18 +102,88 @@ def _make_score_batch(model, clip_len_rgb: int, clip_len_op: int,
     return score_batch
 
 
-def pad_video_to_bucket(video_rgb_u8: np.ndarray, video_op: np.ndarray,
-                        bucket: int = 64):
-    """Edge-pad a video's frame count up to the next bucket multiple.
-    Returns (rgb, op, true_n_frames)."""
+def otf_flows(flow_net: torch.nn.Module, video_u8: torch.Tensor,
+              reproduce_flow_bug: bool = True, chunk: int = 16
+              ) -> Tuple[torch.Tensor, int]:
+    """FlowNet2-SD over a video's consecutive frame pairs, normalized as the
+    ``.flo`` loader normalizes: (T, h, w, 3) u8 -> ``((T-1, h, w, 2)
+    float32, forwards)``, ``chunk`` pairs a forward (the last one ragged),
+    under ``torch.inference_mode``.  ``reproduce_flow_bug``: the reference's
+    channel overwrite (ch0 = u/h, ch1 = ch0/w); else (u/w, v/h)."""
+    n = video_u8.shape[0] - 1
+    outs = []
+    with torch.inference_mode():
+        for start in range(0, n, chunk):
+            f = video_u8[start:start + chunk + 1].float()  # [0, 255]
+            pairs = torch.stack([f[:-1], f[1:]], dim=-1)  # (b, h, w, 3, 2)
+            outs.append(flow_net(pairs.permute(0, 3, 4, 1, 2)))
+        flows = torch.cat(outs).permute(0, 2, 3, 1)  # (T-1, h, w, 2)
+        h, w = flows.shape[1:3]
+        if reproduce_flow_bug:
+            u = flows[..., 0] / h
+            flows = torch.stack([u, u / w], dim=-1)
+        else:
+            flows = torch.stack([flows[..., 0] / w, flows[..., 1] / h],
+                                dim=-1)
+    return flows, len(outs)
+
+
+def make_otf_flow_extractor(flow_net: torch.nn.Module,
+                            reproduce_flow_bug: bool = True, chunk: int = 16,
+                            pad_to: Optional[int] = None,
+                            gray: bool = False) -> Callable:
+    """On-the-fly optical flow on the device (JAX ``eval/infer.py:287-365``):
+    ``extract(video_u8 (T, h, w, 3)) -> (T-1, h, w, 2) bf16`` flows from
+    :func:`otf_flows` on the device ``video_u8`` lies on, cast to bf16
+    whatever the network's type, as the JAX extractor does.
+
+    ``pad_to``: edge-pad the video to this frame count on the device first.
+    ``gray``: the input is (T, h, w, 1) u8, broadcast to the 3 equal
+    channels a colour decode of a grayscale JPEG gives (exact, and a third
+    of the upload).  With either, ``extract`` returns the pair
+    ``(rgb (T', h, w, 3) u8, flows)`` for the scorer.  ``extract.forwards``
+    counts FlowNet's forwards.
+    """
+    returns_pair = gray or pad_to is not None
+
+    def extract(video_u8: torch.Tensor):
+        if gray:
+            if video_u8.shape[-1] != 1:
+                raise ValueError(f"the gray extractor takes (T, h, w, 1) "
+                                 f"frames, got {tuple(video_u8.shape)}")
+            video_u8 = video_u8.expand(*video_u8.shape[:-1], 3).contiguous()
+        if pad_to is not None and pad_to > video_u8.shape[0]:
+            video_u8 = torch.cat([video_u8, video_u8[-1:].expand(
+                pad_to - video_u8.shape[0], *video_u8.shape[1:])])
+        flows, forwards = otf_flows(flow_net, video_u8, reproduce_flow_bug,
+                                    chunk)
+        extract.forwards += forwards
+        flows = flows.to(torch.bfloat16)
+        return (video_u8, flows) if returns_pair else flows
+
+    extract.forwards = 0
+    extract.gray, extract.returns_pair = gray, returns_pair
+    return extract
+
+
+def _edge_pad(x, extra: int):
+    """Repeat the last frame of a numpy array or a tensor ``extra`` times."""
+    if isinstance(x, torch.Tensor):
+        return torch.cat([x, x[-1:].expand(extra, *x.shape[1:])])
+    return np.concatenate([x, np.repeat(x[-1:], extra, axis=0)], axis=0)
+
+
+def pad_video_to_bucket(video_rgb_u8, video_op, bucket: int = 64):
+    """Edge-pad a video's frame count up to the next bucket multiple (numpy
+    arrays, or tensors on their device).  Returns (rgb, op,
+    true_n_frames); ``video_op`` None (flows made on the device later)
+    stays None."""
     t = video_rgb_u8.shape[0]
-    t_pad = -(-t // bucket) * bucket
-    if t_pad != t:
-        video_rgb_u8 = np.concatenate(
-            [video_rgb_u8,
-             np.repeat(video_rgb_u8[-1:], t_pad - t, axis=0)], axis=0)
-        video_op = np.concatenate(
-            [video_op, np.repeat(video_op[-1:], t_pad - t, axis=0)], axis=0)
+    extra = -(-t // bucket) * bucket - t
+    if extra:
+        video_rgb_u8 = _edge_pad(video_rgb_u8, extra)
+        if video_op is not None:
+            video_op = _edge_pad(video_op, extra)
     return video_rgb_u8, video_op, t
 
 
@@ -148,6 +224,22 @@ def _assemble_records(scores: np.ndarray, num_frame: int,
     return arr
 
 
+def _one_channel(frames):
+    """A video's first channel for the gray extractor (numpy or a tensor),
+    guarded: a colour video would be scored on its red channel alone."""
+    if frames.shape[-1] == 1:
+        return frames
+    equal = torch.equal if isinstance(frames, torch.Tensor) else np.array_equal
+    if not equal(frames[0, ..., 0], frames[0, ..., -1]):
+        raise ValueError(
+            "--gray_upload (the gray on-the-fly extractor) on a video whose "
+            "decoded channels differ: this dataset is not grayscale; drop "
+            "--gray_upload")
+    first = frames[..., :1]
+    return (first.contiguous() if isinstance(first, torch.Tensor)
+            else np.ascontiguousarray(first))
+
+
 def score_dataset(
     model: torch.nn.Module,
     rgb_root: str,
@@ -165,6 +257,8 @@ def score_dataset(
     batch_commit: bool = False,
     reproduce_op_psnr_bug: bool = False,
     scorer_mode: str = "auto",
+    use_native_loader: bool = False,
+    flow_extractor: Optional[Callable] = None,
 ) -> Tuple[Dict, float]:
     """Per-video batched scoring over a test set, on the device the
     ``model``'s parameters live on (it must be in eval mode).
@@ -175,10 +269,21 @@ def score_dataset(
     depend on it.  ``batch_size`` is also the record granularity of
     ``batch_commit``.
 
-    Decoding (and, on a GPU, pinning) of the next video runs on a thread
-    pool while the current one's forwards run; its copy to the device is
-    queued behind them.  Returns (result_dict in the reference's
-    golden-pickle schema, windows scored per second).
+    ``use_native_loader``: JPEG frames and ``.flo`` flows through
+    ``data/native.py``, the frames decoded on the scoring device (nvJPEG and
+    the resize kernel on a GPU, into a tensor there: one channel for a
+    grayscale video, broadcast there; the C++ loader on the CPU).
+    ``flow_extractor`` (:func:`make_otf_flow_extractor`): the flows come
+    from FlowNet2-SD on the device over each bucket-padded video (T_pad - 1
+    pairs); ``op_root`` is not read.  A gray extractor gets one u8 channel
+    a frame and raises ``ValueError`` on a video whose first frame's
+    channels differ.
+
+    Decoding of the next video runs on a thread pool while the current
+    one's forwards run; its copy to the device (or, for a GPU decode, the
+    wait for the decode's stream) is queued behind them.  Returns
+    (result_dict in the reference's golden-pickle schema, windows scored
+    per second).
     """
     if scorer_mode not in ("auto", "video", "batch"):
         raise ValueError(f"unknown scorer_mode {scorer_mode!r} "
@@ -192,30 +297,67 @@ def score_dataset(
         model, clip_len_rgb, clip_len_op, 3, 2, metric, op_metric,
         reproduce_op_psnr_bug)
     rgb_index = VideoIndex(rgb_root)
-    op_index = VideoIndex(op_root)
+    op_index = VideoIndex(op_root) if flow_extractor is None else None
     size = (image_size, image_size)
+    gpu_decode = use_native_loader and device.type == "cuda"
+    # the GPU decode's stream (its pool thread's current stream)
+    side = torch.cuda.Stream(device) if gpu_decode else None
+    if use_native_loader:
+        from ..data import native
 
     def decode_video(name):
-        frames = np.stack(list(pool.map(lambda p: _decode_rgb(p, size),
-                                        rgb_index.videos[name])))
-        flows = np.stack(list(pool.map(
-            lambda p: load_flow(p, size, reproduce_flow_bug),
-            op_index.videos[name])))
-        # fixed bucket shapes let the device allocator reuse the previous
-        # video's blocks
-        return pad_video_to_bucket(frames, flows)
+        # C++ and CUDA calls only (ctypes releases the GIL): no torch op on
+        # the CPU; a GPU decode and its padding queue on `side`
+        with torch.cuda.stream(side):
+            if use_native_loader:
+                frames = native.decode_video(rgb_index.videos[name], size,
+                                             device=device)
+            else:
+                frames = np.stack(list(pool.map(
+                    lambda p: _decode_rgb(p, size), rgb_index.videos[name])))
+            if flow_extractor is not None:
+                flows = None  # made on the device by the extractor
+            elif use_native_loader:
+                flows = native.load_flow_video(op_index.videos[name], size,
+                                               reproduce_flow_bug)
+            else:
+                flows = np.stack(list(pool.map(
+                    lambda p: load_flow(p, size, reproduce_flow_bug),
+                    op_index.videos[name])))
+            # fixed bucket shapes let the device allocator reuse the
+            # previous video's blocks
+            return pad_video_to_bucket(frames, flows)
+
+    def to_device(x):
+        # a host array or tensor goes through pinned memory to a GPU
+        if isinstance(x, np.ndarray):
+            x = torch.from_numpy(x)
+        if pin and x.device.type == "cpu":
+            x = x.pin_memory()
+        return x.to(device, non_blocking=True)
 
     def upload(decoded):
         # torch work stays on this thread: a torch op on a pool thread starts
         # a second OpenMP team there, which keeps spinning and starves this
         # thread's CPU kernels
         frames, flows, true_frames = decoded
-        rgb_h = torch.from_numpy(frames)
-        op_h = torch.from_numpy(flows).to(flow_dtype)
-        if pin:
-            rgb_h, op_h = rgb_h.pin_memory(), op_h.pin_memory()
-        return (rgb_h.to(device, non_blocking=True),
-                op_h.to(device, non_blocking=True), true_frames)
+        if gpu_decode:
+            # decoded on `side`: this stream waits for it, and the allocator
+            # for this stream's reads before it reuses the frames' blocks
+            main = torch.cuda.current_stream(device)
+            main.wait_stream(side)
+            frames.record_stream(main)
+        if flow_extractor is not None and flow_extractor.gray:
+            frames = _one_channel(frames)
+        elif frames.shape[-1] == 1:  # a grayscale video decoded on the GPU
+            frames = frames.expand(*frames.shape[:-1], 3).contiguous()
+        v_rgb = to_device(frames)
+        if flow_extractor is not None:
+            out = flow_extractor(v_rgb)
+            v_rgb, v_op = out if flow_extractor.returns_pair else (v_rgb, out)
+            return v_rgb, v_op, true_frames
+        return (v_rgb, to_device(torch.from_numpy(flows).to(flow_dtype)),
+                true_frames)
 
     result: Dict = {
         "dataset": dataset_name,

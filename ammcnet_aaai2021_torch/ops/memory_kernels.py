@@ -9,7 +9,8 @@ with k <= 4 and a codebook size the tensor-core kernels are built for go
 to ``csrc/quantize_topk_mma.cu``; the rest (float32 latents, other widths
 and codebook sizes, larger k) to the CUDA-core kernels
 ``csrc/quantize_topk.cu``, which stream the codebook through shared memory
-and so take any n_embed.  On both routes B2 is B1's kernel, then a
+and so take any n_embed and any k <= n_embed (past k 8 a block also stages
+its rows' n_embed distances in shared memory).  On both routes B2 is B1's kernel, then a
 statistics kernel.
 Each file's header says what bounds its kernels on an H100 and what the
 design does about that.
@@ -38,8 +39,6 @@ from . import cuda_build
 
 # codebook sizes the tensor-core kernel is instantiated for
 KERNEL_N_EMBEDS = (32, 64, 128, 256, 512)
-# the largest k the CUDA-core kernel's top-k lists hold (csrc kMaxK)
-CUDA_CORE_MAX_K = 8
 # the routes of B1 and B2: the tensor-core kernels (mma.sync, bf16 latents)
 # and the CUDA-core kernels
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
@@ -147,10 +146,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr]
     lib.ammc_quantize_topk_train.restype = ctypes.c_int
     lib.ammc_quantize_topk_grid.argtypes = [
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
     lib.ammc_quantize_topk_grid.restype = ctypes.c_int
-    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int]
+    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
+                                                  ctypes.c_int]
     lib.ammc_quantize_topk_smem_bytes.restype = ctypes.c_longlong
     _type_common(lib)
     return lib
@@ -204,20 +204,23 @@ def _check_smem(lib: ctypes.CDLL, smem: int, what: str) -> None:
 
 
 @functools.cache
-def _grid(device: int, bf16: bool, n: int, dim: int, k: int) -> int:
+def _grid(device: int, bf16: bool, n: int, dim: int, n_embed: int,
+          k: int) -> int:
     """Blocks one launch of the CUDA-core lookup kernel takes (B1, and B2's
-    lookup), after checking that the width's staged rows fit the card's
-    shared memory (the codebook streams through in fixed chunks, so
+    lookup), after checking that the block's shared memory fits the card:
+    the width's staged rows, and for k > 8 also the rows' n_embed staged
+    distances (the codebook streams through in fixed chunks, so for k <= 8
     n_embed sets no limit).  The C sizing call queries the device and sets
     the kernel's shared-memory attribute, so it runs once per device and
     sizes, not on every launch."""
     lib = _library()
     with torch.cuda.device(device):
-        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(dim),
-                    f"the CUDA-core kernel at latent width {dim}")
+        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(dim, n_embed, k),
+                    f"the CUDA-core kernel at latent width {dim}, n_embed "
+                    f"{n_embed}, k {k}")
         grid = ctypes.c_int(0)
         _raise_on(lib, lib.ammc_quantize_topk_grid(
-            int(bf16), n, dim, k, ctypes.byref(grid)),
+            int(bf16), n, dim, n_embed, k, ctypes.byref(grid)),
             "sizing the quantize_topk launch")
     return grid.value
 
@@ -237,15 +240,12 @@ def _mma_grid(device: int, n: int, n_embed: int, k: int) -> int:
     return grid.value
 
 
-def _kernel_device(flat: torch.Tensor, k: int, route: str) -> None:
-    """Raise for what no kernel takes: a device other than CUDA, or a k
-    over the CUDA-core kernel's top-k lists (its other limit, the latent
-    width, is the shared-memory check of :func:`_grid`)."""
+def _kernel_device(flat: torch.Tensor) -> None:
+    """Raise for a device no kernel runs on: anything but CUDA (the
+    CUDA-core kernel's limits are the shared-memory check of
+    :func:`_grid`)."""
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
-    if route == CUDA_CORE and k > CUDA_CORE_MAX_K:
-        raise ValueError(f"the CUDA-core kernel takes k <= {CUDA_CORE_MAX_K}"
-                         f", got {k}")
 
 
 def _cuda_core_scratch(embed: torch.Tensor) -> torch.Tensor:
@@ -289,10 +289,12 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
       k: codewords per row.
       route: the kernel for a CUDA launch, ``TENSOR_CORE`` or
         ``CUDA_CORE``; by default :func:`lookup_route` decides.  The
-        CUDA-core kernel takes any n_embed, k up to ``CUDA_CORE_MAX_K`` and
-        any latent width whose staged rows fit shared memory (it raises
-        ``ValueError`` naming the limit otherwise); asking for the
-        tensor-core kernel where the rule would not give it raises.
+        CUDA-core kernel takes any n_embed, any k <= n_embed and any latent
+        width whose block fits shared memory: the staged rows, and for
+        k > 8 the rows' staged distances, 32 * n_embed * 4 bytes (about
+        n_embed 1,490 at width 64 on an H100); it raises ``ValueError``
+        naming the limit otherwise.  Asking for the tensor-core kernel
+        where the rule would not give it raises.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32)``.
@@ -303,7 +305,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_fused_ref(flat, embed, k)
-    _kernel_device(flat, k, route)
+    _kernel_device(flat)
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=flat.device)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=flat.device)
     idx = torch.empty((n,), dtype=torch.int32, device=flat.device)
@@ -321,7 +323,7 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(flat.device.index, bf16, n, dim, k)
+        grid = _grid(flat.device.index, bf16, n, dim, n_embed, k)
         scratch = _cuda_core_scratch(embed)
         with torch.cuda.device(flat.device):
             err = lib.ammc_quantize_topk(
@@ -360,7 +362,7 @@ def quantize_topk_train_fused(
     route = _route(flat, n_embed, k, route)
     if flat.device.type == "cpu":
         return quantize_topk_train_fused_ref(flat, embed, k)
-    _kernel_device(flat, k, route)
+    _kernel_device(flat)
     dev = flat.device
     q_topk = torch.empty((n, k * dim), dtype=torch.float32, device=dev)
     q1 = torch.empty((n, dim), dtype=torch.float32, device=dev)
@@ -384,7 +386,7 @@ def quantize_topk_train_fused(
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(dev.index, bf16, n, dim, k)  # B1's lookup, shared
+        grid = _grid(dev.index, bf16, n, dim, n_embed, k)  # B1's lookup
         scratch = _cuda_core_scratch(embed)
         with torch.cuda.device(dev):
             err = lib.ammc_quantize_topk_train(

@@ -72,18 +72,24 @@ def parser_args(argv=None):
                    help="picks the default --window_batch: 'video'/'auto' "
                         "192 windows, 'batch' batch_size")
     p.add_argument("--native_loader", action="store_true",
-                   help="decode with the C++ loader (not ported yet)")
+                   help="JPEG frames and .flo flows through data/native.py: "
+                        "frames decoded on the scoring device (nvJPEG and a "
+                        "resize kernel on a GPU, the C++ libjpeg loader on "
+                        "the CPU; within 1 LSB of cv2), flows by the C++ "
+                        "loader; needs no cv2")
     p.add_argument("--fix_flow_bug", action="store_true",
                    help="use the corrected flow-channel loader (default "
                         "reproduces the reference bug for ckpt parity)")
     p.add_argument("--on_the_fly_flow", action="store_true",
                    help="extract optical flow on the device with "
-                        "FlowNet2-SD (not ported yet)")
+                        "FlowNet2-SD instead of reading flow files")
     p.add_argument("--flownet_ckpt", default="",
-                   help="FlowNet2-SD torch .pth for --on_the_fly_flow")
+                   help="FlowNet2-SD torch .pth for --on_the_fly_flow "
+                        "(random weights if omitted: smoke only)")
     p.add_argument("--gray_upload", action="store_true",
-                   help="upload one u8 channel of grayscale data (not "
-                        "ported yet)")
+                   help="with --on_the_fly_flow on a grayscale dataset "
+                        "(ped2): upload one u8 channel a frame, broadcast "
+                        "to 3 on the device (exact; fails on colour data)")
     p.add_argument("--int8", action="store_true",
                    help="serve the calibrated int8 forward (not ported yet)")
     p.add_argument("--calib_clips", type=int, default=32,
@@ -96,10 +102,7 @@ def parser_args(argv=None):
 
 # flags of the JAX CLI whose paths later slices of the port bring
 _LATER_SLICES = (
-    ("on_the_fly_flow", "the on-device FlowNet2-SD slice"),
-    ("gray_upload", "the on-device FlowNet2-SD slice"),
     ("int8", "the int8 serving slice"),
-    ("native_loader", "the export-and-tools slice"),
 )
 
 
@@ -154,6 +157,32 @@ def main(argv=None) -> dict:
         logger.warning("no checkpoint: scoring with RANDOM weights (smoke run)")
     gen = gen.to(device).eval()
 
+    flow_extractor = None
+    if args.on_the_fly_flow:
+        from ..eval.infer import make_otf_flow_extractor
+        from ..models import init_flownet_weights
+        from ..models.flownet_sd import FlowNet2SD
+
+        flownet = FlowNet2SD()
+        if args.flownet_ckpt:
+            raw = torch.load(args.flownet_ckpt, map_location="cpu",
+                             weights_only=True)
+            if isinstance(raw, dict) and "state_dict" in raw:
+                raw = raw["state_dict"]
+            flownet.load_state_dict(raw)
+            logger.info("loaded FlowNet2-SD from %s", args.flownet_ckpt)
+        else:
+            init_flownet_weights(flownet, torch.Generator().manual_seed(1))
+            logger.warning("--on_the_fly_flow without --flownet_ckpt: "
+                           "random FlowNet weights (smoke only)")
+        flownet.to(device).eval().requires_grad_(False)
+        flow_extractor = make_otf_flow_extractor(
+            flownet, reproduce_flow_bug=not args.fix_flow_bug,
+            gray=args.gray_upload)
+    elif args.gray_upload:
+        raise SystemExit("--gray_upload requires --on_the_fly_flow (the "
+                         "device-side broadcast lives in the extract program)")
+
     size = cfg.data.image_size
     rgb_root = os.path.join(args.data_dir, args.dataset_name, "testing", "frames")
     op_root = os.path.join(args.data_dir, args.dataset_name, "testing", "flows")
@@ -167,7 +196,8 @@ def main(argv=None) -> dict:
         metric=args.metric, op_metric=args.op_metric or None,
         batch_commit=args.batch_commit,
         reproduce_op_psnr_bug=args.reproduce_op_psnr_bug,
-        scorer_mode=args.scorer_mode)
+        scorer_mode=args.scorer_mode, use_native_loader=args.native_loader,
+        flow_extractor=flow_extractor)
 
     pickle_dir = os.path.join(args.save_dir, args.eval_type, "save_pickle")
     os.makedirs(pickle_dir, exist_ok=True)
@@ -200,7 +230,9 @@ def main(argv=None) -> dict:
     print(f"fusion lambdas: lam_fea_comm={lam[0]:g} lam_smooth={lam[1]:g}")
     print(f"inference fps = {fps:.3f}")
     print("=" * 80)
-    return {metric_name: value, "fps": fps, "pickle": pickle_path}
+    return {metric_name: value, "fps": fps, "pickle": pickle_path,
+            "flownet_forwards": (flow_extractor.forwards
+                                 if flow_extractor else 0)}
 
 
 if __name__ == "__main__":

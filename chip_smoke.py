@@ -9,7 +9,8 @@ Run from the repository root on a machine with one NVIDIA GPU (H100):
 Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compiles every CUDA kernel of the paths from ``csrc/`` (nvcc);
+2. build: compiles every CUDA source of the paths from ``csrc/`` (nvcc):
+   the memory kernels and the GPU JPEG route (nvJPEG + two kernels);
 3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
    training lookup with the EMA statistics, each on its tensor-core route
    for bf16 latents and its CUDA-core route for float32) against its plain
@@ -19,9 +20,9 @@ Phases, one JSON line each; any failure exits non-zero:
    same work, and for the bf16 cases the CUDA-core kernel's device time on
    the same input; B2's tensor-core lookup must be bitwise B1's; then the
    CUDA-core route at the shapes its old kernel raised for (``c1_check``:
-   n_embed 100, 512 and 1024, width 128, k 1, 2 and 8, float32 and bf16,
-   ragged N; B2's lookup bitwise B1's CUDA-core lookup), timed at
-   n_embed 1024;
+   n_embed 100, 256, 512 and 1024, width 128, k 1, 2, 8, 16 and k =
+   n_embed, float32 and bf16, ragged N; B2's lookup bitwise B1's CUDA-core
+   lookup), timed at n_embed 1024 (k 2) and at k 16 (n_embed 256);
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16:
    the lookups' indices first, then the outputs of the samples whose
@@ -44,10 +45,23 @@ Phases, one JSON line each; any failure exits non-zero:
    on the device-resident backend, 20 steps each, then stage 2
    ``--pretrain`` from both step dirs on the framepack backend (a pack the
    script writes with ``pack_video_tree``) for 10 steps, then 5 stage-1
-   steps at ``--n_embed 1024``; each run logs finite scalars and moves its
-   codebook, every B2 launch of the released-configuration runs takes the
-   tensor-core route and those of the n_embed 1024 run the CUDA-core route;
-9. the ``kernels`` summary line, then the last line
+   steps at ``--n_embed 1024`` and 5 at ``--k 16``; each run logs finite
+   scalars and moves its codebook, every B2 launch of the
+   released-configuration runs takes the tensor-core route and those of
+   the n_embed 1024 and k 16 runs the CUDA-core route;
+9. the raw-video path (``raw_path``): the GPU JPEG route's kernels against
+   their plain versions, its decode of the committed fixture against cv2's,
+   the extractor in float32 on the card against the CPU; then a ped2-shaped
+   raw split (12 videos of Ped2's lengths, 240x360 grayscale JPEGs from the
+   fixture, 240x360 ``.flo`` flows) scored by ``run_test.main`` three times
+   with the released configuration: ``--native_loader`` (JPEG + ``.flo``),
+   ``--native_loader --on_the_fly_flow --gray_upload`` (no flow files) and
+   ``--native_loader --on_the_fly_flow``; the last two give bitwise equal
+   records (cuDNN deterministic); then an Avenue-shaped colour split (its
+   last 4 test videos, 891 frames, 360x640 colour JPEGs from the fixture)
+   scored by ``--native_loader --on_the_fly_flow``, one colour conversion a
+   frame;
+10. the ``kernels`` summary line, then the last line
    ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
@@ -62,6 +76,7 @@ import json
 import math
 import os
 import pickle
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -70,9 +85,10 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM3 bandwidth, and dense bf16 on the tensor cores.
+# HBM3 bandwidth, dense bf16 on the tensor cores, float32 outside them.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 # UCSD Ped2 test split: frames per video (eval/gt.py labels these lengths)
 PED2_TEST_LENGTHS = (180, 180, 150, 180, 150, 180, 180, 180, 120, 150, 180,
@@ -235,17 +251,19 @@ def tensor_products(in_bytes: int) -> int:
 
 
 def bound(bytes_moved: int, flops: int, bytes_formula: str,
-          flops_formula: str) -> dict:
+          flops_formula: str, peak: float = BF16_TENSOR_FLOPS,
+          peak_name: str = "bf16 tensor cores") -> dict:
     """The least time the card could take: compulsory bytes over HBM
-    bandwidth vs the operations over the bf16 tensor-core peak."""
+    bandwidth vs the operations over ``peak`` (by default the bf16
+    tensor-core peak)."""
     bytes_ms = bytes_moved / HBM_BYTES_PER_S * 1e3
-    flops_ms = flops / BF16_TENSOR_FLOPS * 1e3
+    flops_ms = flops / peak * 1e3
     return {
         "bytes": bytes_moved, "flops": flops,
         "arithmetic": (
             f"bytes = {bytes_formula} = {bytes_moved:,}; / 3.35e12 B/s = "
-            f"{bytes_ms:.5f} ms. flops = {flops_formula} = {flops:,}; / "
-            f"989e12 FLOP/s (bf16 tensor cores) = {flops_ms:.5f} ms"),
+            f"{bytes_ms:.5f} ms. operations = {flops_formula} = {flops:,}; "
+            f"/ {peak:.3g} per s ({peak_name}) = {flops_ms:.5f} ms"),
         "bound_ms": max(bytes_ms, flops_ms),
         "bound_by": "bytes" if bytes_ms > flops_ms else "operations",
     }
@@ -409,13 +427,17 @@ def train_kernel_phase(torch, mk) -> dict:
 
 # c1_check's shapes (dim, n_embed, k, N): codebook sizes no tensor-core
 # kernel is built for (1024 and the non-power-of-two 100), the width 128,
-# k 1, 2 and 8, ragged N, and float32 B2 at n_embed 512
+# k 1, 2 and 8 (per-lane top-k lists), k 16 and k = n_embed (distances
+# staged in shared memory), ragged N, and float32 B2 at n_embed 512
 C1_CASES = ((64, 1024, 2, 4096), (64, 100, 2, 4096), (128, 1024, 8, 4099),
-            (128, 100, 1, 1037), (64, 1024, 8, 1037), (64, 512, 2, 4096))
-# c1_check's timed shapes (N, n_embed), float32, k 2, dim 64: the old
-# kernel's shapes (n_embed 256 at N = 196,608 for B1 and 4,096 for B2 are
-# kernel_check's float32 rows) and n_embed 1024
-C1_TIMED = ((196_608, 1024), (4_096, 1024))
+            (128, 100, 1, 1037), (64, 1024, 8, 1037), (64, 512, 2, 4096),
+            (64, 256, 16, 4099), (64, 1024, 16, 1037), (128, 100, 100, 1037),
+            (64, 256, 256, 515))
+# c1_check's timed shapes (N, n_embed, k), float32, dim 64: the old
+# kernel's shapes (n_embed 256, k 2 at N = 196,608 for B1 and 4,096 for B2
+# are kernel_check's float32 rows), n_embed 1024, and k 16
+C1_TIMED = ((196_608, 1024, 2), (4_096, 1024, 2), (4_096, 256, 16),
+            (196_608, 256, 16))
 
 
 def c1_phase(torch, mk) -> dict:
@@ -423,7 +445,7 @@ def c1_phase(torch, mk) -> dict:
     for, against their plain versions under the near-tie rule (B2: counts
     the histogram, embed_sum within ``ESUM_REL``, two calls bitwise equal,
     its lookup bitwise B1's CUDA-core lookup), in float32 and bf16; then
-    device and eager times with the bound at n_embed 1024."""
+    device and eager times with the bound at n_embed 1024 and at k 16."""
     g = torch.Generator(device="cuda").manual_seed(4)
     cc = mk.CUDA_CORE
     out = {}
@@ -441,7 +463,7 @@ def c1_phase(torch, mk) -> dict:
                      f"dim={dim} n_embed={n_embed} k={k}")
             emit("c1_check", input=f"{name} N={n} dim={dim} n_embed={n_embed} "
                  f"k={k}", b1=public(b1), b2=public(b2))
-    for n, n_embed in C1_TIMED:
+    for n, n_embed, k in C1_TIMED:
         embed = torch.randn(64, n_embed, device="cuda", generator=g)
         flat = torch.randn(n, 64, device="cuda", generator=g) * 0.5
         for kernel, plain, bound_fn in (
@@ -449,12 +471,13 @@ def c1_phase(torch, mk) -> dict:
                  lookup_bound),
                 (mk.quantize_topk_train_fused, mk.quantize_topk_train_fused_ref,
                  train_lookup_bound)):
-            row = {"shape": [n, 64, n_embed, 2], "route": cc,
-                   **time_pair(torch, kernel, plain, flat, embed, 2),
-                   **bound_fn(n, 64, n_embed, 2, 4)}
-            out[(kernel.__name__, n, n_embed)] = row
+            row = {"shape": [n, 64, n_embed, k], "route": cc,
+                   **time_pair(torch, kernel, plain, flat, embed, k),
+                   **bound_fn(n, 64, n_embed, k, 4)}
+            out[(kernel.__name__, n, n_embed, k)] = row
             emit("c1_check", kernel=kernel.__name__,
-                 input=f"float32 N={n} n_embed={n_embed} timed", **row)
+                 input=f"float32 N={n} n_embed={n_embed} k={k} timed", **row)
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1036,9 +1059,10 @@ def stage1_path_phase(torch, mk) -> dict:
     ``run_train`` stage 1 rgb and op on the device-resident backend, then
     stage 2 ``--pretrain`` from both step dirs on the framepack backend (a
     pack ``pack_video_tree`` writes), then stage 1 rgb at ``--n_embed 1024``
-    (the CUDA-core route).  Each run logs finite scalars and moves its
-    codebook; every B2 launch of the released-configuration runs takes the
-    tensor-core route, those of the n_embed 1024 run the CUDA-core route."""
+    and at ``--k 16`` (the CUDA-core route).  Each run logs finite scalars
+    and moves its codebook; every B2 launch of the released-configuration
+    runs takes the tensor-core route, those of the n_embed 1024 and k 16
+    runs the CUDA-core route."""
     from ammcnet_aaai2021_torch.data.framepack import pack_video_tree
     from ammcnet_aaai2021_torch.runners import run_train
 
@@ -1090,20 +1114,391 @@ def stage1_path_phase(torch, mk) -> dict:
                 fail(f"stage 2: the grafted {stream} codebook did not move")
         out["stage2_framepack"] = run
 
-        run = timed_run(torch, mk, run_train, argv(
-            C1_RUN_STEPS, "--net_tag", "unet_vq_topk_res", "--data_type",
-            "rgb", "--loss_tag", "rgb_int_gdl_flow_adv_vq", "--n_embed",
-            "1024", "--backend", "device", "--exp_tag", "stage1-n1024"),
-            C1_RUN_STEPS, 1, mk.CUDA_CORE)
-        if not bool(run["state"].generator.vq_down3.quan.quantize
-                    .cluster_size.any()):
-            fail("stage 1 at n_embed 1024: cluster_size did not move")
-        out["stage1_n_embed_1024"] = run
+        for name, flag, value in (("n_embed_1024", "--n_embed", "1024"),
+                                  ("k_16", "--k", "16")):
+            run = timed_run(torch, mk, run_train, argv(
+                C1_RUN_STEPS, "--net_tag", "unet_vq_topk_res", "--data_type",
+                "rgb", "--loss_tag", "rgb_int_gdl_flow_adv_vq", flag, value,
+                "--backend", "device", "--exp_tag", f"stage1-{name}"),
+                C1_RUN_STEPS, 1, mk.CUDA_CORE)
+            if not bool(run["state"].generator.vq_down3.quan.quantize
+                        .cluster_size.any()):
+                fail(f"stage 1 at {flag} {value}: cluster_size did not move")
+            out[f"stage1_{name}"] = run
     for name, run in out.items():
         emit("stage1_path", run=name, batch=4, image_size=IMAGE_SIZE,
              data_write_s=data_s, **{k: v for k, v in run.items()
                                      if k not in ("run_dir", "state")})
     return out
+
+
+# the raw-video path: Ped2's native frame size; the committed JPEG fixture
+# (16 grayscale frames at that size, 2 colour frames at Avenue's, cv2's
+# decodes)
+RAW_SHAPE = (240, 360)
+# Avenue's colour frames, and the lengths of its last four test videos (18
+# to 21 of 21): the colour run's split, cut from Avenue's 15,324 frames
+AVENUE_SHAPE, AVENUE_TAIL_LENGTHS = (360, 640), (294, 248, 273, 76)
+FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
+GRAY_FIXTURE_FRAMES, COLOR_FIXTURE_FRAMES = 16, 2
+# score_dataset's bucket padding, make_otf_flow_extractor's pairs a
+# forward, the GPU decode's frames a resize launch (csrc kChunkFrames)
+BUCKET, OTF_CHUNK, DECODE_CHUNK = 64, 16, 32
+# the GPU decode of the fixture against cv2's (reference.npz): nvJPEG's IDCT
+# rounds otherwise than libjpeg's, on top of the float resize's 1 LSB
+# against cv2's fixed-point one, so a grayscale value may be 2 LSB off;
+# colour is held to 1 LSB on this share of its values and to 3 LSB on all
+GRAY_MAX_LSB, GRAY_WITHIN_1_LSB = 2, 0.9999
+COLOR_MAX_LSB, COLOR_WITHIN_1_LSB = 3, 0.99
+# scoring: 5-frame windows, 192 a forward
+CLIP_LEN_RGB, WINDOW_BATCH = 5, 192
+# the extractor in float32 (TF32 off) on the card against the same weights
+# on the CPU, before the bf16 cast: within this share of the largest |flow|
+OTF_REL = 1e-4
+FLO_MAGIC = 202021.25
+# (run, dataset, flags), each with --native_loader
+RAW_RUNS = (("jpeg_flo", "ped2", []),
+            ("otf_gray", "ped2", ["--on_the_fly_flow", "--gray_upload"]),
+            ("otf_rgb", "ped2", ["--on_the_fly_flow"]),
+            ("avenue_color", "avenue", ["--on_the_fly_flow"]))
+
+
+def write_raw_tree(root: str, dataset: str, lengths, flows: bool) -> None:
+    """A raw test split: <root>/<dataset>/testing/frames/NN/TTT.jpg, the
+    fixture's JPEGs cycled through in order (their bytes copied): for ped2
+    the 240x360 grayscale ones, for avenue the 360x640 colour ones, with
+    <root>/avenue/avenue.mat marking the middle third of each video (Avenue's
+    annotation is not in the repository).  With ``flows`` (ped2),
+    <root>/ped2/testing/flows/NN/TTT.flo, T-1 240x360 fields a video (magic,
+    int32 w and h, float32 data), 8 seeded fields cycled."""
+    import numpy as np
+
+    kind, count = (("gray", GRAY_FIXTURE_FRAMES) if dataset == "ped2"
+                   else ("color", COLOR_FIXTURE_FRAMES))
+    jpegs = [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
+             for i in range(count)]
+    h, w = RAW_SHAPE
+    rng = np.random.default_rng(20200527)
+    header = (np.array([FLO_MAGIC], np.float32).tobytes()
+              + np.array([w, h], np.int32).tobytes())
+    fields = [header + rng.normal(0, 1.5, (h, w, 2)).astype(np.float32)
+              .tobytes() for _ in range(8)] if flows else []
+    frame = 0
+    for vi, length in enumerate(lengths, start=1):
+        fdir = os.path.join(root, dataset, "testing", "frames", f"{vi:02d}")
+        os.makedirs(fdir)
+        odir = os.path.join(root, dataset, "testing", "flows", f"{vi:02d}")
+        if flows:
+            os.makedirs(odir)
+        for t in range(length):
+            shutil.copyfile(jpegs[frame % len(jpegs)],
+                            os.path.join(fdir, f"{t:03d}.jpg"))
+            frame += 1
+            if flows and t + 1 < length:
+                with open(os.path.join(odir, f"{t:03d}.flo"), "wb") as fh:
+                    fh.write(fields[(vi + t) % len(fields)])
+    if dataset == "avenue":
+        import scipy.io
+
+        gt = np.empty(len(lengths), dtype=object)  # a 1 x videos cell
+        for i, t in enumerate(lengths):
+            gt[i] = np.array([[t // 3 + 1], [2 * t // 3]])  # 1-indexed
+        scipy.io.savemat(os.path.join(root, dataset, f"{dataset}.mat"),
+                         {"gt": gt})
+
+
+def reset_native_launches(native) -> None:
+    native.resize_bilinear_u8.launches = 0
+    native.ycc_to_rgb_u8.launches = 0
+
+
+def raw_kernel_checks(torch, native) -> dict:
+    """The GPU JPEG route's kernels against their plain versions at the
+    paths' shapes (the resize: a 32-frame chunk of 240x360 grayscale frames
+    to 256x256 grayscale, and a 360x640 colour one to 256x256 RGB; the
+    colour conversion: a 4:2:0 360x640 frame), bitwise, with device times
+    (CUDA graphs), the bound and, for the resize, ``F.interpolate`` on the
+    same frames as float32 NCHW."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    out = {}
+    for name, shape in (("gray", (DECODE_CHUNK, *RAW_SHAPE, 1)),
+                        ("color", (DECODE_CHUNK, *AVENUE_SHAPE, 3))):
+        src = torch.randint(0, 256, shape, dtype=torch.uint8, device="cuda",
+                            generator=g)
+        size = (IMAGE_SIZE, IMAGE_SIZE)
+        got = native.resize_bilinear_u8(src, size)
+        torch.cuda.synchronize()
+        if not torch.equal(got, native.resize_bilinear_u8_ref(src, size)):
+            fail(f"resize kernel ({name} {shape}) differs from its plain "
+                 "version")
+        n, sh, sw, c = shape
+        src_f = src.permute(0, 3, 1, 2).float().contiguous()
+        row = {"shape": list(shape), "out": [n, *size, c], "max_abs_err": 0,
+               **time_pair(torch, native.resize_bilinear_u8,
+                           native.resize_bilinear_u8_ref, src, size),
+               "library_call": "F.interpolate(bilinear, align_corners=False)"
+                               " on the frames as float32 NCHW",
+               "library_ms": graph_ms(torch, lambda: F.interpolate(
+                   src_f, size=size, mode="bilinear", align_corners=False)),
+               # 3 lerps (4 operations) and a rounding add per value, the
+               # two axis maps (6 each) per pixel
+               **bound(n * sh * sw * c + n * size[0] * size[1] * c,
+                       n * size[0] * size[1] * (c * 13 + 12),
+                       "N*sh*sw*c + N*h*w*c", "N*h*w*(c*13 + 12)",
+                       FP32_FLOPS, "float32, CUDA cores")}
+        out[("resize", name)] = row
+        emit("raw_kernel_check", kernel="resize_bilinear_u8", input=name,
+             **row)
+    h, w = 360, 640
+    y = torch.randint(0, 256, (h, w), dtype=torch.uint8, device="cuda",
+                      generator=g)
+    cb, cr = (torch.randint(0, 256, (h // 2, w // 2), dtype=torch.uint8,
+                            device="cuda", generator=g) for _ in range(2))
+    got = native.ycc_to_rgb_u8(y, cb, cr)
+    torch.cuda.synchronize()
+    if not torch.equal(got, native.ycc_to_rgb_u8_ref(y, cb, cr)):
+        fail("colour kernel differs from its plain version")
+    row = {"shape": [h, w, "4:2:0"], "max_abs_err": 0,
+           **time_pair(torch, native.ycc_to_rgb_u8, native.ycc_to_rgb_u8_ref,
+                       y, cb, cr),
+           "library_ms": None,
+           # two upsampled chroma samples (10 integer operations each) and
+           # the conversion (15) per pixel
+           **bound(h * w + 2 * (h // 2) * (w // 2) + h * w * 3, h * w * 35,
+                   "h*w + 2*ch*cw + h*w*3", "h*w*35", FP32_FLOPS,
+                   "32-bit operations, CUDA cores")}
+    out["ycc"] = row
+    emit("raw_kernel_check", kernel="ycc_to_rgb_u8", input="4:2:0 360x640",
+         **row)
+    return out
+
+
+def fixture_decode_check(native) -> dict:
+    """The committed fixture through ``decode_video`` on the card (nvJPEG,
+    the colour and the resize kernels) against cv2's decode + resize: the
+    grayscale frames as one channel, the colour ones as RGB."""
+    import numpy as np
+
+    ref = np.load(os.path.join(FIXTURE, "reference.npz"))
+    out = {}
+    for kind, want in (("gray", ref["gray"][..., None]),
+                       ("color", ref["color"])):
+        paths = [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
+                 for i in range(len(want))]
+        got = native.decode_video(paths, want.shape[1:3], device="cuda")
+        if got.device.type != "cuda" or tuple(got.shape) != want.shape:
+            fail(f"GPU decode of the {kind} fixture: {tuple(got.shape)} on "
+                 f"{got.device}, want {want.shape} on the card")
+        diff = np.abs(got.cpu().numpy().astype(int) - want)
+        out[kind] = {"frames": len(paths), "max_abs_diff": int(diff.max()),
+                     "mean_abs_diff": float(diff.mean()),
+                     "within_1_lsb": float((diff <= 1).mean())}
+        max_lsb, share = ((GRAY_MAX_LSB, GRAY_WITHIN_1_LSB) if kind == "gray"
+                          else (COLOR_MAX_LSB, COLOR_WITHIN_1_LSB))
+        if diff.max() > max_lsb or (diff <= 1).mean() < share:
+            fail(f"GPU decode of the {kind} fixture: {out[kind]}, want max "
+                 f"<= {max_lsb} and >= {share} within 1 LSB")
+    emit("raw_fixture_decode", **out)
+    return out
+
+
+def extractor_check(torch) -> dict:
+    """The extractor's flows in float32 (TF32 off) on the card against the
+    same seeded FlowNet2-SD weights on the CPU at 64x64, 9 frames, before
+    the bf16 cast."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.eval.infer import otf_flows
+    from ammcnet_aaai2021_torch.models import init_flownet_weights
+    from ammcnet_aaai2021_torch.models.flownet_sd import FlowNet2SD
+
+    net = init_flownet_weights(FlowNet2SD(dtype=torch.float32),
+                               torch.Generator().manual_seed(1)).eval()
+    rng = np.random.default_rng(6)
+    yy, xx = np.mgrid[0:64, 0:64].astype(np.float32)
+    video = np.stack([np.clip(
+        100 + 40 * np.sin(xx / 5.0) * np.cos(yy / 7.0)
+        + 80 * np.exp(-((xx - 10 - 2 * t) ** 2 + (yy - 30) ** 2) / 40.0)
+        + rng.normal(0, 3, (64, 64)), 0, 255).astype(np.uint8)
+        for t in range(9)])
+    video = torch.from_numpy(np.repeat(video[..., None], 3, axis=-1))
+    want, _ = otf_flows(net, video)
+    got, _ = otf_flows(net.to("cuda"), video.to("cuda"))
+    scale = float(want.abs().max())
+    err = float((got.cpu() - want).abs().max())
+    if not scale > 0 or err > OTF_REL * scale:
+        fail(f"extractor on the card vs the CPU: max |diff| {err} of max "
+             f"|flow| {scale} (> {OTF_REL} of it)")
+    out = {"frames": 9, "size": 64, "dtype": "float32", "max_abs_err": err,
+           "max_abs_flow": scale, "tol_rel": OTF_REL}
+    emit("raw_extractor_check", **out)
+    return out
+
+
+def raw_run(torch, mk, native, run_test, root: str, name: str,
+            dataset: str, flags, lengths) -> dict:
+    """``run_test.main`` with ``--native_loader`` and ``flags`` on the raw
+    ``dataset`` split at ``root``, every count set to 0 just before and
+    read just after; fails unless the records are finite, one per frame,
+    the AUC line printed, every B1 launch on the tensor-core route (two a
+    forward), the resize kernel launched once a 32-frame chunk, the colour
+    kernel once a colour frame and FlowNet2-SD (with ``--on_the_fly_flow``)
+    once a 16 pairs of each bucket-padded video."""
+    import numpy as np
+
+    argv = ["--dataset_name", dataset, "--data_dir", root, "--save_dir",
+            os.path.join(root, f"eval_{name}"), "--native_loader", *flags]
+    forwards = sum(math.ceil((t - CLIP_LEN_RGB + 1) / WINDOW_BATCH)
+                   for t in lengths)
+    flownet = sum(math.ceil((-(-t // BUCKET) * BUCKET - 1) / OTF_CHUNK)
+                  for t in lengths) if "--on_the_fly_flow" in flags else 0
+    resizes = sum(math.ceil(t / DECODE_CHUNK) for t in lengths)
+    conversions = sum(lengths) if dataset != "ped2" else 0  # colour frames
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    reset_native_launches(native)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        res = run_test.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"b1": dict(mk.quantize_topk_fused.launches_by_route),
+                "resize_bilinear_u8": native.resize_bilinear_u8.launches,
+                "ycc_to_rgb_u8": native.ycc_to_rgb_u8.launches,
+                "flownet_forwards": res["flownet_forwards"]}
+    printed = stdout.getvalue()
+    print(printed, end="", flush=True)
+    with open(res["pickle"], "rb") as fh:
+        records = pickle.load(fh)
+    if "the optimal auc = " not in printed:
+        fail(f"raw_path {name}: run_test printed no 'the optimal auc =' line")
+    for key in ("rgb_img_pred_records", "rgb_fea_comm_records",
+                "op_img_pred_records", "op_fea_comm_records"):
+        if [len(r) for r in records[key]] != list(lengths):
+            fail(f"raw_path {name}: {key} lengths differ from {lengths}")
+        if not all(np.isfinite(r).all() for r in records[key]):
+            fail(f"raw_path {name}: {key} not finite")
+    want = {"b1": {r: 2 * forwards * (r == mk.TENSOR_CORE) for r in mk.ROUTES},
+            "resize_bilinear_u8": resizes, "ycc_to_rgb_u8": conversions,
+            "flownet_forwards": flownet}
+    if launches != want:
+        fail(f"raw_path {name}: launches {launches}, want {want}")
+    frames = sum(lengths)
+    return {"run": name, "dataset": dataset,
+            "source_shape": list(RAW_SHAPE if dataset == "ped2"
+                                 else AVENUE_SHAPE),
+            "flags": ["--native_loader", *flags], "videos": len(lengths),
+            "frames": frames, "wall_s": wall, "frames_per_s": frames / wall,
+            "run_test_fps": res["fps"], "auc": res["auc"],
+            "launches": launches, "records": records}
+
+
+def raw_path_phase(torch, mk) -> dict:
+    """The raw-video path at full width: the GPU JPEG route's kernels and
+    the fixture decode, the extractor check, then a ped2-shaped raw split
+    (Ped2's 12 test lengths, 2,010 frames) scored three times by
+    ``run_test.main`` with the released configuration (bf16, 256x256,
+    seeded random generator and FlowNet2-SD): JPEG + ``.flo``, on-the-fly
+    flow with the gray upload, and with a 3-channel upload; the last two
+    bitwise equal (cuDNN deterministic in this phase); then an
+    Avenue-shaped colour split scored with on-the-fly flow.  Then the
+    decode seconds, the ``.flo`` load seconds and FlowNet's device ms per
+    video."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.data import native
+    from ammcnet_aaai2021_torch.data.datasets import VideoIndex
+    from ammcnet_aaai2021_torch.eval.infer import make_otf_flow_extractor
+    from ammcnet_aaai2021_torch.models import init_flownet_weights
+    from ammcnet_aaai2021_torch.models.flownet_sd import FlowNet2SD
+    from ammcnet_aaai2021_torch.runners import run_test
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = raw_kernel_checks(torch, native)
+    extractor = extractor_check(torch)
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
+
+    lengths = {"ped2": PED2_TEST_LENGTHS, "avenue": AVENUE_TAIL_LENGTHS}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        roots = {("ped2", True): os.path.join(tmp, "with_flows"),
+                 ("ped2", False): os.path.join(tmp, "frames_only"),
+                 ("avenue", False): os.path.join(tmp, "colour")}
+        t0 = time.perf_counter()
+        for (dataset, flows), root in roots.items():
+            write_raw_tree(root, dataset, lengths[dataset], flows)
+        data_s = time.perf_counter() - t0
+        fixture = fixture_decode_check(native)
+        for name, dataset, flags in RAW_RUNS:
+            root = roots[(dataset, "--on_the_fly_flow" not in flags)]
+            runs[name] = raw_run(torch, mk, native, run_test, root, name,
+                                 dataset, flags, lengths[dataset])
+        for key in runs["otf_gray"]["records"]:
+            if key != "dataset" and not all(
+                    np.array_equal(a, b) for a, b in zip(
+                        runs["otf_gray"]["records"][key],
+                        runs["otf_rgb"]["records"][key])):
+                fail(f"raw_path: the gray upload's {key} differ from the "
+                     "3-channel upload's (the broadcast is exact)")
+
+        # decode and .flo seconds a video, and FlowNet2-SD's device time a
+        # video
+        size = (IMAGE_SIZE, IMAGE_SIZE)
+
+        def index(root, dataset, kind):
+            return VideoIndex(os.path.join(root, dataset, "testing", kind))
+
+        def decode_seconds(frames):
+            out = []
+            for name in frames.names:
+                t0 = time.perf_counter()
+                video = native.decode_video(frames.videos[name], size,
+                                            device="cuda")
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+            return out, video
+
+        root = roots[("ped2", True)]
+        colour_s, _ = decode_seconds(index(roots[("avenue", False)],
+                                           "avenue", "frames"))
+        decode_s, video = decode_seconds(index(root, "ped2", "frames"))
+        flows = index(root, "ped2", "flows")
+        flo_s = []
+        for name in flows.names:
+            t0 = time.perf_counter()
+            native.load_flow_video(flows.videos[name], size)
+            flo_s.append(time.perf_counter() - t0)
+        flownet = init_flownet_weights(FlowNet2SD(), torch.Generator()
+                                       .manual_seed(1))
+        flownet.to("cuda").eval()
+        # the last ped2 video, one channel on the card
+        extract = make_otf_flow_extractor(flownet, pad_to=192, gray=True)
+        flownet_ms = time_ms(torch, lambda: extract(video), reps=5, warmup=1)
+    torch.backends.cudnn.deterministic = deterministic
+    for run in runs.values():
+        emit("raw_path", cudnn_deterministic=True, image_size=IMAGE_SIZE,
+             data_write_s=data_s,
+             **{k: v for k, v in run.items() if k != "records"})
+    host = {"decode_s_per_video": decode_s,
+            "decode_s_per_180_frames": float(np.mean(
+                [s for s, t in zip(decode_s, PED2_TEST_LENGTHS) if t == 180])),
+            "colour_decode_s_per_video": colour_s,
+            "colour_decode_ms_per_frame": 1e3 * sum(colour_s)
+            / sum(AVENUE_TAIL_LENGTHS),
+            "flo_load_s_per_video": flo_s,
+            "flownet_ms_per_192_frame_video": flownet_ms,
+            "flownet_ms_per_pair": flownet_ms / 191}
+    emit("raw_path_host", **host)
+    return {"runs": runs, "kernels": kernels, "fixture": fixture,
+            "extractor": extractor, "host": host}
 
 
 def main(argv=None) -> None:
@@ -1132,8 +1527,10 @@ def main(argv=None) -> None:
          python=sys.version.split()[0])
 
     t0 = time.perf_counter()
-    # the CUDA-core route of B1 and B2; their tensor-core route
-    seconds = cuda_build.build(["quantize_topk", "quantize_topk_mma"])
+    # the CUDA-core route of B1 and B2; their tensor-core route; the GPU
+    # JPEG route (nvJPEG, the colour and the resize kernels)
+    seconds = cuda_build.build(["quantize_topk", "quantize_topk_mma",
+                                "jpeg_decode"])
     ptxas = [line.strip() for log in cuda_build.build_log.values()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line
@@ -1163,6 +1560,7 @@ def main(argv=None) -> None:
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     train_run = train_path_phase(torch, mk)
     stage1_runs = stage1_path_phase(torch, mk)
+    raw = raw_path_phase(torch, mk)
 
     bf16 = checks[("bfloat16", 192 * 32 * 32, 2)]
     video = checks[("bfloat16", 176 * 32 * 32, 2)]
@@ -1176,11 +1574,11 @@ def main(argv=None) -> None:
     cc_keys = ("kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
                "bound_by")
 
-    def cc_times(name):
-        """The CUDA-core route's timed rows of one wrapper at n_embed 1024."""
-        return {f"at_n_{n}": {key: c1_times[(name, n, n_embed)][key]
-                              for key in cc_keys}
-                for n, n_embed in C1_TIMED}
+    def cc_times(name, k):
+        """The CUDA-core route's timed rows of one wrapper at this k."""
+        return {f"at_n_{n}_n_embed_{n_embed}": {
+            key: c1_times[(name, n, n_embed, kk)][key] for key in cc_keys}
+            for n, n_embed, kk in C1_TIMED if kk == k}
 
     def stage1_launches(kernel):
         return {name: run["launches_by_route"][kernel]
@@ -1219,7 +1617,8 @@ def main(argv=None) -> None:
                           **{key: checks["float32"][key] for key in (
                               "kernel_ms", "kernel_eager_ms", "plain_ms",
                               "bound_ms", "bound_by", "flips")},
-                          "at_n_embed_1024": cc_times("quantize_topk_fused")},
+                          "at_k_2": cc_times("quantize_topk_fused", 2),
+                          "at_k_16": cc_times("quantize_topk_fused", 16)},
     }, {
         "name": "quantize_topk_train_fused",
         "route": "cuda",
@@ -1250,8 +1649,41 @@ def main(argv=None) -> None:
                               "esum_max_rel_err")},
                           "at_n_196608": {key: b2_f32_big[key]
                                           for key in cc_keys},
-                          "at_n_embed_1024": cc_times(
-                              "quantize_topk_train_fused")},
+                          "at_k_2": cc_times("quantize_topk_train_fused", 2),
+                          "at_k_16": cc_times("quantize_topk_train_fused",
+                                              16)},
+    }, {
+        "name": "resize_bilinear_u8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/jpeg_decode.cu",
+        "replaces": "ammcnet_aaai2021_tpu/native/ammc_loader.cpp:54",
+        "launches": sum(run["launches"]["resize_bilinear_u8"]
+                        for run in raw["runs"].values()),
+        "launches_by_path": {
+            name: run["launches"]["resize_bilinear_u8"]
+            for name, run in raw["runs"].items()},
+        "max_abs_err": 0,
+        "ms": raw["kernels"][("resize", "gray")]["kernel_ms"],
+        **{key: raw["kernels"][("resize", "gray")][key] for key in (
+            "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library_call")},
+        "at_colour_360x640": {key: raw["kernels"][("resize", "color")][key]
+                              for key in ("kernel_ms", "plain_ms", "bound_ms",
+                                          "bound_by", "library_ms")},
+    }, {
+        "name": "ycc_to_rgb_u8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/jpeg_decode.cu",
+        "replaces": "ammcnet_aaai2021_tpu/native/ammc_loader.cpp:130",
+        "launches": raw["runs"]["avenue_color"]["launches"]["ycc_to_rgb_u8"],
+        "launches_by_path": {
+            name: run["launches"]["ycc_to_rgb_u8"]
+            for name, run in raw["runs"].items()},
+        "max_abs_err": 0,
+        "ms": raw["kernels"]["ycc"]["kernel_ms"],
+        **{key: raw["kernels"]["ycc"][key] for key in (
+            "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,8 +9,9 @@
 * the port's ``run_test`` CLI on the CPU: golden-schema pickle, the
   "the optimal auc =" line, the same AUC as ``evaluate`` on its records;
 * both ``run_test`` CLIs on one ``.pth`` and the JAX package's JPEG toydata
-  tree, in three flag sets: the records to 1e-4 of their scale and the
-  same printed result line;
+  tree, in three flag sets, and on a grayscale copy of it with the native
+  loader, on-the-fly flow and the gray upload (one FlowNet2-SD ``.pth``):
+  the records to 1e-4 of their scale and the same printed result line;
 * the port and ``chip_smoke.py`` import nothing of JAX.
 """
 
@@ -234,8 +235,28 @@ def test_run_test_cuda_without_gpu_raises(toy_tree, tmp_path):
                                   "--int8", "--native_loader",
                                   "--exp_tag=run1"])
 def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
+    """Only ``--int8`` is left to a later slice.  The flags ported since
+    behave as the JAX CLI's: ``--on_the_fly_flow`` scores with flows made by
+    FlowNet2-SD, ``--gray_upload`` alone exits, ``--native_loader`` reads
+    JPEG and ``.flo`` files only (this tree is ``.npy``)."""
     argv = ["--dataset_name", "toydata", "--data_dir", toy_tree,
             "--save_dir", str(tmp_path), "--device", "cpu", flag]
+    if flag == "--on_the_fly_flow":
+        res = run_test.main(argv)
+        assert res["flownet_forwards"] == 2 * 4  # 63 pairs a video, 16 a forward
+        with open(res["pickle"], "rb") as fh:
+            records = pickle.load(fh)
+        assert all(len(r) == 12 and np.isfinite(r).all()
+                   for key in RECORD_KEYS for r in records[key])
+        return
+    if flag == "--gray_upload":
+        with pytest.raises(SystemExit, match="requires --on_the_fly_flow"):
+            run_test.main(argv)
+        return
+    if flag == "--native_loader":
+        with pytest.raises(ValueError, match="JPEG files only"):
+            run_test.main(argv)
+        return
     if flag.startswith("--exp_tag"):
         # ported with the training slice: the tag resolves through the run
         # registry (tests/test_torch_train.py scores a registered run), and
@@ -252,18 +273,39 @@ def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
 @pytest.fixture(scope="module")
 def jpeg_toydata(tmp_path_factory):
     """The JAX package's toydata JPEG tree (2 test videos of 24 frames,
-    64x64) and one ``.pth`` of the port's seeded init (the released
-    configuration, bf16)."""
+    64x64), a grayscale copy of it (each frame re-encoded by cv2 from its
+    luma; no flows directory), one ``.pth`` of the port's seeded init (the
+    released configuration, bf16) and one FlowNet2-SD ``.pth`` (the port's
+    seeded init)."""
+    import shutil
+
+    import cv2
+
     from ammcnet_aaai2021_tpu.tools.make_toydata import make_toydata
+    from ammcnet_aaai2021_torch.models import init_flownet_weights
+    from ammcnet_aaai2021_torch.models.flownet_sd import FlowNet2SD
 
     root = str(tmp_path_factory.mktemp("cli_parity"))
     make_toydata(root, num_train_videos=2, num_test_videos=2,
                  frames_per_video=24, image_size=SIZE)
+    gray = os.path.join(root, "gray")
+    shutil.copytree(os.path.join(root, "toydata"),
+                    os.path.join(gray, "toydata"),
+                    ignore=shutil.ignore_patterns("flows"))
+    frames = os.path.join(gray, "toydata", "testing", "frames")
+    for video in os.listdir(frames):
+        for name in os.listdir(os.path.join(frames, video)):
+            path = os.path.join(frames, video, name)
+            cv2.imwrite(path, cv2.imread(path, cv2.IMREAD_GRAYSCALE),
+                        [cv2.IMWRITE_JPEG_QUALITY, 95])
     net = init_weights(build_generator(NetConfig()),
                        torch.Generator().manual_seed(3))
     ckpt = os.path.join(root, "generator.pth")
     torch.save(net.state_dict(), ckpt)
-    return root, ckpt
+    flownet = os.path.join(root, "flownet.pth")
+    torch.save(init_flownet_weights(FlowNet2SD(), torch.Generator()
+                                    .manual_seed(5)).state_dict(), flownet)
+    return {"color": root, "gray": gray, "ckpt": ckpt, "flownet": flownet}
 
 
 CLI_FLAG_SETS = {
@@ -273,21 +315,41 @@ CLI_FLAG_SETS = {
     "pr_mse_batch": ["--eval_type", "precision_recall_auc", "--metric", "mse",
                      "--reproduce_op_psnr_bug", "--scorer_mode", "batch",
                      "--batch_size", "5"],
+    # on the grayscale tree, with the FlowNet2-SD .pth
+    "native_otf_gray": ["--native_loader", "--on_the_fly_flow",
+                        "--gray_upload"],
 }
 
 
 @pytest.mark.parametrize("flags", list(CLI_FLAG_SETS.values()),
                          ids=list(CLI_FLAG_SETS))
 def test_run_test_cli_matches_the_jax_cli(jpeg_toydata, tmp_path, capsys,
-                                          flags):
+                                          monkeypatch, flags):
     """Both ``run_test`` CLIs on one checkpoint (``--ckptfile``): the four
     record lists within 1e-4 of their scale (bf16 convolutions of two
-    frameworks on the CPU) and the same printed result line."""
-    from ammcnet_aaai2021_tpu.runners import run_test as j_run_test
+    frameworks on the CPU) and the same printed result line.
 
-    root, ckpt = jpeg_toydata
+    With ``--on_the_fly_flow`` both CLIs build FlowNet2-SD in float32 here
+    (each CLI builds it in bf16): the op records read the flows directly,
+    and two frameworks' bf16 FlowNets, rounding differently through 30
+    convolutions, move the op-stream PSNR records by 3e-4 of their scale
+    on these weights, past the 1e-4 that holds the generator."""
+    import functools
+
+    from ammcnet_aaai2021_tpu.models import flownet_sd as j_flownet_sd
+    from ammcnet_aaai2021_tpu.runners import run_test as j_run_test
+    from ammcnet_aaai2021_torch.models import flownet_sd
+
+    trees = jpeg_toydata
+    root = trees["gray" if "--gray_upload" in flags else "color"]
+    if "--on_the_fly_flow" in flags:
+        flags = [*flags, "--flownet_ckpt", trees["flownet"]]
+        monkeypatch.setattr(j_flownet_sd, "FlowNet2SD", functools.partial(
+            j_flownet_sd.FlowNet2SD, dtype=jnp.float32))
+        monkeypatch.setattr(flownet_sd, "FlowNet2SD", functools.partial(
+            flownet_sd.FlowNet2SD, dtype=torch.float32))
     base = ["--dataset_name", "toydata", "--data_dir", root, "--ckptfile",
-            ckpt, "--image_size", str(SIZE), *flags]
+            trees["ckpt"], "--image_size", str(SIZE), *flags]
 
     def result_line(out):
         return [line for line in out.splitlines()
@@ -318,6 +380,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "ammcnet_aaai2021_torch", "ammcnet_aaai2021_torch.configs",
         "ammcnet_aaai2021_torch.data", "ammcnet_aaai2021_torch.data.datasets",
         "ammcnet_aaai2021_torch.data.flo",
+        "ammcnet_aaai2021_torch.data.native",
         "ammcnet_aaai2021_torch.data.framepack",
         "ammcnet_aaai2021_torch.data.resident",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",

@@ -298,10 +298,11 @@ def test_train_wrapper_applies_lookup_route(dtype, dim, n_embed, k, route):
 
 
 @pytest.mark.parametrize("dim,n_embed,k", [(64, 100, 2), (64, 1024, 2),
-                                           (128, 1024, 8), (128, 100, 5)])
+                                           (128, 1024, 8), (128, 100, 5),
+                                           (64, 100, 9), (64, 256, 16)])
 def test_plain_versions_match_pallas_at_any_codebook_size(dim, n_embed, k):
-    """The codebook shapes the CUDA-core route now takes (any n_embed, other
-    widths, k up to 8): B1's and B2's plain versions, which the CPU wrappers
+    """The codebook shapes the CUDA-core route takes (any n_embed, other
+    widths, any k <= n_embed): B1's and B2's plain versions, which the CPU wrappers
     return and the card holds the kernels against, against the JAX package's
     Pallas kernels (interpret mode) on a ragged N."""
     rng = np.random.default_rng(12)
