@@ -15,8 +15,10 @@
 //   ammc_load_flow_video(paths, n, h, w, bug_mode, threads, out) (T,h,w,2) f32
 //
 // The JPEG half needs libjpeg and is compiled only with -DAMMC_WITH_LIBJPEG:
-//   g++ -O3 -march=native -shared -fPIC -DAMMC_WITH_LIBJPEG ammc_loader.cpp
-//       -o libammc_loader.so -ljpeg -lpthread
+//   g++ -O3 -march=native -ffp-contract=off -shared -fPIC -DAMMC_WITH_LIBJPEG
+//       ammc_loader.cpp -o libammc_loader.so -ljpeg -lpthread
+// (-ffp-contract=off: the resize's products and sums each rounded, as the
+// GPU route's kernel computes them, on any CPU)
 // Without it the library holds the .flo half alone (version, header, flow
 // video), which needs no codec; a machine without libjpeg decodes JPEG on
 // the GPU instead (jpeg_decode.cu).  ammcnet_aaai2021_torch/data/native.py

@@ -13,7 +13,8 @@ position is copied from its predecessor.
 
 Raw video (JAX ``eval/infer.py:287-365,563,629-709``): ``use_native_loader``
 decodes JPEG frames and ``.flo`` flows with ``data/native.py`` (frames on
-the scoring device: nvJPEG on a GPU, the C++ loader on the CPU), and a
+the scoring device: the IDCT, colour and resize kernels on a GPU, the C++
+loader on the CPU), and a
 ``flow_extractor`` from :func:`make_otf_flow_extractor` makes the flows on
 the device with FlowNet2-SD, so no flow file is read.
 
@@ -270,8 +271,8 @@ def score_dataset(
     ``batch_commit``.
 
     ``use_native_loader``: JPEG frames and ``.flo`` flows through
-    ``data/native.py``, the frames decoded on the scoring device (nvJPEG and
-    the resize kernel on a GPU, into a tensor there: one channel for a
+    ``data/native.py``, the frames decoded on the scoring device (the IDCT,
+    colour and resize kernels on a GPU, into a tensor there: one channel for a
     grayscale video, broadcast there; the C++ loader on the CPU).
     ``flow_extractor`` (:func:`make_otf_flow_extractor`): the flows come
     from FlowNet2-SD on the device over each bucket-padded video (T_pad - 1

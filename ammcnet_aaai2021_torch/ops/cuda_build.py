@@ -23,8 +23,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# libraries a source links beyond the CUDA runtime
-LINK_FLAGS = {"jpeg_decode": ("-lnvjpeg",)}
+# sources a .cu includes from csrc/, which its build key hashes too
+INCLUDES = {"jpeg_decode": ("jpeg_huffman.cpp",)}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -46,9 +46,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    flags = " ".join(NVCC_FLAGS + LINK_FLAGS.get(name, ()))
-    key = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
+    sources = (f"{name}.cu", *INCLUDES.get(name, ()))
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for source in sources:
+        digest.update((CSRC / source).read_bytes())
+    key = digest.hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{key}.so"
 
 
@@ -62,8 +64,7 @@ def build(names: Iterable[str]) -> Dict[str, float]:
             continue
         out.parent.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu"),
-               *LINK_FLAGS.get(name, ())]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                 stderr=subprocess.STDOUT, text=True)
         started[name] = (proc, tmp, out, time.perf_counter())

@@ -73,10 +73,11 @@ def parser_args(argv=None):
                         "192 windows, 'batch' batch_size")
     p.add_argument("--native_loader", action="store_true",
                    help="JPEG frames and .flo flows through data/native.py: "
-                        "frames decoded on the scoring device (nvJPEG and a "
-                        "resize kernel on a GPU, the C++ libjpeg loader on "
-                        "the CPU; within 1 LSB of cv2), flows by the C++ "
-                        "loader; needs no cv2")
+                        "frames decoded on the scoring device (libjpeg's "
+                        "decode rebuilt in CUDA kernels on a GPU, the C++ "
+                        "libjpeg loader on the CPU; the same bytes, within "
+                        "1 LSB of cv2), flows by the C++ loader; needs no "
+                        "cv2")
     p.add_argument("--fix_flow_bug", action="store_true",
                    help="use the corrected flow-channel loader (default "
                         "reproduces the reference bug for ckpt parity)")
@@ -91,7 +92,10 @@ def parser_args(argv=None):
                         "(ped2): upload one u8 channel a frame, broadcast "
                         "to 3 on the device (exact; fails on colour data)")
     p.add_argument("--int8", action="store_true",
-                   help="serve the calibrated int8 forward (not ported yet)")
+                   help="serve the calibrated int8 forward (models/"
+                        "quantized.py: every 3x3 and transposed conv int8 "
+                        "in the port's kernels, scales calibrated on "
+                        "training clips)")
     p.add_argument("--calib_clips", type=int, default=32,
                    help="training clips for --int8 calibration")
     p.add_argument("--device", default="cuda",
@@ -100,18 +104,8 @@ def parser_args(argv=None):
     return p.parse_args(argv)
 
 
-# flags of the JAX CLI whose paths later slices of the port bring
-_LATER_SLICES = (
-    ("int8", "the int8 serving slice"),
-)
-
-
 def main(argv=None) -> dict:
     args = parser_args(argv)
-    for flag, slice_name in _LATER_SLICES:
-        if getattr(args, flag):
-            raise NotImplementedError(
-                f"--{flag} is not ported yet; it comes with {slice_name}")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
@@ -184,6 +178,17 @@ def main(argv=None) -> dict:
                          "device-side broadcast lives in the extract program)")
 
     size = cfg.data.image_size
+    if args.int8:
+        from ..models.quantized import calibrated_int8_from_dataset
+
+        gen, _ = calibrated_int8_from_dataset(
+            cfg.net, gen.state_dict(), args.data_dir, args.dataset_name, size,
+            calib_batches=max(1, args.calib_clips // 8),
+            calib_batch_size=min(8, args.calib_clips),
+            use_native_loader=args.native_loader, device=device)
+        logger.info("serving int8 (calibrated on %d training clips)",
+                    args.calib_clips)
+
     rgb_root = os.path.join(args.data_dir, args.dataset_name, "testing", "frames")
     op_root = os.path.join(args.data_dir, args.dataset_name, "testing", "flows")
     result, fps = score_dataset(

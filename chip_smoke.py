@@ -10,7 +10,8 @@ Phases, one JSON line each; any failure exits non-zero:
 
 1. environment: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compiles every CUDA source of the paths from ``csrc/`` (nvcc):
-   the memory kernels and the GPU JPEG route (nvJPEG + two kernels);
+   the memory kernels, the GPU JPEG route (the host Huffman decode and the
+   IDCT, colour and resize kernels) and the int8 convolutions;
 3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
    training lookup with the EMA statistics, each on its tensor-core route
    for bf16 latents and its CUDA-core route for float32) against its plain
@@ -31,7 +32,16 @@ Phases, one JSON line each; any failure exits non-zero:
    (12 videos, 2,010 frames of 256x256) with the released configuration,
    bf16 and seeded random weights; checks the records, the AUC line and that
    every kernel of the path was launched (two memory lookups per forward,
-   all on B1's tensor-core route);
+   all on B1's tensor-core route); then ``int8_path``: ``run_test --int8
+   --calib_clips 32`` on the same split with a training split, its records
+   checked and correlated with the bf16 run's, every 3x3 and transposed
+   conv launched through the int8 kernels and B1 twice a forward; then the
+   same command again with every int8 kernel call of the first forward at
+   each of its batch sizes (the calibration's 8 windows, each video
+   length's) held against its plain version, accumulators and output
+   bitwise, and each distinct launch of the largest forward timed on its
+   real inputs beside its bound and cuDNN's bf16 convolution of the
+   shape;
 6. train check: one float32 training step of the released generator at
    256x256, batch 4, through the kernels and through plain PyTorch;
 7. training path: ``runners.run_train.main`` trains the released
@@ -49,7 +59,11 @@ Phases, one JSON line each; any failure exits non-zero:
    scalars and moves its codebook, every B2 launch of the
    released-configuration runs takes the tensor-core route and those of
    the n_embed 1024 and k 16 runs the CUDA-core route;
-9. the raw-video path (``raw_path``): the GPU JPEG route's kernels against
+9. the raw-video path (``raw_path``): ``c2_check`` first (the IDCT kernel
+   against its plain version on the fixture's coefficients, bitwise and
+   timed; the fixture's GPU decode, gray and colour, bitwise the committed
+   host-libjpeg reference at source size and 256x256; a progressive JPEG
+   refused), then the GPU JPEG route's kernels against
    their plain versions, its decode of the committed fixture against cv2's,
    the extractor in float32 on the card against the CPU; then a ped2-shaped
    raw split (12 videos of Ped2's lengths, 240x360 grayscale JPEGs from the
@@ -61,8 +75,8 @@ Phases, one JSON line each; any failure exits non-zero:
    last 4 test videos, 891 frames, 360x640 colour JPEGs from the fixture)
    scored by ``--native_loader --on_the_fly_flow``, one colour conversion a
    frame;
-10. the ``kernels`` summary line, then the last line
-   ``{"ok": true, "device": {...}}``.
+10. the whole run's seconds, the ``kernels`` summary line, then the last
+   line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.
 """
@@ -71,6 +85,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import inspect
 import io
 import json
 import math
@@ -85,9 +100,11 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# HBM3 bandwidth, dense bf16 on the tensor cores, float32 outside them.
+# HBM3 bandwidth, dense bf16 and int8 on the tensor cores, float32 outside
+# them.
 HBM_BYTES_PER_S = 3.35e12
 BF16_TENSOR_FLOPS = 989e12
+INT8_TENSOR_OPS = 1979e12
 FP32_FLOPS = 67e12
 
 # UCSD Ped2 test split: frames per video (eval/gt.py labels these lengths)
@@ -702,12 +719,22 @@ def write_ped2_tree(root: str, lengths) -> None:
 
 def reset_launches(mk) -> None:
     """Every kernel's launch count to 0, by route too."""
+    from ammcnet_aaai2021_torch.data import native
+    from ammcnet_aaai2021_torch.ops import int8_kernels
+
     for wrapper in (mk.quantize_topk_fused, mk.quantize_topk_train_fused):
         wrapper.launches = 0
         wrapper.launches_by_route = dict.fromkeys(mk.ROUTES, 0)
+    for wrapper in (int8_kernels.qconv3x3_int8,
+                    int8_kernels.qconv_transpose2x2_int8,
+                    native.idct_islow_u8, native.resize_bilinear_u8,
+                    native.ycc_to_rgb_u8):
+        wrapper.launches = 0
 
 
-def main_path_phase(torch, mk, n_videos: int) -> dict:
+def main_path_phase(torch, mk, n_videos: int, tmp: str) -> dict:
+    """The bf16 scoring run on a ped2-shaped split written under ``tmp``,
+    which stays there for ``int8_path``."""
     import numpy as np
 
     from ammcnet_aaai2021_torch.runners import run_test
@@ -719,37 +746,36 @@ def main_path_phase(torch, mk, n_videos: int) -> dict:
     window_batch = 192  # run_test's default for the video scorer
     forwards = sum(math.ceil((t - 4) / min(window_batch, t - 4))
                    for t in lengths)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_ped2_tree(tmp, lengths)
-        data_s = time.perf_counter() - t0
-        dataset = "ped2"
-        if n_videos < len(PED2_TEST_LENGTHS):
-            # the builtin ped2 labels need all 12 videos: a cut run carries
-            # its videos' ped2 events in the toydata label format instead
-            dataset = "toydata"
-            os.rename(os.path.join(tmp, "ped2"), os.path.join(tmp, dataset))
-            with open(os.path.join(tmp, dataset, "toydata.json"), "w") as fh:
-                json.dump({f"{vi:02d}": {"length": t, "gt": [[s - 1, e - 1]]}
-                           for vi, (t, (s, e)) in enumerate(
-                               zip(lengths, PED2_EVENTS), start=1)}, fh)
-        argv = ["--dataset_name", dataset, "--data_dir", tmp,
-                "--save_dir", os.path.join(tmp, "eval_out")]
-        stdout = io.StringIO()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(mk)
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(stdout):
-            res = run_test.main(argv)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = mk.quantize_topk_fused.launches
-        by_route = dict(mk.quantize_topk_fused.launches_by_route)
-        printed = stdout.getvalue()
-        print(printed, end="", flush=True)
-        with open(res["pickle"], "rb") as fh:
-            records = pickle.load(fh)
+    t0 = time.perf_counter()
+    write_ped2_tree(tmp, lengths)
+    data_s = time.perf_counter() - t0
+    dataset = "ped2"
+    if n_videos < len(PED2_TEST_LENGTHS):
+        # the builtin ped2 labels need all 12 videos: a cut run carries
+        # its videos' ped2 events in the toydata label format instead
+        dataset = "toydata"
+        os.rename(os.path.join(tmp, "ped2"), os.path.join(tmp, dataset))
+        with open(os.path.join(tmp, dataset, "toydata.json"), "w") as fh:
+            json.dump({f"{vi:02d}": {"length": t, "gt": [[s - 1, e - 1]]}
+                       for vi, (t, (s, e)) in enumerate(
+                           zip(lengths, PED2_EVENTS), start=1)}, fh)
+    argv = ["--dataset_name", dataset, "--data_dir", tmp,
+            "--save_dir", os.path.join(tmp, "eval_out")]
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        res = run_test.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = mk.quantize_topk_fused.launches
+    by_route = dict(mk.quantize_topk_fused.launches_by_route)
+    printed = stdout.getvalue()
+    print(printed, end="", flush=True)
+    with open(res["pickle"], "rb") as fh:
+        records = pickle.load(fh)
     if "the optimal auc = " not in printed:
         fail("run_test printed no 'the optimal auc =' line")
     for key in ("rgb_img_pred_records", "rgb_fea_comm_records",
@@ -774,7 +800,311 @@ def main_path_phase(torch, mk, n_videos: int) -> dict:
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "data_write_s": data_s}
     emit("main_path", **out)
+    return {**out, "dataset": dataset, "lengths": list(lengths),
+            "records": records}
+
+
+INT8_CALIB_CLIPS = 32
+# the int8 run's rgb records against the bf16 run's (the same weights and
+# split): frame PSNRs and commit distances correlate at least this much
+INT8_MIN_CORR = 0.99
+# windows of a plain int8 convolution at a time: its float64 copies of a
+# 176-window 256x256x128 input would take 12 GB at once
+PLAIN_SLICE = 16
+
+
+class Int8Recorder:
+    """Every int8 kernel call of one ``run_test --int8`` run, seen through
+    the names ``models/quantized.py`` calls: its two conv helpers (each
+    call's site, unpadded input width and record pass) and the two kernel
+    wrappers.  A forward begins where a site repeats.  Every call of the
+    first forward at each batch size is held against its plain version,
+    bitwise: the output the forward went on with, and the int32
+    accumulators of an uncounted relaunch.  The largest scoring forward
+    keeps one call's arguments for each distinct launch, for timing."""
+
+    HELPERS = ("_qconv", "_qconv_transpose")
+    KERNELS = ("qconv3x3_int8", "qconv_transpose2x2_int8")
+
+    def __init__(self):
+        from ammcnet_aaai2021_torch.models import quantized
+        from ammcnet_aaai2021_torch.ops import int8_kernels as ik
+
+        self.quantized, self.ik = quantized, ik
+        self.saved = {}
+        self.site, self.true_cin = None, None
+        self.sites = set()  # the current forward's
+        self.checking, self.timing_forward = False, False
+        self.batches = []  # one dict a checked forward
+        self.timing_windows, self.timing = 0, {}
+        self.helper_calls = self.kernel_calls = 0
+
+    def __enter__(self):
+        for name in self.HELPERS + self.KERNELS:
+            fn = self.saved[name] = getattr(self.quantized, name)
+            setattr(self.quantized, name, (
+                self._helper if name in self.HELPERS else self._kernel)(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self.saved.items():
+            setattr(self.quantized, name, fn)
+
+    def _helper(self, fn):
+        signature = inspect.signature(fn)
+
+        def helper(*args, **kwargs):
+            a = signature.bind(*args, **kwargs)
+            a.apply_defaults()
+            self._begin(a.arguments["site"], a.arguments["x"],
+                        a.arguments["record"] is not None)
+            return fn(*args, **kwargs)
+        return helper
+
+    def _begin(self, site: str, x, record: bool) -> None:
+        if site in self.sites:
+            self.sites = set()
+        if not self.sites:  # a forward's first call
+            n = x.shape[0]
+            self.checking = n not in [b["windows"] for b in self.batches]
+            if self.checking:
+                self.batches.append({"windows": n, "record_pass": record,
+                                     "calls": {k: 0 for k in self.KERNELS}})
+            self.timing_forward = not record and n > self.timing_windows
+            if self.timing_forward:
+                self.timing_windows, self.timing = n, {}
+        self.sites.add(site)
+        self.site, self.true_cin = site, x.shape[-1]
+        self.helper_calls += 1
+
+    def _kernel(self, fn):
+        plain = getattr(self.ik, fn.__name__ + "_ref")
+
+        def kernel(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.kernel_calls += 1
+            if self.checking:
+                self._check(fn, plain, args, kwargs, out)
+            if self.timing_forward:
+                self._keep(fn, plain, args, kwargs, out)
+            return out
+        return kernel
+
+    def _check(self, fn, plain, args, kwargs, out) -> None:
+        import torch
+
+        launches = fn.launches
+        acc = fn(*args, **kwargs, acc=True)
+        fn.launches = launches  # a comparison's launch does not count
+        a = inspect.signature(plain).bind(*args, **kwargs)
+        a.apply_defaults()
+        a = a.arguments
+        x = a.pop("x")
+        for i in range(0, x.shape[0], PLAIN_SLICE):
+            part = slice(i, i + PLAIN_SLICE)
+            want = plain(x[part], **dict(a, acc=True))
+            # the plain version's output is its epilogue of these
+            # accumulators
+            want_out = self.ik._epilogue_ref(
+                want, a["sx"], a["scale"], a["bias"], a.get("relu", False),
+                a.get("out_scale"))
+            for name, got, ref in (("accumulators", acc[part], want),
+                                   ("output", out[part], want_out)):
+                if got.dtype != ref.dtype or not torch.equal(got, ref):
+                    bad = int((got.float() != ref.float()).sum())
+                    fail(f"int8_path: {fn.__name__} at {self.site} (input "
+                         f"{tuple(x.shape)}, windows {i}+): {bad} {name} "
+                         "differ from the plain version")
+        self.batches[-1]["calls"][fn.__name__] += 1
+
+    def _keep(self, fn, plain, args, kwargs, out) -> None:
+        relu = bool(args[6]) if len(args) > 6 else kwargs.get("relu", False)
+        key = (fn.__name__, tuple(args[0].shape), self.true_cin,
+               tuple(out.shape), str(out.dtype), relu)
+        if key in self.timing:
+            self.timing[key]["sites"].append(self.site)
+            return
+        self.timing[key] = {
+            "fn": fn, "plain": plain, "args": args, "kwargs": kwargs,
+            "sites": [self.site], "true_cin": self.true_cin, "relu": relu,
+            "out_bytes": out.numel() * out.element_size(),
+            "epilogue": ("int8" if out.element_size() == 1
+                         else "bf16_relu" if relu else "bf16")}
+
+
+def int8_timing_rows(torch, rec: Int8Recorder) -> dict:
+    """One row per distinct int8 launch of the largest scoring forward, on
+    its real inputs: the kernel's device time (CUDA graphs) and eager time,
+    its plain version's over the whole call (in ``PLAIN_SLICE`` windows),
+    cuDNN's bf16 convolution of the unpadded shape and, for the transposed
+    conv, ``torch._int_mm`` of its product, beside the bound at the
+    unpadded input width."""
+    import torch.nn.functional as F
+
+    rows = {}
+    for t in rec.timing.values():
+        fn, plain, args, kwargs = t["fn"], t["plain"], t["args"], t["kwargs"]
+        x, wk, cout = args[0], args[1], args[5]
+        n, h, w, cin_pad = x.shape
+        cin = t["true_cin"]
+        transposed = fn.__name__ == "qconv_transpose2x2_int8"
+        taps, cols = (1, 4 * cout) if transposed else (9, cout)
+        pixels = n * h * w
+        row = {"name": t["sites"][0], "sites": t["sites"],
+               "kind": "2x2" if transposed else "3x3", "windows": n,
+               "size": h, "cin": cin, "cin_padded": cin_pad, "cout": cout,
+               "per_forward": len(t["sites"]), "epilogue": t["epilogue"],
+               "max_abs_err": 0,
+               "kernel_ms": graph_ms(torch, lambda: fn(*args, **kwargs),
+                                     calls=5, replays=2),
+               "kernel_eager_ms": time_ms(torch, lambda: fn(*args, **kwargs),
+                                          reps=3, warmup=1),
+               "plain_ms": time_ms(torch, lambda: [
+                   plain(x[i:i + PLAIN_SLICE], *args[1:], **kwargs)
+                   for i in range(0, n, PLAIN_SLICE)], reps=1, warmup=0),
+               **bound(pixels * cin + cols * taps * cin + t["out_bytes"]
+                       + 8 * cout, 2 * pixels * taps * cin * cols,
+                       "N*H*W*Cin + cols*taps*Cin + output + 8*Cout (Cin "
+                       "unpadded)", "2*N*H*W*taps*Cin*cols",
+                       INT8_TENSOR_OPS, "int8 tensor cores")}
+        xb = x[..., :cin].permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        if transposed:
+            wb = torch.randn((cin, cout, 2, 2), device="cuda",
+                             dtype=torch.bfloat16)
+            row["cudnn_bf16_ms"] = graph_ms(
+                torch, lambda: F.conv_transpose2d(xb, wb, stride=2),
+                calls=5, replays=2)
+            a, b = x.reshape(-1, cin_pad), wk[:cols, 0].t()
+            row["library_call"] = ("torch._int_mm of the (N*H*W, Cin) x "
+                                   "(Cin, 4*Cout) int8 product")
+            row["library_ms"] = graph_ms(torch, lambda: torch._int_mm(a, b),
+                                         calls=5, replays=2)
+        else:
+            wb = torch.randn((cout, cin, 3, 3), device="cuda",
+                             dtype=torch.bfloat16).contiguous(
+                memory_format=torch.channels_last)
+            row["cudnn_bf16_ms"] = graph_ms(
+                torch, lambda: F.conv2d(xb, wb, padding=1), calls=5,
+                replays=2)
+            row["library_ms"] = None
+        rows[row["name"]] = row
+        emit("int8_kernel_timing", **row)
+        del xb, wb
+    rec.timing.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_forward_totals(rows: dict) -> dict:
+    """The timed forward's int8 convolutions, kernel by kernel: the device
+    ms, bound and cuDNN bf16 ms of every launch the forward makes, summed."""
+    out = {}
+    for kind in ("3x3", "2x2"):
+        picked = [r for r in rows.values() if r["kind"] == kind]
+        out[kind] = {key: sum(r[key] * r["per_forward"] for r in picked)
+                     for key in ("kernel_ms", "plain_ms", "bound_ms",
+                                 "cudnn_bf16_ms")}
+        out[kind]["launches"] = sum(r["per_forward"] for r in picked)
+        out[kind]["windows"] = picked[0]["windows"]
+        out[kind]["bound_by"] = "operations" if all(
+            r["bound_by"] == "operations" for r in picked) else "mixed"
     return out
+
+
+def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
+    """``run_test --int8 --calib_clips 32`` on ``main_path``'s split (its
+    bf16 run's data and seeded weights) with a training split added: records
+    finite, one per frame, the AUC line, the rgb records' correlation with
+    the bf16 run's, every 3x3 and transposed conv launched through the int8
+    kernels and B1 twice a forward.  Then the same command again under
+    :class:`Int8Recorder`: every kernel call of the first forward at each of
+    the run's batch sizes (the calibration's, and each video length's
+    windows) against its plain version, bitwise; then each distinct launch
+    of the largest forward timed on its real inputs."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.models.quantized import N_SITES
+    from ammcnet_aaai2021_torch.ops import int8_kernels as ik
+    from ammcnet_aaai2021_torch.runners import run_test
+
+    dataset, lengths = main_run["dataset"], main_run["lengths"]
+    t0 = time.perf_counter()
+    write_train_tree(tmp, dataset)
+    data_s = time.perf_counter() - t0
+    argv = ["--dataset_name", dataset, "--data_dir", tmp, "--int8",
+            "--calib_clips", str(INT8_CALIB_CLIPS)]
+    forwards = main_run["forwards"] + INT8_CALIB_CLIPS // 8
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        res = run_test.main(argv + ["--save_dir",
+                                    os.path.join(tmp, "eval_int8")])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"qconv3x3_int8": ik.qconv3x3_int8.launches,
+                "qconv_transpose2x2_int8": ik.qconv_transpose2x2_int8.launches,
+                "b1": dict(mk.quantize_topk_fused.launches_by_route)}
+    printed = stdout.getvalue()
+    print(printed, end="", flush=True)
+    with open(res["pickle"], "rb") as fh:
+        records = pickle.load(fh)
+    if "the optimal auc = " not in printed:
+        fail("int8_path: run_test --int8 printed no 'the optimal auc =' line")
+    for key in ("rgb_img_pred_records", "rgb_fea_comm_records",
+                "op_img_pred_records", "op_fea_comm_records"):
+        if [len(r) for r in records[key]] != list(lengths):
+            fail(f"int8_path: {key} lengths differ from {lengths}")
+        if not all(np.isfinite(r).all() for r in records[key]):
+            fail(f"int8_path: {key} not finite")
+    corr = {key: float(np.corrcoef(
+        np.concatenate(records[key]),
+        np.concatenate(main_run["records"][key]))[0, 1])
+        for key in ("rgb_img_pred_records", "rgb_fea_comm_records")}
+    if min(corr.values()) < INT8_MIN_CORR:
+        fail(f"int8_path: records correlate with the bf16 run's by {corr}, "
+             f"want >= {INT8_MIN_CORR}")
+
+    t0 = time.perf_counter()
+    with Int8Recorder() as rec, contextlib.redirect_stdout(io.StringIO()):
+        run_test.main(argv + ["--save_dir", os.path.join(tmp, "eval_check")])
+    torch.cuda.synchronize()
+    check_s = time.perf_counter() - t0
+    want_windows = sorted({min(8, INT8_CALIB_CLIPS)} | {min(WINDOW_BATCH, t - CLIP_LEN_RGB + 1)
+                                 for t in lengths})
+    per_forward = rec.batches[0]["calls"] if rec.batches else {}
+    if (sorted(b["windows"] for b in rec.batches) != want_windows
+            or any(b["calls"] != per_forward for b in rec.batches)
+            or sum(per_forward.values()) != N_SITES
+            or rec.helper_calls != rec.kernel_calls):
+        fail(f"int8_path: checked forwards {rec.batches} (want one at each "
+             f"of {want_windows} windows, {N_SITES} kernel calls each), "
+             f"{rec.helper_calls} convs and {rec.kernel_calls} kernel calls")
+    emit("int8_check", batches=rec.batches, seconds=check_s,
+         plain_slice=PLAIN_SLICE)
+    want = {**{name: c * forwards for name, c in per_forward.items()},
+            "b1": {r: 2 * forwards * (r == mk.TENSOR_CORE)
+                   for r in mk.ROUTES}}
+    if launches != want:
+        fail(f"int8_path: launches {launches}, want {want} (the scoring "
+             f"run's {main_run['forwards']} forwards and "
+             f"{INT8_CALIB_CLIPS // 8} calibration passes)")
+    rows = int8_timing_rows(torch, rec)
+    totals = int8_forward_totals(rows)
+    emit("int8_forward_totals", **totals)
+    frames = sum(lengths)
+    out = {"videos": len(lengths), "frames": frames,
+           "calib_clips": INT8_CALIB_CLIPS, "wall_s": wall,
+           "frames_per_s": frames / wall, "run_test_fps": res["fps"],
+           "bf16_frames_per_s": main_run["frames_per_s"],
+           "bf16_run_test_fps": main_run["run_test_fps"],
+           "auc": res["auc"], "bf16_auc": main_run["auc"],
+           "corr_with_bf16": corr, "launches": launches,
+           "train_data_write_s": data_s}
+    emit("int8_path", **out)
+    return {"run": out, "checks": rows, "totals": totals}
 
 
 def train_check_phase(torch, mk) -> dict:
@@ -846,18 +1176,19 @@ def train_check_phase(torch, mk) -> dict:
     return out
 
 
-def write_train_tree(root: str) -> None:
-    """A ped2-shaped training split of numpy files: <root>/ped2/training/
-    {frames,flows}/NN/, ``TRAIN_VIDEOS`` videos of ``TRAIN_FRAMES`` u8
-    256x256 frames (.npy) and float32 flow fields, from a fixed seed."""
+def write_train_tree(root: str, dataset: str = "ped2") -> None:
+    """A ped2-shaped training split of numpy files: <root>/<dataset>/
+    training/{frames,flows}/NN/, ``TRAIN_VIDEOS`` videos of
+    ``TRAIN_FRAMES`` u8 256x256 frames (.npy) and float32 flow fields, from
+    a fixed seed."""
     import numpy as np
 
     rng = np.random.default_rng(20200526)
     s = IMAGE_SIZE
     yy, xx = np.mgrid[0:s, 0:s].astype(np.float32)
     for vi in range(1, TRAIN_VIDEOS + 1):
-        fdir = os.path.join(root, "ped2", "training", "frames", f"{vi:02d}")
-        odir = os.path.join(root, "ped2", "training", "flows", f"{vi:02d}")
+        fdir = os.path.join(root, dataset, "training", "frames", f"{vi:02d}")
+        odir = os.path.join(root, dataset, "training", "flows", f"{vi:02d}")
         os.makedirs(fdir)
         os.makedirs(odir)
         base = 96 + 48 * np.sin((xx + 5 * vi) / 19.0) * np.cos(yy / 29.0)
@@ -1144,12 +1475,11 @@ GRAY_FIXTURE_FRAMES, COLOR_FIXTURE_FRAMES = 16, 2
 # score_dataset's bucket padding, make_otf_flow_extractor's pairs a
 # forward, the GPU decode's frames a resize launch (csrc kChunkFrames)
 BUCKET, OTF_CHUNK, DECODE_CHUNK = 64, 16, 32
-# the GPU decode of the fixture against cv2's (reference.npz): nvJPEG's IDCT
-# rounds otherwise than libjpeg's, on top of the float resize's 1 LSB
-# against cv2's fixed-point one, so a grayscale value may be 2 LSB off;
-# colour is held to 1 LSB on this share of its values and to 3 LSB on all
-GRAY_MAX_LSB, GRAY_WITHIN_1_LSB = 2, 0.9999
-COLOR_MAX_LSB, COLOR_WITHIN_1_LSB = 3, 0.99
+# the GPU decode of the fixture against cv2's (reference.npz): libjpeg's
+# decode, bitwise the host route's, then the float resize, 1 LSB against
+# cv2's fixed-point one, as the host route is
+GRAY_MAX_LSB, GRAY_WITHIN_1_LSB = 1, 1.0
+COLOR_MAX_LSB, COLOR_WITHIN_1_LSB = 1, 1.0
 # scoring: 5-frame windows, 192 a forward
 CLIP_LEN_RGB, WINDOW_BATCH = 5, 192
 # the extractor in float32 (TF32 off) on the card against the same weights
@@ -1208,8 +1538,95 @@ def write_raw_tree(root: str, dataset: str, lengths, flows: bool) -> None:
 
 
 def reset_native_launches(native) -> None:
+    native.idct_islow_u8.launches = 0
     native.resize_bilinear_u8.launches = 0
     native.ycc_to_rgb_u8.launches = 0
+
+
+def c2_phase(torch, native) -> dict:
+    """The GPU JPEG route is libjpeg's: the IDCT kernel against its plain
+    version on the fixture's coefficients (the Huffman decode's, a 32-frame
+    chunk of the 240x360 grayscale frames and one of the 360x640 colour
+    frames' three components, the colour run's chunk), bitwise, timed
+    beside its bound and plain version;
+    the fixture's GPU decode, gray and colour, bitwise the committed host
+    libjpeg route (libjpeg_reference.npz) at source size and at 256x256;
+    the fixture's progressive JPEG refused with its own error."""
+    import numpy as np
+
+    out = {}
+    gray = [os.path.join(FIXTURE, f"gray_{i:02d}.jpg")
+            for i in range(GRAY_FIXTURE_FRAMES)]
+    colour = [os.path.join(FIXTURE, f"color_{i:02d}.jpg")
+              for i in range(COLOR_FIXTURE_FRAMES)]
+    # the raw runs' chunks: the fixture's frames cycled, as write_raw_tree
+    # cycles them
+    chunk = (gray * DECODE_CHUNK)[:DECODE_CHUNK] + (
+        colour * DECODE_CHUNK)[:DECODE_CHUNK]
+    t0 = time.perf_counter()
+    frames = native.decode_coefs(chunk)
+    huffman_s = time.perf_counter() - t0
+    chunks = {"gray": [f[0] for f in frames[:DECODE_CHUNK]]}
+    for c, name in enumerate(("y", "cb", "cr")):
+        chunks[f"color_{name}"] = [f[c] for f in frames[DECODE_CHUNK:]]
+    for name, comps in chunks.items():
+        coefs = torch.from_numpy(np.stack([c.coefs for c in comps]))
+        q = torch.from_numpy(np.stack([c.qtable for c in comps]))
+        size = comps[0].size
+        cc, qc = coefs.cuda(), q.cuda()
+        got = native.idct_islow_u8(cc, qc, size)
+        torch.cuda.synchronize()
+        if not torch.equal(got.cpu(), native.idct_islow_u8_ref(coefs, q,
+                                                               size)):
+            fail(f"c2_check: the IDCT kernel differs from its plain version "
+                 f"on the fixture's {name} coefficients")
+        f, bh, bw, _ = coefs.shape
+        blocks = f * bh * bw
+        out[name] = {"frames": f, "blocks": blocks, "size": list(size),
+                     "max_abs_err": 0,
+                     **time_pair(torch, native.idct_islow_u8,
+                                 native.idct_islow_u8_ref, cc, qc, size),
+                     "library_ms": None,
+                     # 2 bytes a coefficient, the tables, a byte a pixel;
+                     # about 1,312 32-bit integer operations a block (the
+                     # two passes' butterflies, dequantize, descale and
+                     # range limit)
+                     **bound(blocks * 128 + f * 128 + f * size[0] * size[1],
+                             blocks * 1312, "blocks*128 + F*128 + F*h*w",
+                             "blocks*1312", FP32_FLOPS,
+                             "32-bit operations, CUDA cores")}
+        emit("c2_check", kernel="idct_islow_u8", input=name, **out[name])
+    ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+    for kind, paths in (("gray", gray), ("color", colour)):
+        for size_name in ("source", "256"):
+            want = ref[f"{kind}_{size_name}"]
+            want = want[..., None] if kind == "gray" else want
+            got = native.decode_video(paths, want.shape[1:3], device="cuda")
+            torch.cuda.synchronize()
+            if got.device.type != "cuda" or tuple(got.shape) != want.shape:
+                fail(f"c2_check: GPU decode of the {kind} fixture gave "
+                     f"{tuple(got.shape)} on {got.device}, want {want.shape}")
+            differ = int((got.cpu().numpy() != want).sum())
+            if differ:
+                fail(f"c2_check: GPU decode of the {kind} fixture at "
+                     f"{size_name} size: {differ} values differ from the "
+                     "host libjpeg route (must be bitwise)")
+            out[f"decode_{kind}_{size_name}"] = {
+                "frames": len(paths), "shape": list(want.shape),
+                "values_differing": 0}
+    progressive = os.path.join(FIXTURE, "progressive.jpg")
+    try:
+        native.decode_video([progressive], (64, 64), device="cuda")
+    except RuntimeError as e:
+        if "code 10" not in str(e):
+            fail(f"c2_check: the progressive JPEG raised another error: {e}")
+        out["progressive"] = str(e)
+    else:
+        fail("c2_check: the progressive JPEG decoded on the GPU route")
+    out["huffman_s"], out["huffman_frames"] = huffman_s, len(chunk)
+    emit("c2_check", **{k: v for k, v in out.items()
+                        if k.startswith("decode") or k == "progressive"})
+    return out
 
 
 def raw_kernel_checks(torch, native) -> dict:
@@ -1276,9 +1693,10 @@ def raw_kernel_checks(torch, native) -> dict:
 
 
 def fixture_decode_check(native) -> dict:
-    """The committed fixture through ``decode_video`` on the card (nvJPEG,
-    the colour and the resize kernels) against cv2's decode + resize: the
-    grayscale frames as one channel, the colour ones as RGB."""
+    """The committed fixture through ``decode_video`` on the card (the
+    Huffman decode, the IDCT, colour and resize kernels) against cv2's
+    decode + resize: the grayscale frames as one channel, the colour ones
+    as RGB."""
     import numpy as np
 
     ref = np.load(os.path.join(FIXTURE, "reference.npz"))
@@ -1343,9 +1761,10 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
     ``dataset`` split at ``root``, every count set to 0 just before and
     read just after; fails unless the records are finite, one per frame,
     the AUC line printed, every B1 launch on the tensor-core route (two a
-    forward), the resize kernel launched once a 32-frame chunk, the colour
-    kernel once a colour frame and FlowNet2-SD (with ``--on_the_fly_flow``)
-    once a 16 pairs of each bucket-padded video."""
+    forward), the resize kernel launched once a 32-frame chunk, the IDCT
+    once a chunk and component, the colour kernel once a colour frame and
+    FlowNet2-SD (with ``--on_the_fly_flow``) once a 16 pairs of each
+    bucket-padded video."""
     import numpy as np
 
     argv = ["--dataset_name", dataset, "--data_dir", root, "--save_dir",
@@ -1356,6 +1775,7 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
                   for t in lengths) if "--on_the_fly_flow" in flags else 0
     resizes = sum(math.ceil(t / DECODE_CHUNK) for t in lengths)
     conversions = sum(lengths) if dataset != "ped2" else 0  # colour frames
+    idcts = resizes * (1 if dataset == "ped2" else 3)
     stdout = io.StringIO()
     torch.cuda.synchronize()
     reset_launches(mk)
@@ -1366,6 +1786,7 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"b1": dict(mk.quantize_topk_fused.launches_by_route),
+                "idct_islow_u8": native.idct_islow_u8.launches,
                 "resize_bilinear_u8": native.resize_bilinear_u8.launches,
                 "ycc_to_rgb_u8": native.ycc_to_rgb_u8.launches,
                 "flownet_forwards": res["flownet_forwards"]}
@@ -1382,6 +1803,7 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
         if not all(np.isfinite(r).all() for r in records[key]):
             fail(f"raw_path {name}: {key} not finite")
     want = {"b1": {r: 2 * forwards * (r == mk.TENSOR_CORE) for r in mk.ROUTES},
+            "idct_islow_u8": idcts,
             "resize_bilinear_u8": resizes, "ycc_to_rgb_u8": conversions,
             "flownet_forwards": flownet}
     if launches != want:
@@ -1420,6 +1842,7 @@ def raw_path_phase(torch, mk) -> dict:
             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    c2 = c2_phase(torch, native)
     kernels = raw_kernel_checks(torch, native)
     extractor = extractor_check(torch)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -1498,7 +1921,7 @@ def raw_path_phase(torch, mk) -> dict:
             "flownet_ms_per_pair": flownet_ms / 191}
     emit("raw_path_host", **host)
     return {"runs": runs, "kernels": kernels, "fixture": fixture,
-            "extractor": extractor, "host": host}
+            "extractor": extractor, "host": host, "c2": c2}
 
 
 def main(argv=None) -> None:
@@ -1508,6 +1931,7 @@ def main(argv=None) -> None:
                              "to fit a time limit)")
     args = parser.parse_args(argv)
 
+    started = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -1528,9 +1952,10 @@ def main(argv=None) -> None:
 
     t0 = time.perf_counter()
     # the CUDA-core route of B1 and B2; their tensor-core route; the GPU
-    # JPEG route (nvJPEG, the colour and the resize kernels)
+    # JPEG route (the host Huffman decode, the IDCT, colour and resize
+    # kernels); the int8 convolutions
     seconds = cuda_build.build(["quantize_topk", "quantize_topk_mma",
-                                "jpeg_decode"])
+                                "jpeg_decode", "int8_conv"])
     ptxas = [line.strip() for log in cuda_build.build_log.values()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line
@@ -1549,7 +1974,9 @@ def main(argv=None) -> None:
     c1_times = c1_phase(torch, mk)
     model_phase(torch, mk)
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    main_run = main_path_phase(torch, mk, args.videos)
+    with tempfile.TemporaryDirectory() as tmp:
+        main_run = main_path_phase(torch, mk, args.videos, tmp)
+        int8 = int8_path_phase(torch, mk, tmp, main_run)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1580,9 +2007,28 @@ def main(argv=None) -> None:
             key: c1_times[(name, n, n_embed, kk)][key] for key in cc_keys}
             for n, n_embed, kk in C1_TIMED if kk == k}
 
+    def int8_row(kind):
+        """The int8 kernel's launch of the timed forward with the most
+        operations."""
+        return max((r for r in int8["checks"].values() if r["kind"] == kind),
+                   key=lambda r: r["flops"])
+
+    def int8_at(row):
+        return (f"{row['name']}: {row['size']}x{row['size']} in, "
+                f"{row['cin']} -> {row['cout']}, {row['windows']} windows")
+
+    def int8_by_shape(kind):
+        return {name: {key: row[key] for key in (
+            "sites", "windows", "cin", "cout", "per_forward", "kernel_ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "cudnn_bf16_ms")} for name, row in int8["checks"].items()
+            if row["kind"] == kind}
+    conv3, conv2 = int8_row("3x3"), int8_row("2x2")
+
     def stage1_launches(kernel):
         return {name: run["launches_by_route"][kernel]
                 for name, run in stage1_runs.items()}
+    emit("total", seconds=time.perf_counter() - started)
     print(json.dumps({"kernels": [{
         "name": "quantize_topk_fused",
         "route": "cuda",
@@ -1670,6 +2116,53 @@ def main(argv=None) -> None:
         "at_colour_360x640": {key: raw["kernels"][("resize", "color")][key]
                               for key in ("kernel_ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
+    }, {
+        "name": "idct_islow_u8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/jpeg_decode.cu",
+        "replaces": "ammcnet_aaai2021_tpu/native/ammc_loader.cpp:121",
+        "launches": sum(run["launches"]["idct_islow_u8"]
+                        for run in raw["runs"].values()),
+        "launches_by_path": {
+            name: run["launches"]["idct_islow_u8"]
+            for name, run in raw["runs"].items()},
+        "max_abs_err": 0,
+        "ms": raw["c2"]["gray"]["kernel_ms"],
+        **{key: raw["c2"]["gray"][key] for key in (
+            "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")},
+        "at_colour_360x640": {
+            name: {key: raw["c2"][name][key] for key in (
+                "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
+            for name in ("color_y", "color_cb", "color_cr")},
+    }, {
+        "name": "qconv3x3_int8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/int8_conv.cu",
+        "replaces": "ammcnet_aaai2021_tpu/models/quantized.py:153",
+        "launches": int8["run"]["launches"]["qconv3x3_int8"],
+        "max_abs_err": 0,
+        "ms": conv3["kernel_ms"],
+        **{key: conv3[key] for key in (
+            "kernel_eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "cudnn_bf16_ms")},
+        "at": int8_at(conv3),
+        "per_forward": int8["totals"]["3x3"],
+        "by_shape": int8_by_shape("3x3"),
+    }, {
+        "name": "qconv_transpose2x2_int8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/int8_conv.cu",
+        "replaces": "ammcnet_aaai2021_tpu/models/quantized.py:177",
+        "launches": int8["run"]["launches"]["qconv_transpose2x2_int8"],
+        "max_abs_err": 0,
+        "ms": conv2["kernel_ms"],
+        **{key: conv2[key] for key in (
+            "kernel_eager_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms", "library_call", "cudnn_bf16_ms")},
+        "at": int8_at(conv2),
+        "per_forward": int8["totals"]["2x2"],
+        "by_shape": int8_by_shape("2x2"),
     }, {
         "name": "ycc_to_rgb_u8",
         "route": "cuda",

@@ -11,6 +11,7 @@ from __future__ import annotations
 GROUPS = (
     ("memory lookup kernels (B1, B2)", ("quantize_topk", "prep_codebook",
                                         "ema_stats")),
+    ("int8 convolution kernels", ("qconv_int8",)),
     ("optimizer (Adam, foreach)", ("multi_tensor", "adam")),
     ("layout transposes", ("nchwtonhwc", "nhwctonchw", "transpose")),
     ("convolution (fwd, dgrad, wgrad)", ("conv", "xmma", "gemm", "cutlass",

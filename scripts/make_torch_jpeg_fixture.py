@@ -12,22 +12,34 @@ own decode with it.  It writes, into ``tests/fixtures/torch_jpeg/``:
 * ``reference.npz``: cv2's decode (``cv2.imread``, BGR to RGB) of each,
   resized to 256x256 by ``cv2.resize`` (INTER_LINEAR), u8: ``color``
   (2, 256, 256, 3) and ``gray`` (16, 256, 256), one channel of the three
-  equal ones cv2 gives a grayscale JPEG (the script checks they are equal).
+  equal ones cv2 gives a grayscale JPEG (the script checks they are equal);
+* ``progressive.jpg``: ``color_00.jpg``'s decode re-encoded progressive
+  (SOF2) by cv2 at quality 95, which the GPU route must refuse;
+* ``libjpeg_reference.npz``: the port's host route
+  (``ammcnet_aaai2021_torch.data.native.decode_video(device="cpu")``,
+  libjpeg, then the float resize), which the GPU route must equal bitwise,
+  u8: ``gray_source`` (16, 240, 360) and ``gray_256`` (16, 256, 256), one
+  channel of the three equal ones; ``color_source`` (2, 360, 640, 3) and
+  ``color_256`` (2, 256, 256, 3).
 
 All JPEGs at quality 95, from a fixed seed.  Run from the repository root:
 
-    python scripts/make_torch_jpeg_fixture.py
+    python scripts/make_torch_jpeg_fixture.py               # everything
+    python scripts/make_torch_jpeg_fixture.py --keep-jpegs  # the last two
+                                                            # files, from the
+                                                            # committed JPEGs
 """
 
 from __future__ import annotations
 
+import argparse
 import os
+import sys
 
-import cv2
 import numpy as np
 
-OUT = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                   "tests", "fixtures", "torch_jpeg")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
 GRAY_FRAMES, GRAY_SHAPE = 16, (240, 360)
 COLOR_FRAMES, COLOR_SHAPE = 2, (360, 640)
 SIZE = (256, 256)
@@ -68,7 +80,46 @@ def color_frames(rng: np.random.Generator) -> list:
     return frames
 
 
+def write_references() -> None:
+    """``progressive.jpg``, and the host route's decode of the committed
+    JPEGs, at source size and at 256x256, into ``libjpeg_reference.npz``."""
+    import cv2
+
+    colour = cv2.imread(os.path.join(OUT, "color_00.jpg"))
+    if not cv2.imwrite(os.path.join(OUT, "progressive.jpg"), colour,
+                       [cv2.IMWRITE_JPEG_QUALITY, QUALITY,
+                        cv2.IMWRITE_JPEG_PROGRESSIVE, 1]):
+        raise RuntimeError("cv2 could not write progressive.jpg")
+    sys.path.insert(0, REPO)
+    from ammcnet_aaai2021_torch.data import native
+
+    out = {}
+    for kind, count, shape in (("gray", GRAY_FRAMES, GRAY_SHAPE),
+                               ("color", COLOR_FRAMES, COLOR_SHAPE)):
+        paths = [os.path.join(OUT, f"{kind}_{i:02d}.jpg")
+                 for i in range(count)]
+        for name, size in (("source", shape), ("256", SIZE)):
+            frames = native.decode_video(paths, size)
+            if kind == "gray":
+                if not (frames == frames[..., :1]).all():
+                    raise RuntimeError("the host route decoded a grayscale "
+                                       "JPEG to unequal channels")
+                frames = frames[..., 0]
+            out[f"{kind}_{name}"] = frames
+    np.savez_compressed(os.path.join(OUT, "libjpeg_reference.npz"), **out)
+
+
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--keep-jpegs", action="store_true",
+                        help="write progressive.jpg and "
+                             "libjpeg_reference.npz alone, from the "
+                             "committed JPEGs")
+    if parser.parse_args().keep_jpegs:
+        write_references()
+        return
+    import cv2
+
     os.makedirs(OUT, exist_ok=True)
     rng = np.random.default_rng(20200525)
     params = [cv2.IMWRITE_JPEG_QUALITY, QUALITY,
@@ -92,6 +143,7 @@ def main() -> None:
             refs[kind].append(ref)
     np.savez_compressed(os.path.join(OUT, "reference.npz"),
                         **{k: np.stack(v) for k, v in refs.items()})
+    write_references()
 
 
 if __name__ == "__main__":

@@ -22,6 +22,11 @@ run_test does.  Prints JSON lines:
   frames) three times in one process: the first run pays each new batch
   shape's first use on the card, the later ones show the steady state.
 
+The ``batch`` and ``profile`` lines come twice, each naming its ``model``:
+for the bf16 generator, then for ``run_test --int8``'s forward on the same
+weights (``models/quantized.py``, its scales calibrated on 4 batches of 8
+of the video's windows).
+
     python3 scripts/torch_score_profile.py [--reps 10]
 
 Needs one NVIDIA GPU; imports nothing of JAX.
@@ -125,6 +130,72 @@ def runs_phase(torch, card: str, runs: int = 3) -> None:
                 "run_test_fps": res["fps"]}), flush=True)
 
 
+def int8_model(torch, net, video, flows):
+    """``run_test --int8``'s forward on ``net``'s weights, its scales
+    calibrated on 4 batches of 8 of ``video``'s windows."""
+    from ammcnet_aaai2021_torch.eval.infer import _stack_windows
+    from ammcnet_aaai2021_torch.models.quantized import (
+        calibrate_act_scales, make_quantized_forward,
+        quantize_twostream_variables)
+
+    cfg = dict(embed_dim=64, n_embed=net.rgb.vq_down3.quan.quantize.n_embed,
+               k=net.rgb.vq_down3.quan.quantize.k, per_sample_diff=True,
+               use_kernel=True)
+    qvars = quantize_twostream_variables(net.state_dict())
+    batches = []
+    for b in range(4):
+        idx = torch.arange(8 * b, 8 * b + 8, device="cuda") * 6
+        rgb = (_stack_windows(video, idx, 5).float() / 255.0 - 0.5) / 0.5
+        batches.append((rgb[:, :12], _stack_windows(flows, idx, 4)[:, :6]))
+    qcal = calibrate_act_scales(make_quantized_forward(qvars, **cfg).cuda(),
+                                qvars, batches)
+    return make_quantized_forward(qcal, **cfg).cuda()
+
+
+def profile_batches(torch, batch, label: str, card: str, reps: int) -> None:
+    """The ``batch`` and ``profile`` lines of one model's scoring batch."""
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        batch()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for _ in range(2):
+            batch()
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            batch()
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / reps
+        print(json.dumps({
+            "phase": "batch", "model": label, "card": card,
+            "windows": WINDOWS, "image_size": SIZE, "reps": reps,
+            "first_batch_s": first_s, "ms_per_batch": ms,
+            "windows_per_s": WINDOWS / ms * 1e3}),
+            flush=True)
+
+        from torch.profiler import ProfilerActivity, profile
+
+        from kernel_trace import device_summary
+
+        traced = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(traced):
+                batch()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+    print(json.dumps({"phase": "profile", "model": label, "card": card,
+                      "batches": traced,
+                      **device_summary(prof, wall_us, traced, "batch")}),
+          flush=True)
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--reps", type=int, default=10)
@@ -151,52 +222,13 @@ def main(argv=None) -> None:
     flows = (torch.randn(FRAMES - 1, SIZE, SIZE, 2, device="cuda", generator=g)
              * 0.01).to(net.dtype)
     idx = torch.arange(WINDOWS, device="cuda")
-    score = _make_score_batch(net, 5, 4, 3, 2, "psnr", None, False)
-
-    def batch():
-        return score(video, flows, idx)
-
     # the nvcc builds stay out of the timings
-    cuda_build.build(["quantize_topk", "quantize_topk_mma"])
-    with torch.inference_mode():
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        batch()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        for _ in range(2):
-            batch()
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(args.reps):
-            batch()
-        end.record()
-        torch.cuda.synchronize()
-        ms = start.elapsed_time(end) / args.reps
-        print(json.dumps({
-            "phase": "batch", "card": card, "windows": WINDOWS,
-            "image_size": SIZE, "dtype": str(net.dtype), "reps": args.reps,
-            "first_batch_s": first_s, "ms_per_batch": ms,
-            "windows_per_s": WINDOWS / ms * 1e3}),
-            flush=True)
-
-        from torch.profiler import ProfilerActivity, profile
-
-        from kernel_trace import device_summary
-
-        traced = 3
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(traced):
-                batch()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-    print(json.dumps({"phase": "profile", "card": card, "batches": traced,
-                      **device_summary(prof, wall_us, traced, "batch")}),
-          flush=True)
+    cuda_build.build(["quantize_topk", "quantize_topk_mma", "int8_conv"])
+    for label, model in (("bf16", net),
+                         ("int8", int8_model(torch, net, video, flows))):
+        score = _make_score_batch(model, 5, 4, 3, 2, "psnr", None, False)
+        profile_batches(torch, lambda: score(video, flows, idx), label, card,
+                        args.reps)
     host_phase(torch, net.dtype, card)
     runs_phase(torch, card)
 

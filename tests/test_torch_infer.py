@@ -9,9 +9,10 @@
 * the port's ``run_test`` CLI on the CPU: golden-schema pickle, the
   "the optimal auc =" line, the same AUC as ``evaluate`` on its records;
 * both ``run_test`` CLIs on one ``.pth`` and the JAX package's JPEG toydata
-  tree, in three flag sets, and on a grayscale copy of it with the native
-  loader, on-the-fly flow and the gray upload (one FlowNet2-SD ``.pth``):
-  the records to 1e-4 of their scale and the same printed result line;
+  tree, in three flag sets, on a grayscale copy of it with the native
+  loader, on-the-fly flow and the gray upload (one FlowNet2-SD ``.pth``),
+  and with ``--int8`` on a short tree: the records to 1e-4 of their scale
+  and the same printed result line;
 * the port and ``chip_smoke.py`` import nothing of JAX.
 """
 
@@ -235,10 +236,11 @@ def test_run_test_cuda_without_gpu_raises(toy_tree, tmp_path):
                                   "--int8", "--native_loader",
                                   "--exp_tag=run1"])
 def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
-    """Only ``--int8`` is left to a later slice.  The flags ported since
-    behave as the JAX CLI's: ``--on_the_fly_flow`` scores with flows made by
+    """No flag is left to a later slice.  The flags ported since behave as
+    the JAX CLI's: ``--on_the_fly_flow`` scores with flows made by
     FlowNet2-SD, ``--gray_upload`` alone exits, ``--native_loader`` reads
-    JPEG and ``.flo`` files only (this tree is ``.npy``)."""
+    JPEG and ``.flo`` files only (this tree is ``.npy``), ``--int8``
+    calibrates on the training split, which this tree lacks."""
     argv = ["--dataset_name", "toydata", "--data_dir", toy_tree,
             "--save_dir", str(tmp_path), "--device", "cpu", flag]
     if flag == "--on_the_fly_flow":
@@ -257,24 +259,28 @@ def test_run_test_flags_of_later_slices_raise(toy_tree, tmp_path, flag):
         with pytest.raises(ValueError, match="JPEG files only"):
             run_test.main(argv)
         return
-    if flag.startswith("--exp_tag"):
-        # ported with the training slice: the tag resolves through the run
-        # registry (tests/test_torch_train.py scores a registered run), and
-        # an unregistered tag raises
-        registry = tmp_path / "registry.json"
-        registry.write_text("{}")
-        with pytest.raises(KeyError, match="run1"):
-            run_test.main(argv + ["--registry", str(registry)])
+    if flag == "--int8":
+        # as the JAX CLI: the calibration clips come from <data_dir>/
+        # toydata/training, which is not there (the CLI parity test below
+        # serves --int8 on a tree that has it)
+        with pytest.raises(FileNotFoundError, match="training"):
+            run_test.main(argv)
         return
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        run_test.main(argv)
+    # ported with the training slice: the tag resolves through the run
+    # registry (tests/test_torch_train.py scores a registered run), and an
+    # unregistered tag raises
+    registry = tmp_path / "registry.json"
+    registry.write_text("{}")
+    with pytest.raises(KeyError, match="run1"):
+        run_test.main(argv + ["--registry", str(registry)])
 
 
 @pytest.fixture(scope="module")
 def jpeg_toydata(tmp_path_factory):
     """The JAX package's toydata JPEG tree (2 test videos of 24 frames,
     64x64), a grayscale copy of it (each frame re-encoded by cv2 from its
-    luma; no flows directory), one ``.pth`` of the port's seeded init (the
+    luma; no flows directory), a short tree (2 training and 2 test videos
+    of 8 frames), one ``.pth`` of the port's seeded init (the
     released configuration, bf16) and one FlowNet2-SD ``.pth`` (the port's
     seeded init)."""
     import shutil
@@ -298,6 +304,9 @@ def jpeg_toydata(tmp_path_factory):
             path = os.path.join(frames, video, name)
             cv2.imwrite(path, cv2.imread(path, cv2.IMREAD_GRAYSCALE),
                         [cv2.IMWRITE_JPEG_QUALITY, 95])
+    short = str(tmp_path_factory.mktemp("cli_parity_short"))
+    make_toydata(short, num_train_videos=2, num_test_videos=2,
+                 frames_per_video=8, image_size=SIZE)
     net = init_weights(build_generator(NetConfig()),
                        torch.Generator().manual_seed(3))
     ckpt = os.path.join(root, "generator.pth")
@@ -305,7 +314,8 @@ def jpeg_toydata(tmp_path_factory):
     flownet = os.path.join(root, "flownet.pth")
     torch.save(init_flownet_weights(FlowNet2SD(), torch.Generator()
                                     .manual_seed(5)).state_dict(), flownet)
-    return {"color": root, "gray": gray, "ckpt": ckpt, "flownet": flownet}
+    return {"color": root, "gray": gray, "short": short, "ckpt": ckpt,
+            "flownet": flownet}
 
 
 CLI_FLAG_SETS = {
@@ -318,6 +328,11 @@ CLI_FLAG_SETS = {
     # on the grayscale tree, with the FlowNet2-SD .pth
     "native_otf_gray": ["--native_loader", "--on_the_fly_flow",
                         "--gray_upload"],
+    # on a short tree at 32x32, since XLA:CPU's int8 convolutions are
+    # slow: calibrated on 2 training clips, every 3x3 and transposed conv
+    # int8, 4 windows a forward
+    "int8": ["--int8", "--calib_clips", "2", "--image_size", "32",
+             "--scorer_mode", "batch", "--batch_size", "4"],
 }
 
 
@@ -341,7 +356,9 @@ def test_run_test_cli_matches_the_jax_cli(jpeg_toydata, tmp_path, capsys,
     from ammcnet_aaai2021_torch.models import flownet_sd
 
     trees = jpeg_toydata
-    root = trees["gray" if "--gray_upload" in flags else "color"]
+    root = trees["gray" if "--gray_upload" in flags
+                 else "short" if "--int8" in flags else "color"]
+    frames = 8 if "--int8" in flags else 24
     if "--on_the_fly_flow" in flags:
         flags = [*flags, "--flownet_ckpt", trees["flownet"]]
         monkeypatch.setattr(j_flownet_sd, "FlowNet2SD", functools.partial(
@@ -365,7 +382,7 @@ def test_run_test_cli_matches_the_jax_cli(jpeg_toydata, tmp_path, capsys,
     (jline, want), (tline, got) = results
     assert len(tline) == 1 and tline == jline
     for key in RECORD_KEYS:
-        assert [len(r) for r in got[key]] == [24, 24]
+        assert [len(r) for r in got[key]] == [frames, frames]
         for g, w in zip(got[key], want[key]):
             # relative to the record's scale; SSIM lies in [-1, 1] and sits
             # near 0 for random weights, so its scale is 1
@@ -385,6 +402,8 @@ def test_port_and_chip_smoke_import_no_jax():
         "ammcnet_aaai2021_torch.data.resident",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",
         "ammcnet_aaai2021_torch.losses", "ammcnet_aaai2021_torch.models",
+        "ammcnet_aaai2021_torch.models.quantized",
+        "ammcnet_aaai2021_torch.ops.int8_kernels",
         "ammcnet_aaai2021_torch.ops.cuda_build",
         "ammcnet_aaai2021_torch.ops.memory",
         "ammcnet_aaai2021_torch.ops.memory_kernels",
