@@ -17,8 +17,8 @@
 // The JPEG half needs libjpeg and is compiled only with -DAMMC_WITH_LIBJPEG:
 //   g++ -O3 -march=native -ffp-contract=off -shared -fPIC -DAMMC_WITH_LIBJPEG
 //       ammc_loader.cpp -o libammc_loader.so -ljpeg -lpthread
-// (-ffp-contract=off: the resize's products and sums each rounded, as the
-// GPU route's kernel computes them, on any CPU)
+// (-ffp-contract=off: nothing is fused but the resize's std::fmaf calls,
+// which write out the JAX package's build; see resize_bilinear below)
 // Without it the library holds the .flo half alone (version, header, flow
 // video), which needs no codec; a machine without libjpeg decodes JPEG on
 // the GPU instead (jpeg_decode.cu).  ammcnet_aaai2021_torch/data/native.py
@@ -28,6 +28,7 @@
 // (two_stream_dataset.py:94-95: ch0 = u/h, ch1 = ch0/w); bug_mode=0 uses the
 // corrected (u/w, v/h).
 
+#include <cmath>
 #include <cstddef>
 #include <cstdio>
 #include <cstdint>
@@ -60,15 +61,32 @@ void jpeg_error_exit(j_common_ptr cinfo) {
 // Bilinear resize, HWC, half-pixel centers (cv2 INTER_LINEAR convention so
 // outputs match the python loader bit-for-bit in the common no-resize case
 // and within rounding otherwise).  Column coordinates/weights precomputed
-// once per image; channel count is a template constant so the inner loop
-// fully unrolls and autovectorizes.
+// once per image; channel count is a template constant.
+//
+// The fused multiply-adds are those of the JAX package's build of the same
+// source (ammcnet_aaai2021_tpu/native/ammc_loader.cpp, g++ -O3
+// -march=native), written out with std::fmaf so that this library (built
+// -ffp-contract=off) computes what that one does on an x86-64 CPU with FMA.
+// Read from g++ 12.2's assembly of that build (-march=sapphirerapids), for
+// both instances (u8 with C = 3 in decode_jpeg_impl, float with C = 2 in
+// ammc_load_flow_video), in the vector loops and the scalar remainders
+// alike:
+//   * AxisMap: fx = fmaf(x + 0.5f, scale, -0.5f);
+//   * the vertical lerp: fmaf(1 - wy, row0[i], wy * row1[i]);
+//   * the horizontal lerp: fmaf(1 - wx, p0[c], wx * p1[c]), except in the
+//     u8 instance's second row buffer (row1, hresample called for y1),
+//     where the vectorizer paired channel 0 with channel 1 and fused the
+//     other product: fmaf(wx, p1[0], (1 - wx) * p0[0]).
+// A row copied from row0 (y1 == y0) carries row0's rounding.  A grayscale
+// JPEG decoded to RGB can so come out with channel 0 1 LSB off channels 1
+// and 2 on a few values.
 struct AxisMap {
   std::vector<int> i0, i1;
   std::vector<float> w;
   AxisMap(int src_n, int dst_n) : i0(dst_n), i1(dst_n), w(dst_n) {
     const float scale = static_cast<float>(src_n) / dst_n;
     for (int x = 0; x < dst_n; ++x) {
-      float fx = (x + 0.5f) * scale - 0.5f;
+      float fx = std::fmaf(x + 0.5f, scale, -0.5f);
       int x0 = static_cast<int>(fx >= 0 ? fx : fx - 1);
       w[x] = fx - x0;
       i0[x] = x0 < 0 ? 0 : (x0 >= src_n ? src_n - 1 : x0);
@@ -90,28 +108,34 @@ void resize_bilinear(const T* src, int sh, int sw, T* dst, int dh, int dw) {
   std::vector<float> row0(static_cast<size_t>(dw) * C);
   std::vector<float> row1(static_cast<size_t>(dw) * C);
   int cached0 = -1, cached1 = -1;
-  auto hresample = [&](int sy, float* out_row) {
+  // second: the row1 buffer's resample, whose u8 channel 0 fuses wx * p1
+  auto hresample = [&](int sy, float* out_row, bool second) {
     const T* r = src + static_cast<size_t>(sy) * sw * C;
+    const bool fuse_second_tap = second && sizeof(T) == 1;
     for (int x = 0; x < dw; ++x) {
       const float wx = xm.w[x];
       const T* p0 = r + xm.i0[x] * C;
       const T* p1 = r + xm.i1[x] * C;
-      for (int c = 0; c < C; ++c)
-        out_row[x * C + c] = (1 - wx) * p0[c] + wx * p1[c];
+      for (int c = 0; c < C; ++c) {
+        const float a = p0[c], b = p1[c];
+        out_row[x * C + c] = fuse_second_tap && c == 0
+                                 ? std::fmaf(wx, b, (1 - wx) * a)
+                                 : std::fmaf(1 - wx, a, wx * b);
+      }
     }
   };
   for (int y = 0; y < dh; ++y) {
     const int y0 = ym.i0[y], y1 = ym.i1[y];
     const float wy = ym.w[y];
-    if (cached0 != y0) { hresample(y0, row0.data()); cached0 = y0; }
+    if (cached0 != y0) { hresample(y0, row0.data(), false); cached0 = y0; }
     if (cached1 != y1) {
       if (y1 == y0) { std::memcpy(row1.data(), row0.data(), row0.size() * 4); }
-      else hresample(y1, row1.data());
+      else hresample(y1, row1.data(), true);
       cached1 = y1;
     }
     T* d = dst + static_cast<size_t>(y) * dw * C;
     for (int i = 0; i < dw * C; ++i) {
-      float v = (1 - wy) * row0[i] + wy * row1[i];
+      float v = std::fmaf(1 - wy, row0[i], wy * row1[i]);
       d[i] = Round ? static_cast<T>(v + 0.5f) : static_cast<T>(v);
     }
   }

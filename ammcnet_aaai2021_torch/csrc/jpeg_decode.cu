@@ -6,7 +6,7 @@
 // copy of ammcnet_aaai2021_tpu/native/ammc_loader.cpp:54-119,130-163,
 // 216-227) and gives its bytes: a video's frames are read from disk and
 // entropy-decoded to quantized DCT coefficients on the host's threads
-// (jpeg_huffman.cpp, included below: the port's own Huffman decode, since
+// (jpeg_huffman.cpp, included below: the port's own entropy decode, since
 // no library on the card's machine hands out coefficients), a chunk of up
 // to kChunkFrames frames at a time into pinned memory, copied to the card
 // in one transfer, dequantized and inverse-transformed there by
@@ -42,18 +42,20 @@
 // The resize is the host loader's: cv2 INTER_LINEAR's half-pixel map
 // (fx = (x + 0.5) * src/dst - 0.5, x0 = floor(fx), w = fx - x0, both taps
 // clamped to the edge) and its float arithmetic, a horizontal lerp of the
-// two source rows then a vertical lerp, rounded by +0.5 and truncation.
-// Every product and sum is an IEEE-rounded __fmul_rn / __fadd_rn (no fused
-// multiply-add; the host library is built with -ffp-contract=off), so the
-// kernel is bitwise the host route and its plain PyTorch version
-// (ammcnet_aaai2021_torch/data/native.py:resize_bilinear_u8_ref).
+// two source rows then a vertical lerp, rounded by +0.5 and truncation,
+// with the fused multiply-adds of the JAX package's -O3 -march=native
+// build (ammc_loader.cpp:resize_bilinear lists them) as __fmaf_rn and
+// every other product and sum an IEEE-rounded __fmul_rn / __fadd_rn, so
+// the kernel is bitwise the host route and its plain PyTorch version
+// (ammcnet_aaai2021_torch/data/native.py:resize_bilinear_u8_ref).  One
+// output channel (a grayscale video) takes the host's channels 1 and 2.
 //
 // What bounds the kernels on this card: bytes.  The IDCT reads 2 bytes a
 // coefficient and writes 1 a pixel, with about 40 integer operations a
 // pixel; the resize reads 4 source pixels (cached) for each output pixel
 // and writes a byte a channel; the colour kernel reads 1.5 bytes and
 // writes 3 a pixel (4:2:0).  A grayscale 240x360 frame moves about 0.2 MB
-// in all, microseconds at 3.35 TB/s; the host's Huffman decode and file
+// in all, microseconds at 3.35 TB/s; the host's entropy decode and file
 // reads take the time.  The design is simple: 8 threads an 8x8 block in
 // the IDCT (a column each, then a row each, through shared memory), one
 // thread an output pixel in the others, one IDCT launch per chunk and
@@ -65,9 +67,10 @@
 // ctypes (ammcnet_aaai2021_torch/data/native.py).  Error codes are the
 // host loader's and jpeg_huffman.cpp's: 2 a file that does not open, 3
 // corrupt data, 8 a JPEG with other than 1 or 3 components, 10-14 a JPEG
-// the Huffman decode does not take (progressive, lossless or hierarchical,
-// arithmetic-coded, not 8-bit, not YCbCr); also 6 a CUDA error, 9 a colour
-// JPEG subsampled other than 4:4:4, 4:2:2 or 4:2:0.
+// the entropy decode does not take (a progressive scan script libjpeg
+// rejects or would smooth, lossless or hierarchical, a malformed DAC, not
+// 8-bit, not YCbCr); also 6 a CUDA error, 9 a colour JPEG subsampled other
+// than 4:4:4, 4:2:2 or 4:2:0.
 
 #include <cuda_runtime.h>
 
@@ -202,20 +205,27 @@ __device__ __forceinline__ void axis_map(int x, int src_n, int dst_n, int* i0,
   const float scale = __fdiv_rn(static_cast<float>(src_n),
                                 static_cast<float>(dst_n));
   const float fx =
-      __fsub_rn(__fmul_rn(__fadd_rn(static_cast<float>(x), 0.5f), scale), 0.5f);
+      __fmaf_rn(__fadd_rn(static_cast<float>(x), 0.5f), scale, -0.5f);
   const int x0 = static_cast<int>(fx >= 0.f ? fx : __fsub_rn(fx, 1.f));
   *w = __fsub_rn(fx, static_cast<float>(x0));
   *i0 = min(max(x0, 0), src_n - 1);
   *i1 = min(max(x0 + 1, 0), src_n - 1);
 }
 
-__device__ __forceinline__ float lerp(float a, float b, float w) {
-  return __fadd_rn(__fmul_rn(__fsub_rn(1.f, w), a), __fmul_rn(w, b));
+// fmaf(1 - w, a, w * b), and with fuse_b fmaf(w, b, (1 - w) * a)
+__device__ __forceinline__ float lerp(float a, float b, float w,
+                                      bool fuse_b = false) {
+  const float v = __fsub_rn(1.f, w);
+  return fuse_b ? __fmaf_rn(w, b, __fmul_rn(v, a))
+                : __fmaf_rn(v, a, __fmul_rn(w, b));
 }
 
 // (n, sh, sw, sc) u8 -> (n, dh, dw, dc) u8, dc = sc or (sc, dc) = (1, 3), a
 // gray source on all three; thread (x, y) of frame blockIdx.z writes one
-// output pixel's dc channels.
+// output pixel's dc channels.  The host loader keeps two row buffers; its
+// second one, for source row y1, is row0's copy when the first output row
+// that needs y1 has y0 == y1, else resampled with channel 0 of a 3-channel
+// image fused the other way (ammc_loader.cpp:resize_bilinear).
 __global__ void resize_bilinear_kernel(const uint8_t* __restrict__ src, int sh,
                                        int sw, int sc,
                                        uint8_t* __restrict__ dst, int dh,
@@ -227,6 +237,16 @@ __global__ void resize_bilinear_kernel(const uint8_t* __restrict__ src, int sh,
   float wx, wy;
   axis_map(x, sw, dw, &x0, &x1, &wx);
   axis_map(y, sh, dh, &y0, &y1, &wy);
+  // the first output row that needs source row y1 (y1 never decreases)
+  int first = y, f0 = y0, f1 = y1;
+  float fw;
+  while (first > 0) {
+    axis_map(first - 1, sh, dh, &f0, &f1, &fw);
+    if (f1 != y1) break;
+    --first;
+  }
+  axis_map(first, sh, dh, &f0, &f1, &fw);
+  const bool copied = f0 == y1;
   const int64_t frame = blockIdx.z;
   const uint8_t* s = src + frame * sh * sw * sc;
   const uint8_t* r0 = s + static_cast<int64_t>(y0) * sw * sc;
@@ -235,9 +255,11 @@ __global__ void resize_bilinear_kernel(const uint8_t* __restrict__ src, int sh,
   for (int c = 0; c < dc; ++c) {
     const int cc = sc == 1 ? 0 : c;
     const float h0 = lerp(r0[x0 * sc + cc], r0[x1 * sc + cc], wx);
-    const float h1 = lerp(r1[x0 * sc + cc], r1[x1 * sc + cc], wx);
-    d[c] = static_cast<uint8_t>(__float2uint_rz(__fadd_rn(lerp(h0, h1, wy),
-                                                          0.5f)));
+    const float h1 = lerp(r1[x0 * sc + cc], r1[x1 * sc + cc], wx,
+                          dc == 3 && c == 0 && !copied);
+    const float v =
+        __fmaf_rn(__fsub_rn(1.f, wy), h0, __fmul_rn(wy, h1));
+    d[c] = static_cast<uint8_t>(__float2uint_rz(__fadd_rn(v, 0.5f)));
   }
 }
 
@@ -413,7 +435,7 @@ int read_frames(const char** paths, int n, int n_threads,
   });
 }
 
-// Frames [first, first + count) of one geometry: Huffman decode on the
+// Frames [first, first + count) of one geometry: entropy decode on the
 // host into a pinned buffer, one copy to the card, the IDCT per component,
 // the colour conversion per colour frame, one resize into `out`.
 int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
@@ -595,7 +617,7 @@ int ammc_jpeg_decoder_create(int device, void** out) {
 
 // JPEG files -> out, a device buffer of n * out_h * out_w * 3 bytes, which
 // gets (n, out_h, out_w, *channels) u8: *channels 1 when every frame is
-// grayscale, else 3 (RGB).  The Huffman decode runs on n_threads host
+// grayscale, else 3 (RGB).  The entropy decode runs on n_threads host
 // threads.  The decode waits for the work queued on `stream` (the
 // caller's) so far, and `stream` waits for the decode.  *idct_launches,
 // *launches and *ycc_launches get the IDCT, the resize and the colour

@@ -1,23 +1,49 @@
-// The entropy decode of baseline JPEG frames, without libjpeg: markers,
-// Huffman-coded sequential scans, quantized DCT coefficients out.
+// The entropy decode of JPEG frames, without libjpeg: markers, Huffman-
+// or arithmetic-coded sequential and progressive scans, quantized DCT
+// coefficients out.
 //
 // The GPU route of the port's loader (jpeg_decode.cu, which includes this
 // file) runs libjpeg's accurate integer IDCT on the card, so the card's
 // frames are bitwise what libjpeg gives on the host (ammc_loader.cpp).  The
 // card needs the coefficients for that, and the only JPEG library on its
 // machine (nvJPEG) hands out pixels, not coefficients: this file is the
-// decode up to the coefficients, in the order libjpeg's jdmarker.c,
-// jdhuff.c and jdcoefct.c do it.
+// decode up to the coefficients, in the order libjpeg-turbo 2.1.5's
+// jdmarker.c, jdhuff.c, jdphuff.c, jdarith.c and jdcoefct.c do it.
 //
-// It takes: SOI; DQT (8- and 16-bit tables); SOF0 and SOF1 with 8-bit
-// samples and 1 or 3 components; DHT; DRI and RSTn; SOS, interleaved and
-// non-interleaved (a component's scan then covers its own blocks, not the
-// MCU grid); APPn and COM, skipped (APP0 JFIF and APP14 Adobe read for the
-// colour space, as jdapimin.c guesses it); EOI.  It refuses, each with its
-// own code: progressive (SOF2, SOF6), lossless or hierarchical frames,
-// arithmetic coding (SOF9-15, DAC), sample precision other than 8 bits,
-// other than 1 or 3 components, a 3-component frame that is not YCbCr.
+// It takes what that libjpeg's 8-bit decoder takes: SOI; DQT (8- and 16-bit
+// tables); SOF0, SOF1 (sequential Huffman), SOF2 (progressive Huffman),
+// SOF9 (sequential arithmetic) and SOF10 (progressive arithmetic) with
+// 8-bit samples and 1 or 3 components; DHT; DAC (arithmetic conditioning,
+// libjpeg's defaults L = 0, U = 1, K = 5 without one); DRI and RSTn; SOS,
+// interleaved and non-interleaved (a component's scan then covers its own
+// blocks, not the MCU grid); APPn and COM, skipped (APP0 JFIF and APP14
+// Adobe read for the colour space, as jdapimin.c guesses it); EOI.
+// Progressive scans (DC first and refine, interleaved or not; AC first
+// with spectral selection and EOB runs; AC refine, which corrects the
+// coefficients earlier scans decoded and keeps their sign; successive
+// approximation) add into the component's whole-image blocks, which start
+// at zero, as jdcoefct.c's virtual arrays do.  It refuses, each with its
+// own code: lossless and hierarchical frames (libjpeg refuses them too),
+// sample precision other than 8 bits (libjpeg's 8-bit decoder refuses
+// them), other than 1 or 3 components, a 3-component frame that is not
+// YCbCr, a progressive scan whose parameters libjpeg rejects, a
+// progressive frame whose scans leave one of the first ten coefficients
+// unrefined (libjpeg then smooths its blocks at output, jdcoefct.c
+// decompress_smooth_data, which the port does not), and a malformed DAC.
 // There is no fallback: the caller raises on the code.
+//
+// Where libjpeg only warns, the port goes on as libjpeg does: a
+// progressive scan out of order (an AC scan before its DC scan, a refine
+// scan without its first scan, JWRN_BOGUS_PROGRESSION) adds into what the
+// blocks hold; a sequential scan whose Ss, Se, Ah, Al are not 0, 63, 0, 0
+// (JWRN_NOT_SEQUENTIAL) is decoded as a sequential scan; an arithmetic
+// code that overflows (JWRN_ARITH_BAD_CODE) leaves the rest of its
+// restart interval at what the blocks hold.  A premature marker or the end
+// of the data feeds zero bits (Huffman; libjpeg warns, JWRN_HIT_MARKER) or
+// zero bytes (arithmetic, where it is legal), and the end of the file
+// reads as an EOI marker, as libjpeg's source manager inserts one; a
+// restart marker other than the one expected is corrupt data (libjpeg
+// resynchronises).
 //
 // Per component the decode yields its sampling factors, its downsampled
 // size (libjpeg's: ceil(image_w * h_samp / max_h_samp), likewise the
@@ -27,18 +53,15 @@
 // ceil(width / 8): the blocks libjpeg keeps.  An interleaved scan's dummy
 // blocks past the right or bottom edge are decoded and dropped.
 //
-// A premature marker or the end of the data feeds zero bits, as libjpeg
-// does (it warns, JWRN_HIT_MARKER); a restart marker other than the one
-// expected is corrupt data (libjpeg resynchronises).
-//
 // C ABI, built alone with g++ into the "coef" form of the host library
 // (ammcnet_aaai2021_torch/data/native.py), no libjpeg:
 //   ammc_jpeg_info(path, info[kInfoInts])                  -> 0 | errcode
 //   ammc_jpeg_coefs_video(paths, n, threads, coefs, qtables) -> 0 | errcode
 // Error codes (data/native.py:ERRORS): 2 a file that does not open, 3
-// corrupt data, 8 components other than 1 or 3, 10 progressive, 11
-// lossless or hierarchical, 12 arithmetic-coded, 13 sample precision other
-// than 8 bits, 14 a 3-component frame coded other than as YCbCr.
+// corrupt data, 8 components other than 1 or 3, 10 a progressive scan
+// script libjpeg rejects or would smooth, 11 lossless or hierarchical, 12
+// a malformed DAC segment, 13 sample precision other than 8 bits, 14 a
+// 3-component frame coded other than as YCbCr.
 
 #include <atomic>
 #include <cstdint>
@@ -54,9 +77,9 @@ enum : int {
   kNoFile = 2,
   kCorrupt = 3,
   kComponents = 8,
-  kProgressive = 10,
+  kProgressive = 10,  // a scan script libjpeg rejects or would smooth
   kLossless = 11,
-  kArithmetic = 12,
+  kArithmetic = 12,  // a malformed DAC segment
   kPrecision = 13,
   kColorSpace = 14,
 };
@@ -64,12 +87,17 @@ enum : int {
 constexpr int kMaxComps = 3;
 
 // zigzag position -> natural (row-major) position (jutils.c
-// jpeg_natural_order)
-constexpr int kNaturalOrder[64] = {
+// jpeg_natural_order, with its 16 extra entries: a corrupt run past the
+// band's end lands on coefficient 63, as in libjpeg)
+constexpr int kNaturalOrder[80] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6,  7,  14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
-    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63};
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
+    63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
+
+constexpr int kArithTables = 16;  // NUM_ARITH_TBLS
+constexpr int kSavedCoefs = 10;   // jdcoefct.c SAVED_COEFS (block smoothing)
 
 struct Component {
   int id = 0, h_samp = 1, v_samp = 1, tq = 0;
@@ -211,8 +239,217 @@ inline int extend(int v, int s) {
   return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// The start of the next marker at or after p (its first 0xFF), skipping
+// data bytes and stuffed 0xFF00 pairs as jdmarker.c next_marker does; end
+// if there is none.
+inline const uint8_t* find_marker(const uint8_t* p, const uint8_t* end) {
+  while (p + 1 < end) {
+    if (p[0] != 0xFF) {
+      ++p;
+      continue;
+    }
+    const uint8_t* q = p + 1;
+    while (q < end && *q == 0xFF) ++q;
+    if (q < end && *q != 0x00) return p;
+    p = q;  // FF00 (or the end): not a marker
+  }
+  return end;
+}
+
+// jaricom.c jpeg_aritab: Table D.2 of ITU-T T.81 (Qe, then the next state
+// after an LPS and after an MPS, and whether an LPS switches the MPS),
+// packed as libjpeg packs it: Qe << 16 | NMPS << 8 | SWITCH << 7 | NLPS.
+// Entry 113 is the fixed probability 0.5 (ITU-T T.851).
+#define AMMC_ARI(qe, nlps, nmps, sw) \
+  ((static_cast<int32_t>(qe) << 16) | ((nmps) << 8) | ((sw) << 7) | (nlps))
+constexpr int32_t kAriTab[114] = {
+    AMMC_ARI(0x5a1d, 1, 1, 1),     AMMC_ARI(0x2586, 14, 2, 0),
+    AMMC_ARI(0x1114, 16, 3, 0),    AMMC_ARI(0x080b, 18, 4, 0),
+    AMMC_ARI(0x03d8, 20, 5, 0),    AMMC_ARI(0x01da, 23, 6, 0),
+    AMMC_ARI(0x00e5, 25, 7, 0),    AMMC_ARI(0x006f, 28, 8, 0),
+    AMMC_ARI(0x0036, 30, 9, 0),    AMMC_ARI(0x001a, 33, 10, 0),
+    AMMC_ARI(0x000d, 35, 11, 0),   AMMC_ARI(0x0006, 9, 12, 0),
+    AMMC_ARI(0x0003, 10, 13, 0),   AMMC_ARI(0x0001, 12, 13, 0),
+    AMMC_ARI(0x5a7f, 15, 15, 1),   AMMC_ARI(0x3f25, 36, 16, 0),
+    AMMC_ARI(0x2cf2, 38, 17, 0),   AMMC_ARI(0x207c, 39, 18, 0),
+    AMMC_ARI(0x17b9, 40, 19, 0),   AMMC_ARI(0x1182, 42, 20, 0),
+    AMMC_ARI(0x0cef, 43, 21, 0),   AMMC_ARI(0x09a1, 45, 22, 0),
+    AMMC_ARI(0x072f, 46, 23, 0),   AMMC_ARI(0x055c, 48, 24, 0),
+    AMMC_ARI(0x0406, 49, 25, 0),   AMMC_ARI(0x0303, 51, 26, 0),
+    AMMC_ARI(0x0240, 52, 27, 0),   AMMC_ARI(0x01b1, 54, 28, 0),
+    AMMC_ARI(0x0144, 56, 29, 0),   AMMC_ARI(0x00f5, 57, 30, 0),
+    AMMC_ARI(0x00b7, 59, 31, 0),   AMMC_ARI(0x008a, 60, 32, 0),
+    AMMC_ARI(0x0068, 62, 33, 0),   AMMC_ARI(0x004e, 63, 34, 0),
+    AMMC_ARI(0x003b, 32, 35, 0),   AMMC_ARI(0x002c, 33, 9, 0),
+    AMMC_ARI(0x5ae1, 37, 37, 1),   AMMC_ARI(0x484c, 64, 38, 0),
+    AMMC_ARI(0x3a0d, 65, 39, 0),   AMMC_ARI(0x2ef1, 67, 40, 0),
+    AMMC_ARI(0x261f, 68, 41, 0),   AMMC_ARI(0x1f33, 69, 42, 0),
+    AMMC_ARI(0x19a8, 70, 43, 0),   AMMC_ARI(0x1518, 72, 44, 0),
+    AMMC_ARI(0x1177, 73, 45, 0),   AMMC_ARI(0x0e74, 74, 46, 0),
+    AMMC_ARI(0x0bfb, 75, 47, 0),   AMMC_ARI(0x09f8, 77, 48, 0),
+    AMMC_ARI(0x0861, 78, 49, 0),   AMMC_ARI(0x0706, 79, 50, 0),
+    AMMC_ARI(0x05cd, 48, 51, 0),   AMMC_ARI(0x04de, 50, 52, 0),
+    AMMC_ARI(0x040f, 50, 53, 0),   AMMC_ARI(0x0363, 51, 54, 0),
+    AMMC_ARI(0x02d4, 52, 55, 0),   AMMC_ARI(0x025c, 53, 56, 0),
+    AMMC_ARI(0x01f8, 54, 57, 0),   AMMC_ARI(0x01a4, 55, 58, 0),
+    AMMC_ARI(0x0160, 56, 59, 0),   AMMC_ARI(0x0125, 57, 60, 0),
+    AMMC_ARI(0x00f6, 58, 61, 0),   AMMC_ARI(0x00cb, 59, 62, 0),
+    AMMC_ARI(0x00ab, 61, 63, 0),   AMMC_ARI(0x008f, 61, 32, 0),
+    AMMC_ARI(0x5b12, 65, 65, 1),   AMMC_ARI(0x4d04, 80, 66, 0),
+    AMMC_ARI(0x412c, 81, 67, 0),   AMMC_ARI(0x37d8, 82, 68, 0),
+    AMMC_ARI(0x2fe8, 83, 69, 0),   AMMC_ARI(0x293c, 84, 70, 0),
+    AMMC_ARI(0x2379, 86, 71, 0),   AMMC_ARI(0x1edf, 87, 72, 0),
+    AMMC_ARI(0x1aa9, 87, 73, 0),   AMMC_ARI(0x174e, 72, 74, 0),
+    AMMC_ARI(0x1424, 72, 75, 0),   AMMC_ARI(0x119c, 74, 76, 0),
+    AMMC_ARI(0x0f6b, 74, 77, 0),   AMMC_ARI(0x0d51, 75, 78, 0),
+    AMMC_ARI(0x0bb6, 77, 79, 0),   AMMC_ARI(0x0a40, 77, 48, 0),
+    AMMC_ARI(0x5832, 80, 81, 1),   AMMC_ARI(0x4d1c, 88, 82, 0),
+    AMMC_ARI(0x438e, 89, 83, 0),   AMMC_ARI(0x3bdd, 90, 84, 0),
+    AMMC_ARI(0x34ee, 91, 85, 0),   AMMC_ARI(0x2eae, 92, 86, 0),
+    AMMC_ARI(0x299a, 93, 87, 0),   AMMC_ARI(0x2516, 86, 71, 0),
+    AMMC_ARI(0x5570, 88, 89, 1),   AMMC_ARI(0x4ca9, 95, 90, 0),
+    AMMC_ARI(0x44d9, 96, 91, 0),   AMMC_ARI(0x3e22, 97, 92, 0),
+    AMMC_ARI(0x3824, 99, 93, 0),   AMMC_ARI(0x32b4, 99, 94, 0),
+    AMMC_ARI(0x2e17, 93, 86, 0),   AMMC_ARI(0x56a8, 95, 96, 1),
+    AMMC_ARI(0x4f46, 101, 97, 0),  AMMC_ARI(0x47e5, 102, 98, 0),
+    AMMC_ARI(0x41cf, 103, 99, 0),  AMMC_ARI(0x3c3d, 104, 100, 0),
+    AMMC_ARI(0x375e, 99, 93, 0),   AMMC_ARI(0x5231, 105, 102, 0),
+    AMMC_ARI(0x4c0f, 106, 103, 0), AMMC_ARI(0x4639, 107, 104, 0),
+    AMMC_ARI(0x415e, 103, 99, 0),  AMMC_ARI(0x5627, 105, 106, 1),
+    AMMC_ARI(0x50e7, 108, 107, 0), AMMC_ARI(0x4b85, 109, 103, 0),
+    AMMC_ARI(0x5597, 110, 109, 0), AMMC_ARI(0x504f, 111, 107, 0),
+    AMMC_ARI(0x5a10, 110, 111, 1), AMMC_ARI(0x5522, 112, 109, 0),
+    AMMC_ARI(0x59eb, 112, 111, 1), AMMC_ARI(0x5a1d, 113, 113, 0)};
+#undef AMMC_ARI
+
+// The QM decoder of jdarith.c: the C and A registers, the bit counter
+// (-16 before the two initial bytes, -1 after an overflowing code), and
+// the input, which at a marker (or the end of the file: libjpeg's source
+// inserts an EOI) feeds zero bytes and remembers where the marker stands.
+struct ArithReader {
+  const uint8_t* p;
+  const uint8_t* end;
+  int64_t c = 0, a = 0;
+  int ct = -16;
+  int unread_marker = 0;
+  const uint8_t* marker_at = nullptr;  // the marker's first 0xFF
+  int fake = 0;
+
+  int get_byte() {
+    if (p < end) return *p++;
+    return (fake++ & 1) ? 0xD9 : 0xFF;  // jdatasrc.c: a fake EOI
+  }
+  void reset() {
+    c = a = 0;
+    ct = -16;
+  }
+  // One binary decision in statistics bin *st (jdarith.c arith_decode).
+  int decode(uint8_t* st) {
+    while (a < 0x8000) {
+      if (--ct < 0) {
+        int data = 0;
+        if (!unread_marker) {
+          const uint8_t* at = p;
+          data = get_byte();
+          if (data == 0xFF) {
+            do data = get_byte();
+            while (data == 0xFF);
+            if (data == 0) {
+              data = 0xFF;  // a stuffed zero byte
+            } else {
+              unread_marker = data;
+              marker_at = at < end ? at : end;
+              data = 0;
+            }
+          }
+        }
+        c = (c << 8) | data;
+        if ((ct += 8) < 0) {
+          if (++ct == 0) a = 0x8000;  // got the 2 initial bytes
+        }
+      }
+      a <<= 1;
+    }
+    int sv = *st;
+    int64_t qe = kAriTab[sv & 0x7F];
+    const int nl = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    const int nm = static_cast<int>(qe & 0xFF);
+    qe >>= 8;
+    int64_t temp = a - qe;
+    a = temp;
+    temp <<= ct;
+    if (c >= temp) {
+      c -= temp;
+      if (a < qe) {  // conditional LPS exchange
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      } else {
+        a = qe;
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      }
+    } else if (a < 0x8000) {  // conditional MPS exchange
+      if (a < qe) {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nl);
+        sv ^= 0x80;
+      } else {
+        *st = static_cast<uint8_t>((sv & 0x80) ^ nm);
+      }
+    }
+    return sv >> 7;
+  }
+};
+
+// The arithmetic decoder's per-scan statistics (jdarith.c): 64 DC bins
+// and 256 AC bins a table, the DAC conditioning, and the fixed 0.5 bin.
+struct ArithStats {
+  uint8_t dc[kArithTables][64];
+  uint8_t ac[kArithTables][256];
+  uint8_t fixed_bin = 113;
+};
+
+// Figures F.21-F.24 after the sign: a magnitude category from bins st
+// (X1 at `x1`; `category` the power of two it gives, which conditions the
+// next DC), then its bit pattern; v = +-(pattern + 1), or false on an
+// overflowing category (JWRN_ARITH_BAD_CODE).
+inline bool arith_magnitude(ArithReader* ar, uint8_t* st, uint8_t* x1,
+                            bool ac, int sign, int* v, int* category) {
+  int m = ar->decode(st);
+  if (m != 0) {
+    bool more = true;
+    if (ac) {
+      more = ar->decode(st) != 0;
+      if (more) m <<= 1;
+    }
+    if (more) {
+      st = x1;
+      while (ar->decode(st)) {
+        if ((m <<= 1) == 0x8000) return false;
+        st += 1;
+      }
+    }
+  }
+  *category = m;
+  int val = m;
+  st += 14;
+  while (m >>= 1) {
+    if (ar->decode(st)) val |= m;
+  }
+  val += 1;
+  *v = sign ? -val : val;
+  return true;
+}
+
 struct Decoder {
-  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {}
+  Decoder(const uint8_t* d, size_t n) : data(d), size(n) {
+    std::memset(dc_l, 0, sizeof(dc_l));
+    std::memset(dc_u, 1, sizeof(dc_u));
+    std::memset(ac_k, 5, sizeof(ac_k));
+    for (auto& bits : coef_bits) {
+      for (int& b : bits) b = -1;
+    }
+  }
   const uint8_t* data;
   size_t size;
   size_t pos = 0;
@@ -223,6 +460,12 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   Huffman dc[4], ac[4];
   int restart_interval = 0;
+  bool progressive = false, arithmetic = false;
+  // DAC conditioning (jdmarker.c get_soi's defaults)
+  uint8_t dc_l[kArithTables], dc_u[kArithTables], ac_k[kArithTables];
+  // jdinput.c coef_bits: per component and coefficient the Al of the last
+  // progressive scan that coded it, -1 before any
+  int coef_bits[kMaxComps][64];
   // output: per component, its latched table and its blocks
   bool latched[kMaxComps] = {false, false, false};
   uint16_t* qt_out[kMaxComps] = {nullptr, nullptr, nullptr};
@@ -240,11 +483,12 @@ struct Decoder {
     return kOk;
   }
   // The next marker code, skipping any bytes before it (jdmarker.c
-  // next_marker tolerates them).
+  // next_marker tolerates them, and stuffed 0xFF00 pairs).
   int next_marker(int* marker) {
-    while (pos < size && data[pos] != 0xFF) ++pos;
-    while (pos < size && data[pos] == 0xFF) ++pos;
-    if (pos >= size) return kCorrupt;
+    const uint8_t* at = find_marker(data + pos, data + size);
+    if (at >= data + size) return kCorrupt;
+    pos = static_cast<size_t>(at - data);
+    while (data[pos] == 0xFF) ++pos;
     *marker = data[pos++];
     return kOk;
   }
@@ -256,14 +500,17 @@ struct Decoder {
   }
 
   int read_sof(int marker) {
-    // SOF0 baseline, SOF1 extended sequential Huffman; the others refused
-    if (marker == 0xC2 || marker == 0xC6) return kProgressive;
-    if (marker == 0xC3 || marker == 0xC5 || marker == 0xC7 ||
-        marker == 0xCB || marker == 0xCD || marker == 0xCF) {
-      // lossless (C3, CB) or hierarchical (C5-C7, CD-CF; arithmetic too)
-      return marker >= 0xC8 && marker != 0xCB ? kArithmetic : kLossless;
+    // SOF0 baseline, SOF1 extended sequential, SOF2 progressive (Huffman),
+    // SOF9 sequential and SOF10 progressive (arithmetic); jdmarker.c
+    // refuses the lossless (SOF3, SOF11) and hierarchical (SOF5-7,
+    // SOF13-15) ones, and JPG (0xC8)
+    if (marker == 0xC8) return kCorrupt;
+    if (marker == 0xC3 || marker == 0xC5 || marker == 0xC6 ||
+        marker == 0xC7 || marker >= 0xCB) {
+      return kLossless;
     }
-    if (marker >= 0xC9) return kArithmetic;  // C9, CA: arithmetic sequential
+    progressive = marker == 0xC2 || marker == 0xCA;
+    arithmetic = marker >= 0xC9;
     if (have_sof) return kCorrupt;
     size_t seg_end;
     if (segment(&seg_end) != kOk) return kCorrupt;
@@ -302,6 +549,35 @@ struct Decoder {
     }
     pos = seg_end;
     have_sof = true;
+    // progressive scans add into the blocks: they start at zero, as
+    // jdcoefct.c's pre-zeroed virtual arrays do
+    for (int c = 0; c < nc; ++c) {
+      if (coefs[c] != nullptr) {
+        std::memset(coefs[c], 0,
+                    sizeof(int16_t) * 64 * info.comp[c].blocks_w *
+                        info.comp[c].blocks_h);
+      }
+    }
+    return kOk;
+  }
+
+  // jdmarker.c get_dac: arithmetic conditioning values
+  int read_dac() {
+    size_t seg_end;
+    if (segment(&seg_end) != kOk) return kCorrupt;
+    if ((seg_end - pos) % 2) return kArithmetic;
+    while (pos < seg_end) {
+      const int index = data[pos], val = data[pos + 1];
+      pos += 2;
+      if (index >= 2 * kArithTables) return kArithmetic;
+      if (index >= kArithTables) {
+        ac_k[index - kArithTables] = static_cast<uint8_t>(val);
+      } else {
+        dc_l[index] = static_cast<uint8_t>(val & 15);
+        dc_u[index] = static_cast<uint8_t>(val >> 4);
+        if (dc_l[index] > dc_u[index]) return kArithmetic;
+      }
+    }
     return kOk;
   }
 
@@ -376,9 +652,10 @@ struct Decoder {
     return !(c[0].id == 82 && c[1].id == 71 && c[2].id == 66);  // 'R' 'G' 'B'
   }
 
+  // A sequential Huffman block (jdhuff.c decode_mcu): the DC difference
+  // onto the component's prediction, then the AC run/size codes.
   int decode_block(BitReader* br, const Huffman& dct, const Huffman& act,
                    int* pred, int16_t* block) {
-    // DC: a magnitude category, then its bits (jdhuff.c decode_mcu)
     int s = huff_decode(br, dct);
     if (s < 0 || s > 11) return kCorrupt;
     int diff = s ? extend(br->get(s), s) : 0;
@@ -399,8 +676,183 @@ struct Decoder {
         k += 15;             // ZRL
       }
     }
-    if (block) std::memcpy(block, tmp, sizeof(tmp));
+    std::memcpy(block, tmp, sizeof(tmp));
     return kOk;
+  }
+
+  // jdphuff.c decode_mcu_DC_first, one block: the difference's category
+  // and bits onto the prediction, shifted up by Al.
+  int dc_first(BitReader* br, const Huffman& t, int al, int* pred,
+               int16_t* block) {
+    int s = huff_decode(br, t);
+    if (s < 0 || s > 15) return kCorrupt;  // jdhuff.c: DC symbols <= 15
+    if (s) s = extend(br->get(s), s);
+    *pred += s;
+    block[0] = static_cast<int16_t>(static_cast<unsigned>(*pred) << al);
+    return kOk;
+  }
+
+  // jdphuff.c decode_mcu_AC_first: band Ss..Se of one block, or one block
+  // of an EOB run.
+  int ac_first(BitReader* br, const Huffman& t, int ss, int se, int al,
+               unsigned* eobrun, int16_t* block) {
+    if (*eobrun > 0) {
+      --*eobrun;
+      return kOk;
+    }
+    for (int k = ss; k <= se; ++k) {
+      int s = huff_decode(br, t);
+      if (s < 0) return kCorrupt;
+      int r = s >> 4;
+      s &= 15;
+      if (s) {
+        k += r;
+        s = extend(br->get(s), s);
+        block[kNaturalOrder[k]] =
+            static_cast<int16_t>(static_cast<unsigned>(s) << al);
+      } else if (r == 15) {
+        k += 15;  // ZRL
+      } else {    // EOBr: a run of 2^r + r bits blocks, this one included
+        *eobrun = 1u << r;
+        if (r) *eobrun += br->get(r);
+        --*eobrun;
+        break;
+      }
+    }
+    return kOk;
+  }
+
+  // jdphuff.c decode_mcu_AC_refine: one more bit (Al) of band Ss..Se.  A
+  // newly nonzero coefficient is +-2^Al; each coefficient already nonzero
+  // on the way takes a correction bit that moves it away from zero.
+  int ac_refine(BitReader* br, const Huffman& t, int ss, int se, int al,
+                unsigned* eobrun, int16_t* block) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int k = ss;
+    auto correct = [&](int16_t* coef) {
+      if (br->get(1) && (*coef & p1) == 0) {
+        *coef = static_cast<int16_t>(*coef >= 0 ? *coef + p1 : *coef + m1);
+      }
+    };
+    if (*eobrun == 0) {
+      for (; k <= se; ++k) {
+        int s = huff_decode(br, t);
+        if (s < 0) return kCorrupt;
+        int r = s >> 4;
+        s &= 15;
+        if (s) {  // a new coefficient, of size 1 (libjpeg warns otherwise)
+          s = br->get(1) ? p1 : m1;
+        } else if (r != 15) {
+          *eobrun = 1u << r;
+          if (r) *eobrun += br->get(r);
+          break;  // the rest of the block is the EOB run's
+        }
+        // skip r zero coefficients (and the nonzero ones between them,
+        // each corrected), stopping on the zero that becomes s
+        do {
+          int16_t* coef = block + kNaturalOrder[k];
+          if (*coef != 0) {
+            correct(coef);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) block[kNaturalOrder[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (*eobrun > 0) {
+      // the band past the last new coefficient: corrections only
+      for (; k <= se; ++k) {
+        int16_t* coef = block + kNaturalOrder[k];
+        if (*coef != 0) correct(coef);
+      }
+      --*eobrun;
+    }
+    return kOk;
+  }
+
+  // jdarith.c's DC decode of one block (decode_mcu, decode_mcu_DC_first):
+  // the difference under the component's conditioning context, onto its
+  // prediction (kept to 16 bits); false on an overflowing code.
+  bool arith_dc(ArithReader* ar, ArithStats* st, int tbl, int* context,
+                int* pred) {
+    uint8_t* bin = st->dc[tbl] + *context;
+    if (ar->decode(bin) == 0) {
+      *context = 0;
+      return true;
+    }
+    const int sign = ar->decode(bin + 1);
+    int v, m;
+    if (!arith_magnitude(ar, bin + 2 + sign, st->dc[tbl] + 20, false, sign,
+                         &v, &m)) {
+      return false;
+    }
+    // F.1.4.4.1.2: the next difference's conditioning category
+    if (m < ((1 << dc_l[tbl]) >> 1)) {
+      *context = 0;
+    } else if (m > ((1 << dc_u[tbl]) >> 1)) {
+      *context = 12 + sign * 4;
+    } else {
+      *context = 4 + sign * 4;
+    }
+    *pred = (*pred + v) & 0xFFFF;
+    return true;
+  }
+
+  // jdarith.c's AC decode of band ss..se (decode_mcu, decode_mcu_AC_first),
+  // each value shifted up by al; false on an overflowing code.
+  bool arith_ac(ArithReader* ar, ArithStats* st, int tbl, int ss, int se,
+                int al, int16_t* block) {
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* bin = st->ac[tbl] + 3 * (k - 1);
+      if (ar->decode(bin)) break;  // EOB
+      while (ar->decode(bin + 1) == 0) {
+        bin += 3;
+        if (++k > se) return false;  // spectral overflow
+      }
+      const int sign = ar->decode(&st->fixed_bin);
+      int v, m;
+      if (!arith_magnitude(ar, bin + 2,
+                           st->ac[tbl] + (k <= ac_k[tbl] ? 189 : 217), true,
+                           sign, &v, &m)) {
+        return false;
+      }
+      block[kNaturalOrder[k]] =
+          static_cast<int16_t>(static_cast<unsigned>(v) << al);
+    }
+    return true;
+  }
+
+  // jdarith.c decode_mcu_AC_refine: one more bit (Al) of band ss..se; past
+  // the previous stage's last nonzero coefficient an EOB may end it.
+  bool arith_ac_refine(ArithReader* ar, ArithStats* st, int tbl, int ss,
+                       int se, int al, int16_t* block) {
+    const int p1 = 1 << al, m1 = -1 * (1 << al);
+    int kex = se;
+    for (; kex > 0; --kex) {
+      if (block[kNaturalOrder[kex]]) break;
+    }
+    for (int k = ss; k <= se; ++k) {
+      uint8_t* bin = st->ac[tbl] + 3 * (k - 1);
+      if (k > kex && ar->decode(bin)) break;  // EOB
+      for (;;) {
+        int16_t* coef = block + kNaturalOrder[k];
+        if (*coef) {  // previously nonzero: a correction bit
+          if (ar->decode(bin + 2)) {
+            *coef = static_cast<int16_t>(*coef < 0 ? *coef + m1 : *coef + p1);
+          }
+          break;
+        }
+        if (ar->decode(bin + 1)) {  // newly nonzero
+          *coef = static_cast<int16_t>(ar->decode(&st->fixed_bin) ? m1 : p1);
+          break;
+        }
+        bin += 3;
+        if (++k > se) return false;  // spectral overflow
+      }
+    }
+    return true;
   }
 
   int read_scan() {
@@ -420,15 +872,35 @@ struct Decoder {
       if (sc[i] < 0) return kCorrupt;
       td[i] = t >> 4;
       ta[i] = t & 15;
-      if (td[i] > 3 || ta[i] > 3 || !dc[td[i]].defined ||
-          !ac[ta[i]].defined) {
-        return kCorrupt;
+    }
+    uint8_t ss_u8, se_u8, ah_al;
+    if (u8(&ss_u8) || u8(&se_u8) || u8(&ah_al)) return kCorrupt;
+    const int ss = ss_u8, se = se_u8, ah = ah_al >> 4, al = ah_al & 15;
+    if (pos != seg_end) return kCorrupt;
+    const bool dc_band = ss == 0;
+    if (progressive) {
+      // jdphuff.c / jdarith.c start_pass: parameters libjpeg rejects
+      if ((dc_band && se != 0) ||
+          (!dc_band && (se < ss || se > 63 || ns != 1)) ||
+          (ah != 0 && al != ah - 1) || al > 13) {
+        return kProgressive;
+      }
+      for (int i = 0; i < ns; ++i) {
+        for (int k = ss; k <= se; ++k) coef_bits[sc[i]][k] = al;
       }
     }
-    uint8_t ss, se, ah_al;
-    if (u8(&ss) || u8(&se) || u8(&ah_al)) return kCorrupt;
-    if (ss != 0 || se != 63 || ah_al != 0) return kCorrupt;  // sequential
-    pos = seg_end;
+    // the tables the scan reads: Huffman sequential both; progressive DC
+    // first its DC table, AC its AC table, DC refine none
+    const bool need_dc = !progressive || (dc_band && ah == 0);
+    const bool need_ac = !progressive || !dc_band;
+    if (!arithmetic) {
+      for (int i = 0; i < ns; ++i) {
+        if ((need_dc && (td[i] > 3 || !dc[td[i]].defined)) ||
+            (need_ac && (ta[i] > 3 || !ac[ta[i]].defined))) {
+          return kCorrupt;
+        }
+      }
+    }
     for (int i = 0; i < ns; ++i) {  // jdinput.c latch_quant_tables
       const int c = sc[i];
       if (!latched[c]) {
@@ -448,22 +920,55 @@ struct Decoder {
       mcus_h = (info.height + 8 * info.max_v - 1) / (8 * info.max_v);
     }
     BitReader br{data + pos, data + size};
-    int pred[kMaxComps] = {0, 0, 0};
+    ArithReader ar{data + pos, data + size};
+    ArithStats stats;
+    // a scan's statistics start at zero (jdarith.c start_pass, and again
+    // at each restart)
+    auto zero_stats = [&] {
+      for (int i = 0; i < ns; ++i) {
+        if (need_dc) std::memset(stats.dc[td[i]], 0, sizeof(stats.dc[0]));
+        if (!progressive || !dc_band) {
+          std::memset(stats.ac[ta[i]], 0, sizeof(stats.ac[0]));
+        }
+      }
+    };
+    if (arithmetic) zero_stats();
+    int pred[kMaxComps] = {0, 0, 0}, context[kMaxComps] = {0, 0, 0};
+    unsigned eobrun = 0;
     int restarts_to_go = restart_interval;
     int next_rst = 0;
+    int16_t dummy[64];
     for (int my = 0; my < mcus_h; ++my) {
       for (int mx = 0; mx < mcus_w; ++mx) {
         if (restart_interval) {
-          if (restarts_to_go == 0) {  // jdhuff.c process_restart
-            br.to_marker();
-            if (br.p + 1 >= br.end || br.p[1] != 0xD0 + next_rst) {
-              return kCorrupt;
+          if (restarts_to_go == 0) {  // process_restart
+            if (arithmetic) {
+              if (!ar.unread_marker) {
+                ar.marker_at = find_marker(ar.p, ar.end);
+                if (ar.marker_at >= ar.end) return kCorrupt;
+                const uint8_t* q = ar.marker_at;
+                while (*q == 0xFF) ++q;
+                ar.unread_marker = *q;
+              }
+              if (ar.unread_marker != 0xD0 + next_rst) return kCorrupt;
+              const uint8_t* q = ar.marker_at;
+              while (*q == 0xFF) ++q;
+              ar.p = q + 1;
+              ar.unread_marker = 0;
+              ar.reset();
+              zero_stats();
+            } else {
+              br.to_marker();
+              if (br.p + 1 >= br.end || br.p[1] != 0xD0 + next_rst) {
+                return kCorrupt;
+              }
+              br.p += 2;
+              br.at_marker = false;
             }
-            br.p += 2;
-            br.at_marker = false;
             next_rst = (next_rst + 1) & 7;
             restarts_to_go = restart_interval;
-            for (int& v : pred) v = 0;
+            for (int i = 0; i < kMaxComps; ++i) pred[i] = context[i] = 0;
+            eobrun = 0;
           }
           --restarts_to_go;
         }
@@ -475,22 +980,85 @@ struct Decoder {
           for (int v = 0; v < bh; ++v) {
             for (int h = 0; h < bw; ++h) {
               const int by = my * bh + v, bx = mx * bw + h;
-              int16_t* block =
-                  by < cp.blocks_h && bx < cp.blocks_w
-                      ? coefs[c] + (static_cast<size_t>(by) * cp.blocks_w +
-                                    bx) * 64
-                      : nullptr;  // a dummy block
-              const int rc =
-                  decode_block(&br, dc[td[i]], ac[ta[i]], &pred[i], block);
+              int16_t* block = dummy;  // a dummy block past the edge
+              if (by < cp.blocks_h && bx < cp.blocks_w) {
+                block = coefs[c] +
+                        (static_cast<size_t>(by) * cp.blocks_w + bx) * 64;
+              }
+              if (arithmetic) {
+                if (ar.ct == -1) continue;  // an overflowed code: skip
+                bool ok = true;
+                if (!progressive) {
+                  std::memset(block, 0, sizeof(dummy));
+                  ok = arith_dc(&ar, &stats, td[i], &context[i], &pred[i]);
+                  if (ok) {
+                    block[0] = static_cast<int16_t>(pred[i]);
+                    ok = arith_ac(&ar, &stats, ta[i], 1, 63, 0, block);
+                  }
+                } else if (dc_band && ah == 0) {
+                  ok = arith_dc(&ar, &stats, td[i], &context[i], &pred[i]);
+                  if (ok) {
+                    block[0] = static_cast<int16_t>(
+                        static_cast<unsigned>(pred[i]) << al);
+                  }
+                } else if (dc_band) {
+                  if (ar.decode(&stats.fixed_bin)) block[0] |= 1 << al;
+                } else if (ah == 0) {
+                  ok = arith_ac(&ar, &stats, ta[i], ss, se, al, block);
+                } else {
+                  ok = arith_ac_refine(&ar, &stats, ta[i], ss, se, al, block);
+                }
+                if (!ok) ar.ct = -1;  // JWRN_ARITH_BAD_CODE
+                continue;
+              }
+              int rc;
+              if (!progressive) {
+                rc = decode_block(&br, dc[td[i]], ac[ta[i]], &pred[i], block);
+              } else if (dc_band && ah == 0) {
+                rc = dc_first(&br, dc[td[i]], al, &pred[i], block);
+              } else if (dc_band) {
+                if (br.get(1)) block[0] |= 1 << al;
+                rc = kOk;
+              } else if (ah == 0) {
+                rc = ac_first(&br, ac[ta[i]], ss, se, al, &eobrun, block);
+              } else {
+                rc = ac_refine(&br, ac[ta[i]], ss, se, al, &eobrun, block);
+              }
               if (rc != kOk) return rc;
             }
           }
         }
       }
     }
-    br.to_marker();
-    pos = static_cast<size_t>(br.p - data);
+    if (arithmetic) {
+      pos = static_cast<size_t>(
+          (ar.unread_marker ? ar.marker_at : find_marker(ar.p, ar.end)) -
+          data);
+    } else {
+      br.to_marker();
+      pos = static_cast<size_t>(br.p - data);
+    }
     return kOk;
+  }
+
+  // jdcoefct.c smoothing_ok at the output pass: libjpeg smooths a
+  // progressive frame's blocks when every component's DC is known, its
+  // table's first ten quantizers are nonzero, and one of coefficients
+  // 1..9 of some component is not fully refined (or never coded).
+  bool would_smooth() const {
+    if (!progressive) return false;
+    static constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool useful = false;
+    for (int c = 0; c < info.ncomp; ++c) {
+      if (!latched[c] || coef_bits[c][0] < 0) return false;
+      for (int q : kQ) {
+        if (qt_out[c][q] == 0) return false;
+      }
+      for (int k = 1; k < kSavedCoefs; ++k) {
+        if (coef_bits[c][k] != 0) useful = true;
+      }
+    }
+    return useful;
   }
 
   // Markers up to the first SOS (headers only, `coefs` unset), or the whole
@@ -506,12 +1074,12 @@ struct Decoder {
       size_t seg_end;
       switch (marker) {
         case 0xC0: case 0xC1: case 0xC2: case 0xC3: case 0xC5: case 0xC6:
-        case 0xC7: case 0xC9: case 0xCA: case 0xCB: case 0xCD: case 0xCE:
-        case 0xCF:
+        case 0xC7: case 0xC8: case 0xC9: case 0xCA: case 0xCB: case 0xCD:
+        case 0xCE: case 0xCF:
           rc = read_sof(marker);
           break;
         case 0xCC:
-          rc = kArithmetic;  // DAC
+          rc = read_dac();
           break;
         case 0xC4:
           rc = read_dht();
@@ -538,7 +1106,7 @@ struct Decoder {
           for (int c = 0; c < info.ncomp; ++c) {
             if (!latched[c]) return kCorrupt;  // a component never coded
           }
-          return kOk;
+          return would_smooth() ? kProgressive : kOk;
         case 0xD8:
           return kCorrupt;
         default:

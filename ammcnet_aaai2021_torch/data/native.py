@@ -15,7 +15,7 @@ its API:
   package's loader) built with libjpeg: a std::thread pool decodes and
   resizes on the host.
 * a CUDA device: ``csrc/jpeg_decode.cu``, libjpeg's decode rebuilt: the
-  host pool runs the port's own Huffman decode (``csrc/jpeg_huffman.cpp``,
+  host pool runs the port's own entropy decode (``csrc/jpeg_huffman.cpp``,
   no libjpeg) to quantized DCT coefficients, and the card dequantizes and
   runs libjpeg's accurate integer IDCT (the kernel behind
   :func:`idct_islow_u8`), turns a colour frame's planes into RGB as libjpeg
@@ -27,14 +27,16 @@ its API:
 
 Both routes give the same bytes: libjpeg's decode (islow IDCT, fancy
 upsampling, its YCbCr tables), then cv2 INTER_LINEAR's half-pixel map in
-float arithmetic, each product and sum rounded (no fused multiply-add),
-within 1 LSB of cv2's decode + resize.  The GPU route
-takes baseline and extended sequential Huffman JPEGs with 8-bit samples;
-a progressive, lossless, hierarchical or arithmetic-coded frame, another
-sample precision, other than 1 or 3 components, a colour frame that is
-not YCbCr or is subsampled other than 4:4:4, 4:2:2 or 4:2:0 each raise
-with its own message (:data:`ERRORS`).  Flows always take the host
-library, whose ``.flo`` half needs no codec.
+float arithmetic with the fused multiply-adds of the JAX package's
+``-O3 -march=native`` build of its loader (``csrc/ammc_loader.cpp`` says
+which), within 1 LSB of cv2's decode + resize.  The GPU route takes
+every frame type that libjpeg-turbo 2.1's 8-bit decoder takes: baseline,
+extended sequential and progressive JPEGs, Huffman- or arithmetic-coded,
+with 8-bit samples; a lossless or hierarchical frame, another sample
+precision, other than 1 or 3 components, a colour frame that is not YCbCr
+or is subsampled other than 4:4:4, 4:2:2 or 4:2:0 each raise with its own
+message (:data:`ERRORS`), as libjpeg refuses most of them.  Flows always
+take the host library, whose ``.flo`` half needs no codec.
 
 The host library is built with ``g++`` at first use into ``build/native/``
 (which git ignores), in three forms (with libjpeg; without, the ``.flo``
@@ -67,12 +69,11 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX = "g++"
 # the JAX package's build flags, and no contraction of a product and a sum
-# into one fused multiply-add: with -march=native g++ fuses some of the
-# resize's products into FMAs, on a CPU that has them, and which ones
-# depends on its code generation, so the JAX package's host library is 1 LSB
-# off the written float arithmetic on some values.  Without
-# contraction the host route is that arithmetic on every machine, bitwise
-# what the GPU route's resize kernel and the plain versions compute.
+# into one fused multiply-add but the source's own std::fmaf: those write
+# out the fusions g++ makes in the JAX package's -march=native build of the
+# resize, so the host route computes that build's arithmetic on every
+# machine, bitwise what the GPU route's resize kernel and the plain
+# versions compute.
 CXX_FLAGS = ("-O3", "-march=native", "-ffp-contract=off", "-shared", "-fPIC")
 # the library's three forms: (source, defines, libraries); JPEG decoding
 # needs libjpeg, the .flo half and the coefficient decode nothing
@@ -88,10 +89,11 @@ ERRORS = {2: "a file does not open", 3: "a file is not a decodable JPEG",
           5: "a .flo file is truncated", 6: "a CUDA error",
           8: "a JPEG has other than 1 or 3 components",
           9: "a colour JPEG is subsampled other than 4:4:4, 4:2:2 or 4:2:0",
-          10: "a JPEG is progressive (SOF2), which the GPU route does not "
-              "decode",
+          10: "a progressive JPEG's scan script is one libjpeg rejects, or "
+              "leaves one of its first ten coefficients unrefined (libjpeg "
+              "then smooths the blocks, which the port does not)",
           11: "a JPEG is lossless or hierarchical",
-          12: "a JPEG is arithmetic-coded",
+          12: "a JPEG's arithmetic conditioning (DAC) is malformed",
           13: "a JPEG has other than 8-bit samples",
           14: "a colour JPEG is coded other than as YCbCr"}
 # csrc/jpeg_huffman.cpp kInfoInts: width, height, components, then per
@@ -174,7 +176,7 @@ def _library(form: str) -> ctypes.CDLL:
 
 @functools.cache
 def _gpu_library() -> ctypes.CDLL:
-    """The GPU decode library (``csrc/jpeg_decode.cu``: the Huffman decode
+    """The GPU decode library (``csrc/jpeg_decode.cu``: the entropy decode
     on the host, the IDCT, colour and resize kernels), its C functions typed
     (once per process)."""
     lib = cuda_build.load("jpeg_decode")
@@ -239,7 +241,7 @@ def decode_video(paths: Sequence[str], size: Tuple[int, int],
     """JPEG files -> frames resized to ``size``, decoded on ``device``.
 
     "cpu": the host library's ``n_threads`` threads; a (T, h, w, 3) uint8
-    RGB numpy array.  A CUDA device: the Huffman decode on ``n_threads``
+    RGB numpy array.  A CUDA device: the entropy decode on ``n_threads``
     host threads, a chunk of frames at a time, then the IDCT, colour and
     resize kernels on the decoder's stream; a (T, h, w, C) uint8 tensor on
     that device, bitwise the host route's, C = 1 when every frame is a
@@ -304,33 +306,88 @@ def load_flow_video(paths: Sequence[str], size: Tuple[int, int],
     return out
 
 
+def _fmaf(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor
+          ) -> torch.Tensor:
+    """C's ``fmaf`` on float32 tensors: ``a * b + c`` rounded once to
+    float32.  The product is exact in float64 (24 + 24 bits), the sum is
+    rounded to odd in float64 (TwoSum gives its exact error; a result that
+    is not exact and has an even last bit moves one ulp toward the error),
+    and a sum rounded to odd with 53 >= 24 + 2 bits rounds to float32 as
+    the exact sum would."""
+    p = a.double() * b.double()
+    c = c.double()
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.float()
+
+
 def _axis_map(src_n: int, dst_n: int, device) -> Tuple[torch.Tensor, ...]:
     """One axis of the half-pixel map in float32, as the kernel computes
-    it: both taps clamped to the edge, and the second tap's weight.  Built
-    on ``device`` from Python scalars (a CUDA graph may capture it)."""
+    it: both taps clamped to the edge, the second tap's weight, and whether
+    the host loader's second row buffer holds a copy of the first (the
+    first output row that needs source row ``i1`` has ``i0 == i1``; see
+    ``csrc/ammc_loader.cpp:resize_bilinear``).  Built on ``device`` from
+    Python scalars (a CUDA graph may capture it)."""
     scale = float(np.float32(src_n) / np.float32(dst_n))  # a float32 quotient
-    fx = (torch.arange(dst_n, dtype=torch.float32, device=device) + 0.5) \
-        * scale - 0.5
+    x = torch.arange(dst_n, dtype=torch.float32, device=device) + 0.5
+    fx = _fmaf(x, torch.full_like(x, scale), torch.full_like(x, -0.5))
     x0 = torch.floor(fx)
     w = fx - x0
     i0 = x0.clamp(0, src_n - 1).long()
     i1 = (x0 + 1).clamp(0, src_n - 1).long()
-    return i0, i1, w
+    copied = i0[torch.searchsorted(i1, i1)] == i1  # i1 never decreases
+    return i0, i1, w, copied
+
+
+def _resize_ref(f: torch.Tensor, size: Tuple[int, int], u8: bool
+                ) -> torch.Tensor:
+    """The host loader's float resize of (n, sh, sw, c) float32 values,
+    with its fused multiply-adds: horizontal lerps ``fmaf(1 - w, a, w *
+    b)``, except channel 0 of a 3-channel u8 image in the second row buffer
+    (not a copy of the first), ``fmaf(w, b, (1 - w) * a)``; vertical
+    ``fmaf(1 - wy, h0, wy * h1)``."""
+    y0, y1, wy, copied = _axis_map(f.shape[1], size[0], f.device)
+    x0, x1, wx, _ = _axis_map(f.shape[2], size[1], f.device)
+    wx = wx[None, None, :, None]
+    wy = wy[None, :, None, None]
+
+    def lerp(r, second):
+        a, b = r[:, :, x0], r[:, :, x1]
+        out = _fmaf(1 - wx, a, wx * b)
+        if second:
+            out[..., 0] = _fmaf(wx, b, (1 - wx) * a)[..., 0]
+        return out
+
+    h0 = lerp(f[:, y0], False)
+    h1 = lerp(f[:, y1], False)
+    if u8 and f.shape[3] == 3:
+        h1 = torch.where(copied[None, :, None, None], h1,
+                         lerp(f[:, y1], True))
+    return _fmaf(1 - wy, h0, wy * h1)
 
 
 def resize_bilinear_u8_ref(src: torch.Tensor, size: Tuple[int, int]
                            ) -> torch.Tensor:
     """Plain PyTorch version of the resize kernel: (n, sh, sw, c) u8 with c
-    1 or 3 -> (n, h, w, c) u8, each product and sum rounded to float32 as
-    the kernel's are."""
-    y0, y1, wy = _axis_map(src.shape[1], size[0], src.device)
-    x0, x1, wx = _axis_map(src.shape[2], size[1], src.device)
-    f = src.float()
-    wx = wx[None, None, :, None]
-    wy = wy[None, :, None, None]
-    rows = [f[:, y] for y in (y0, y1)]
-    h0, h1 = ((1 - wx) * r[:, :, x0] + wx * r[:, :, x1] for r in rows)
-    return ((1 - wy) * h0 + wy * h1 + 0.5).to(torch.uint8)
+    1 or 3 -> (n, h, w, c) u8, the host loader's arithmetic (its fused
+    multiply-adds rounded once, :func:`_fmaf`).  One channel takes the
+    rounding of the host loader's channels 1 and 2."""
+    if tuple(src.shape[1:3]) == tuple(size):
+        return src.clone()
+    return (_resize_ref(src.float(), size, True) + 0.5).to(torch.uint8)
+
+
+def resize_bilinear_f32_ref(src: torch.Tensor, size: Tuple[int, int]
+                            ) -> torch.Tensor:
+    """The host loader's float resize of ``.flo`` flows (before their
+    normalization), in PyTorch: (n, sh, sw, c) float32 -> (n, h, w, c)."""
+    if tuple(src.shape[1:3]) == tuple(size):
+        return src.clone()
+    return _resize_ref(src.float(), size, False)
 
 
 def resize_bilinear_u8(src: torch.Tensor, size: Tuple[int, int]
@@ -467,7 +524,7 @@ def decode_coefs(paths: Sequence[str], n_threads: int = 8
                  ) -> List[List[Component]]:
     """JPEG files -> each frame's components, quantized DCT coefficients and
     tables, by the host library's "coef" form (``csrc/jpeg_huffman.cpp``,
-    the GPU route's own Huffman decode, no libjpeg) on ``n_threads``
+    the GPU route's own entropy decode, no libjpeg) on ``n_threads``
     threads.  Raises on a file it does not take (:data:`ERRORS`)."""
     _check_kind(paths, JPEG_EXTS, "JPEG")
     lib = _library("coef")
@@ -604,17 +661,16 @@ def decode_video_ref(paths: Sequence[str], size: Tuple[int, int],
     """The GPU route's plain version on the CPU: :func:`decode_coefs`, then
     :func:`idct_islow_u8_ref`, :func:`ycc_to_rgb_u8_ref` and
     :func:`resize_bilinear_u8_ref` -> (T, h, w, 3) u8 RGB, a grayscale
-    frame's plane on all three channels, as ``decode_video(device="cpu")``
-    gives it."""
+    frame's plane resized on all three channels, as
+    ``decode_video(device="cpu")`` gives it."""
     out = []
     for comps in decode_coefs(paths, n_threads):
         planes = [idct_islow_u8_ref(torch.from_numpy(c.coefs)[None],
                                     torch.from_numpy(c.qtable)[None],
                                     c.size)[0] for c in comps]
-        rgb = (planes[0][..., None] if len(planes) == 1
+        rgb = (planes[0][..., None].expand(-1, -1, 3) if len(planes) == 1
                else ycc_to_rgb_u8_ref(*planes))
-        out.append(resize_bilinear_u8_ref(rgb[None].contiguous(), size)[0]
-                   .expand(*size, 3))
+        out.append(resize_bilinear_u8_ref(rgb[None].contiguous(), size)[0])
     return torch.stack(out) if out else torch.empty(
         (0, *size, 3), dtype=torch.uint8)
 

@@ -40,8 +40,9 @@ Phases, one JSON line each; any failure exits non-zero:
    each of its batch sizes (the calibration's 8 windows, each video
    length's) held against its plain version, accumulators and output
    bitwise, and each distinct launch of the largest forward timed on its
-   real inputs beside its bound and cuDNN's bf16 convolution of the
-   shape;
+   real inputs beside its bound, cuDNN's bf16 convolution of the shape
+   and ``torch._int_mm`` of its product (the 3x3 conv's im2col'd, the
+   im2col outside the timed window);
 6. train check: one float32 training step of the released generator at
    256x256, batch 4, through the kernels and through plain PyTorch;
 7. training path: ``runners.run_train.main`` trains the released
@@ -62,8 +63,9 @@ Phases, one JSON line each; any failure exits non-zero:
 9. the raw-video path (``raw_path``): ``c2_check`` first (the IDCT kernel
    against its plain version on the fixture's coefficients, bitwise and
    timed; the fixture's GPU decode, gray and colour, bitwise the committed
-   host-libjpeg reference at source size and 256x256; a progressive JPEG
-   refused), then the GPU JPEG route's kernels against
+   host-libjpeg reference at source size and 256x256, and likewise its
+   progressive (SOF2) and arithmetic-coded progressive (SOF10) JPEGs),
+   then the GPU JPEG route's kernels against
    their plain versions, its decode of the committed fixture against cv2's,
    the extractor in float32 on the card against the CPU; then a ped2-shaped
    raw split (12 videos of Ped2's lengths, 240x360 grayscale JPEGs from the
@@ -980,6 +982,7 @@ def int8_timing_rows(torch, rec: Int8Recorder) -> dict:
                                    "(Cin, 4*Cout) int8 product")
             row["library_ms"] = graph_ms(torch, lambda: torch._int_mm(a, b),
                                          calls=5, replays=2)
+            del xb
         else:
             wb = torch.randn((cout, cin, 3, 3), device="cuda",
                              dtype=torch.bfloat16).contiguous(
@@ -987,10 +990,29 @@ def int8_timing_rows(torch, rec: Int8Recorder) -> dict:
             row["cudnn_bf16_ms"] = graph_ms(
                 torch, lambda: F.conv2d(xb, wb, padding=1), calls=5,
                 replays=2)
-            row["library_ms"] = None
+            del xb
+            # the product alone: the im2col'd (N*H*W, 9*Cin_pad) x (9*Cin_pad,
+            # Cout_pad) int8 GEMM, the im2col built before the timed window;
+            # as many windows as leave the card a quarter free
+            per_window = h * w * (9 * cin_pad + 4 * wk.shape[0])
+            free = torch.cuda.mem_get_info()[0]
+            part = max(1, min(n, int(0.75 * free) // per_window))
+            xp = F.pad(x[:part], (0, 0, 1, 1, 1, 1))
+            a = torch.stack([xp[:, ky:ky + h, kx:kx + w]
+                             for ky in range(3) for kx in range(3)],
+                            dim=3).reshape(part * h * w, 9 * cin_pad)
+            del xp
+            b = wk.reshape(wk.shape[0], 9 * cin_pad).t()
+            row["library_call"] = ("torch._int_mm of the im2col'd (N*H*W, "
+                                   "9*Cin_pad) x (9*Cin_pad, Cout_pad) int8 "
+                                   "product (im2col not timed)")
+            row["library_windows"] = part
+            row["library_ms"] = graph_ms(torch, lambda: torch._int_mm(a, b),
+                                         calls=5, replays=2)
+            del a
         rows[row["name"]] = row
         emit("int8_kernel_timing", **row)
-        del xb, wb
+        del wb
     rec.timing.clear()
     torch.cuda.empty_cache()
     return rows
@@ -1004,7 +1026,9 @@ def int8_forward_totals(rows: dict) -> dict:
         picked = [r for r in rows.values() if r["kind"] == kind]
         out[kind] = {key: sum(r[key] * r["per_forward"] for r in picked)
                      for key in ("kernel_ms", "plain_ms", "bound_ms",
-                                 "cudnn_bf16_ms")}
+                                 "cudnn_bf16_ms", "library_ms")}
+        out[kind]["library_windows"] = min(
+            r.get("library_windows", r["windows"]) for r in picked)
         out[kind]["launches"] = sum(r["per_forward"] for r in picked)
         out[kind]["windows"] = picked[0]["windows"]
         out[kind]["bound_by"] = "operations" if all(
@@ -1551,7 +1575,8 @@ def c2_phase(torch, native) -> dict:
     beside its bound and plain version;
     the fixture's GPU decode, gray and colour, bitwise the committed host
     libjpeg route (libjpeg_reference.npz) at source size and at 256x256;
-    the fixture's progressive JPEG refused with its own error."""
+    likewise its progressive JPEG (SOF2, colour, at 256x256) and its
+    arithmetic-coded progressive one (SOF10, grayscale)."""
     import numpy as np
 
     out = {}
@@ -1597,10 +1622,16 @@ def c2_phase(torch, native) -> dict:
                              "32-bit operations, CUDA cores")}
         emit("c2_check", kernel="idct_islow_u8", input=name, **out[name])
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
-    for kind, paths in (("gray", gray), ("color", colour)):
+    for kind, paths in (("gray", gray), ("color", colour),
+                        ("progressive", [os.path.join(FIXTURE,
+                                                      "progressive.jpg")]),
+                        ("arithmetic", [os.path.join(FIXTURE,
+                                                     "arithmetic.jpg")])):
         for size_name in ("source", "256"):
+            if f"{kind}_{size_name}" not in ref:
+                continue  # the progressive frame's is kept at 256 alone
             want = ref[f"{kind}_{size_name}"]
-            want = want[..., None] if kind == "gray" else want
+            want = want[..., None] if want.ndim == 3 else want
             got = native.decode_video(paths, want.shape[1:3], device="cuda")
             torch.cuda.synchronize()
             if got.device.type != "cuda" or tuple(got.shape) != want.shape:
@@ -1614,18 +1645,13 @@ def c2_phase(torch, native) -> dict:
             out[f"decode_{kind}_{size_name}"] = {
                 "frames": len(paths), "shape": list(want.shape),
                 "values_differing": 0}
-    progressive = os.path.join(FIXTURE, "progressive.jpg")
-    try:
-        native.decode_video([progressive], (64, 64), device="cuda")
-    except RuntimeError as e:
-        if "code 10" not in str(e):
-            fail(f"c2_check: the progressive JPEG raised another error: {e}")
-        out["progressive"] = str(e)
-    else:
-        fail("c2_check: the progressive JPEG decoded on the GPU route")
+    if len([k for k in out if k.startswith("decode")]) != 7:
+        fail(f"c2_check: decoded {sorted(out)}, want the gray, colour and "
+             "arithmetic fixtures at both sizes and the progressive one at "
+             "256x256")
     out["huffman_s"], out["huffman_frames"] = huffman_s, len(chunk)
     emit("c2_check", **{k: v for k, v in out.items()
-                        if k.startswith("decode") or k == "progressive"})
+                        if k.startswith("decode")})
     return out
 
 
@@ -2145,7 +2171,8 @@ def main(argv=None) -> None:
         "ms": conv3["kernel_ms"],
         **{key: conv3[key] for key in (
             "kernel_eager_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms", "cudnn_bf16_ms")},
+            "library_ms", "library_call", "library_windows",
+            "cudnn_bf16_ms")},
         "at": int8_at(conv3),
         "per_forward": int8["totals"]["3x3"],
         "by_shape": int8_by_shape("3x3"),

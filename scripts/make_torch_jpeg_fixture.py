@@ -14,18 +14,27 @@ own decode with it.  It writes, into ``tests/fixtures/torch_jpeg/``:
   (2, 256, 256, 3) and ``gray`` (16, 256, 256), one channel of the three
   equal ones cv2 gives a grayscale JPEG (the script checks they are equal);
 * ``progressive.jpg``: ``color_00.jpg``'s decode re-encoded progressive
-  (SOF2) by cv2 at quality 95, which the GPU route must refuse;
+  (SOF2) by cv2 at quality 95;
+* ``arithmetic.jpg``: ``gray_00.jpg``'s decode re-encoded by libjpeg
+  arithmetic-coded and progressive (SOF10, quality 85,
+  ``scripts/libjpeg_write.c`` mode ``sof10rst``: restart intervals of 3
+  MCUs), which cv2 cannot write;
 * ``libjpeg_reference.npz``: the port's host route
   (``ammcnet_aaai2021_torch.data.native.decode_video(device="cpu")``,
   libjpeg, then the float resize), which the GPU route must equal bitwise,
   u8: ``gray_source`` (16, 240, 360) and ``gray_256`` (16, 256, 256), one
   channel of the three equal ones; ``color_source`` (2, 360, 640, 3) and
-  ``color_256`` (2, 256, 256, 3).
+  ``color_256`` (2, 256, 256, 3); ``progressive_256`` (1, 256, 256, 3);
+  ``arithmetic_source`` (1, 240, 360) and ``arithmetic_256`` (1, 256,
+  256), one channel (the fixture stays under 3 MB, so the colour
+  progressive frame's reference is kept at 256x256 alone).
 
-All JPEGs at quality 95, from a fixed seed.  Run from the repository root:
+JPEGs at quality 95 but the arithmetic one, from a fixed seed; the script
+builds the libjpeg writer with ``gcc -ljpeg``.  Run from the repository
+root:
 
     python scripts/make_torch_jpeg_fixture.py               # everything
-    python scripts/make_torch_jpeg_fixture.py --keep-jpegs  # the last two
+    python scripts/make_torch_jpeg_fixture.py --keep-jpegs  # the last three
                                                             # files, from the
                                                             # committed JPEGs
 """
@@ -34,7 +43,9 @@ from __future__ import annotations
 
 import argparse
 import os
+import subprocess
 import sys
+import tempfile
 
 import numpy as np
 
@@ -80,9 +91,26 @@ def color_frames(rng: np.random.Generator) -> list:
     return frames
 
 
+def write_arithmetic(gray, path: str) -> None:
+    """A grayscale image written by libjpeg as an arithmetic-coded
+    progressive JPEG (``scripts/libjpeg_write.c``, mode ``sof10rst``)."""
+    import numpy as np
+
+    with tempfile.TemporaryDirectory() as tmp:
+        writer = os.path.join(tmp, "libjpeg_write")
+        subprocess.run(["gcc", "-O2", os.path.join(REPO, "scripts",
+                                                   "libjpeg_write.c"),
+                        "-o", writer, "-ljpeg"], check=True)
+        raw = os.path.join(tmp, "in.raw")
+        np.ascontiguousarray(gray).tofile(raw)
+        subprocess.run([writer, raw, str(gray.shape[1]), str(gray.shape[0]),
+                        path, "sof10rst", "gray"], check=True)
+
+
 def write_references() -> None:
-    """``progressive.jpg``, and the host route's decode of the committed
-    JPEGs, at source size and at 256x256, into ``libjpeg_reference.npz``."""
+    """``progressive.jpg``, ``arithmetic.jpg``, and the host route's decode
+    of the committed JPEGs, at source size and at 256x256, into
+    ``libjpeg_reference.npz``."""
     import cv2
 
     colour = cv2.imread(os.path.join(OUT, "color_00.jpg"))
@@ -90,17 +118,25 @@ def write_references() -> None:
                        [cv2.IMWRITE_JPEG_QUALITY, QUALITY,
                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1]):
         raise RuntimeError("cv2 could not write progressive.jpg")
+    write_arithmetic(cv2.imread(os.path.join(OUT, "gray_00.jpg"),
+                                cv2.IMREAD_GRAYSCALE),
+                     os.path.join(OUT, "arithmetic.jpg"))
     sys.path.insert(0, REPO)
     from ammcnet_aaai2021_torch.data import native
 
     out = {}
     for kind, count, shape in (("gray", GRAY_FRAMES, GRAY_SHAPE),
-                               ("color", COLOR_FRAMES, COLOR_SHAPE)):
-        paths = [os.path.join(OUT, f"{kind}_{i:02d}.jpg")
-                 for i in range(count)]
+                               ("color", COLOR_FRAMES, COLOR_SHAPE),
+                               ("progressive", 1, None),
+                               ("arithmetic", 1, GRAY_SHAPE)):
+        paths = ([os.path.join(OUT, f"{kind}.jpg")] if count == 1 else
+                 [os.path.join(OUT, f"{kind}_{i:02d}.jpg")
+                  for i in range(count)])
         for name, size in (("source", shape), ("256", SIZE)):
+            if size is None:
+                continue
             frames = native.decode_video(paths, size)
-            if kind == "gray":
+            if kind in ("gray", "arithmetic"):
                 if not (frames == frames[..., :1]).all():
                     raise RuntimeError("the host route decoded a grayscale "
                                        "JPEG to unequal channels")
@@ -112,7 +148,7 @@ def write_references() -> None:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keep-jpegs", action="store_true",
-                        help="write progressive.jpg and "
+                        help="write progressive.jpg, arithmetic.jpg and "
                              "libjpeg_reference.npz alone, from the "
                              "committed JPEGs")
     if parser.parse_args().keep_jpegs:

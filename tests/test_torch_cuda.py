@@ -656,10 +656,23 @@ def test_gpu_decode_is_the_host_route_bitwise(cuda_device, kind):
 
 
 @pytest.mark.cuda
-def test_gpu_decode_refuses_a_progressive_jpeg(cuda_device):
-    with pytest.raises(RuntimeError, match="code 10: a JPEG is progressive"):
-        native.decode_video([os.path.join(FIXTURE, "progressive.jpg")],
-                            (64, 64), device=cuda_device)
+@pytest.mark.parametrize("kind", ["progressive", "arithmetic"])
+def test_gpu_decode_of_progressive_and_arithmetic_jpegs_is_libjpegs(
+        cuda_device, kind):
+    """The fixture's progressive JPEG (SOF2, colour 4:2:0, its reference at
+    256x256) and arithmetic-coded progressive one (SOF10, grayscale, at
+    source size and 256x256) decode on the GPU route bitwise as the host
+    libjpeg route decoded them (``libjpeg_reference.npz``)."""
+    ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+    names = [n for n in ("source", "256") if f"{kind}_{n}" in ref]
+    assert names
+    for name in names:
+        want = ref[f"{kind}_{name}"]
+        want = want[..., None] if want.ndim == 3 else want
+        got = native.decode_video([os.path.join(FIXTURE, f"{kind}.jpg")],
+                                  want.shape[1:3], device=cuda_device)
+        assert got.device.type == "cuda" and got.shape == want.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.cuda
@@ -730,12 +743,23 @@ def _int8_case(device, seed, n, h, w, cin, cout, taps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 9, 13, 32, 64), (1, 16, 16, 64, 3),
-                                   (3, 5, 7, 96, 130)])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 13, 32, 64), (1, 16, 16, 64, 3), (3, 5, 7, 96, 130),
+    (1, 20, 37, 128, 128), (2, 11, 5, 1024, 256), (1, 6, 10, 1024, 512),
+    (2, 17, 16, 32, 512), (1, 8, 16, 64, 64), (2, 12, 20, 128, 64),
+    (1, 9, 17, 96, 64), (2, 9, 21, 64, 128), (1, 10, 18, 32, 256)])
 def test_int8_conv_kernel_matches_plain_version(cuda_device, shape):
     """The 3x3 int8 kernel against its plain version, bitwise: the int32
     accumulators, the bf16 output with and without ReLU, and the int8
-    residency output, at ragged pixel counts and padded output columns."""
+    residency output, at ragged pixel counts and padded output columns.
+    The kernel's tile is an 8 x 16 rectangle of output pixels and 64, 128
+    or 256 columns (Cout_pad 64 or not a multiple of 128: 64; a multiple of
+    128 but not of 256: 128; else 256), K tiles of 128, 64 or 32 channels:
+    the shapes cover images the rectangle does not divide and narrower than
+    it, Cin 32 to 1024, Cout 3 to 512, each column tile width, an image of
+    exactly one rectangle, and the resident-weight halo stages (one column
+    tile of 64, 128 or 256) at two blocks an SM and at one, with one and
+    three channel blocks a shift."""
     n, h, w, cin, cout = shape
     x, wk, sx, scale, bias = _int8_case(cuda_device, 43, n, h, w, cin, cout,
                                         9)
@@ -751,9 +775,16 @@ def test_int8_conv_kernel_matches_plain_version(cuda_device, shape):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 4, 4, 512, 256), (1, 3, 5, 64, 24)])
+@pytest.mark.parametrize("shape", [(2, 4, 4, 512, 256), (1, 3, 5, 64, 24),
+                                   (3, 7, 9, 128, 64), (1, 5, 6, 32, 128),
+                                   (2, 3, 4, 1024, 3), (2, 16, 16, 64, 16)])
 def test_int8_transposed_conv_kernel_matches_plain_version(cuda_device,
                                                            shape):
+    """The transposed int8 kernel against its plain version, bitwise, on
+    both its epilogues (the accumulators; bf16): 128-pixel M tiles over
+    pixel counts they do not divide, column tiles of 64, 128 and 256 that
+    span one or several taps, Cin 32 to 1024, Cout 3 (value-by-value
+    stores) to 256."""
     n, h, w, cin, cout = shape
     x, wk, sx, scale, bias = _int8_case(cuda_device, 47, n, h, w, cin, cout,
                                         1)

@@ -44,7 +44,7 @@ import torch
 from ammcnet_aaai2021_tpu.data import native as jnative
 from ammcnet_aaai2021_tpu.data.datasets import load_flow as j_load_flow
 from ammcnet_aaai2021_torch.data import datasets, native
-from ammcnet_aaai2021_torch.data.flo import write_flo
+from ammcnet_aaai2021_torch.data.flo import read_flo, write_flo
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
@@ -97,9 +97,15 @@ def flo_files(tmp_path_factory):
 @pytest.mark.parametrize("size", [(24, 36), (64, 64)], ids=["native", "resized"])
 @pytest.mark.parametrize("bug", [True, False])
 def test_load_flow_video_matches_the_jax_loader(flo_files, bug, size):
+    """Bitwise the JAX package's native loader (the resized case too: the
+    port's host library writes out that build's fused multiply-adds), and
+    within 1e-6 of its cv2 loader (cv2's float resize, a division where the
+    native loaders multiply by a reciprocal)."""
     got = native.load_flow_video(flo_files, size, reproduce_bug=bug)
-    want = np.stack([j_load_flow(p, size, bug) for p in flo_files])
     assert got.shape == (4, *size, 2) and got.dtype == np.float32
+    np.testing.assert_array_equal(
+        got, jnative.load_flow_video(flo_files, size, reproduce_bug=bug))
+    want = np.stack([j_load_flow(p, size, bug) for p in flo_files])
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
 
 
@@ -340,29 +346,62 @@ def test_coef_route_is_the_host_route_on_colour(coef_images, tmp_path,
 
 @pytest.mark.parametrize("subsampling,quality", [("422", 50), ("422", 75),
                                                  ("420", 50), ("420", 75)])
-def test_host_route_is_within_1_lsb_of_the_jax_loader(coef_images, tmp_path,
-                                                      subsampling, quality):
-    """Open fault C4 (``ROADMAP.md``), measured: the port's loaders round
-    each of the resize's products and sums (the host library is built with
-    ``-ffp-contract=off``, the kernel uses ``__fmul_rn``/``__fadd_rn``);
-    the JAX package's loader, built ``-O3 -march=native``, lets g++ fuse
-    some of them into FMAs on a CPU that has them.  At source size (no
-    resize) the two are bitwise; at 256x256 they may differ by 1 LSB on a
-    few values (g++ 13 on an x86-64 CPU with FMA: 0, 2, 1 and 1 of 196,608
-    values on these four files)."""
+def test_host_route_is_bitwise_the_jax_loader(coef_images, tmp_path,
+                                              subsampling, quality):
+    """Fault C4 (``ROADMAP.md``), repaired: the JAX package's loader, built
+    ``-O3 -march=native``, lets g++ fuse some of the resize's products into
+    FMAs; the port's host library writes those fusions out with
+    ``std::fmaf`` (built ``-ffp-contract=off``), its kernel with
+    ``__fmaf_rn``, so at source size and at 256x256 the port's host route
+    is the JAX loader's decode bitwise (these four files differed by 1 LSB
+    on 0 to 2 of 196,608 values while the port rounded every product)."""
     path = str(tmp_path / "c.jpg")
     flag = getattr(cv2, f"IMWRITE_JPEG_SAMPLING_FACTOR_{subsampling}")
     cv2.imwrite(path, coef_images["scene"], [
         cv2.IMWRITE_JPEG_QUALITY, quality, cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
         flag])
     for size in (ODD_SHAPE, (256, 256)):
-        port = native.decode_video([path], size).astype(int)
-        diff = np.abs(port - jnative.decode_video([path], size))
-        if size == ODD_SHAPE:
-            assert diff.max() == 0
-        else:
-            assert diff.max() <= 1 and (diff > 0).sum() <= 8, (
-                diff.max(), (diff > 0).sum())
+        np.testing.assert_array_equal(native.decode_video([path], size),
+                                      jnative.decode_video([path], size))
+
+
+# a resize whose half-pixel map the fused fx = fmaf(x + 0.5, scale, -0.5)
+# moves (at 256x256 the scale is a multiple of 1/256 and the unfused
+# product is exact too)
+FMA_SIZE = (279, 295)
+
+
+@pytest.mark.parametrize("kind", ["u8", "flow"])
+def test_plain_resizes_are_the_host_library_where_the_fused_map_differs(
+        coef_images, flo_files, tmp_path, kind):
+    """``resize_bilinear_u8_ref`` and ``resize_bilinear_f32_ref`` against
+    the host library (and it against the JAX loader), bitwise, at a size
+    where the fused half-pixel map gives other weights than a rounded
+    product and difference would."""
+    src_hw = ODD_SHAPE if kind == "u8" else (24, 36)
+    for n, m in zip(src_hw, FMA_SIZE):
+        x = torch.arange(m, dtype=torch.float32) + 0.5
+        scale = float(np.float32(n) / np.float32(m))
+        fused = native._fmaf(x, torch.full_like(x, scale),
+                             torch.full_like(x, -0.5))
+        assert (fused != x * scale - 0.5).any(), (n, m)
+    if kind == "u8":
+        path = str(tmp_path / "c.jpg")
+        cv2.imwrite(path, coef_images["scene"], [cv2.IMWRITE_JPEG_QUALITY, 90])
+        src = torch.from_numpy(native.decode_video([path], ODD_SHAPE))
+        host = native.decode_video([path], FMA_SIZE)
+        np.testing.assert_array_equal(host,
+                                      jnative.decode_video([path], FMA_SIZE))
+        got = native.resize_bilinear_u8_ref(src, FMA_SIZE).numpy()
+    else:
+        flows = torch.from_numpy(np.stack([read_flo(p) for p in flo_files]))
+        host = native.load_flow_video(flo_files, FMA_SIZE, reproduce_bug=False)
+        np.testing.assert_array_equal(host, jnative.load_flow_video(
+            flo_files, FMA_SIZE, reproduce_bug=False))
+        inv = torch.tensor([1 / np.float32(FMA_SIZE[1]),
+                            1 / np.float32(FMA_SIZE[0])], dtype=torch.float32)
+        got = (native.resize_bilinear_f32_ref(flows, FMA_SIZE) * inv).numpy()
+    np.testing.assert_array_equal(got, host)
 
 
 @pytest.mark.parametrize("case", ["gray_q50", "gray_q95", "board_q95",
@@ -392,18 +431,29 @@ def test_coef_route_is_the_host_route(coef_images, tmp_path, case):
     _host_equals_coef_route([path], ODD_SHAPE)
 
 
-@pytest.mark.parametrize("kind", ["gray", "color"])
+def fixture_paths(kind):
+    """The committed fixture's JPEGs of one ``libjpeg_reference.npz`` kind."""
+    if kind in ("progressive", "arithmetic"):
+        return [os.path.join(FIXTURE, f"{kind}.jpg")]
+    return [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
+            for i in range({"gray": 16, "color": 2}[kind])]
+
+
+@pytest.mark.parametrize("kind", ["gray", "color", "progressive",
+                                  "arithmetic"])
 def test_coef_route_is_the_committed_libjpeg_reference(kind):
     """The fixture's ``libjpeg_reference.npz`` is the host route's decode,
     and the coefficient route gives it bitwise, at source size and at
-    256x256 (the card holds its GPU route against the same file)."""
+    256x256 (the card holds its GPU route against the same file): the
+    baseline frames, the progressive one (SOF2, kept at 256x256 alone) and
+    the arithmetic-coded progressive one (SOF10, grayscale)."""
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
-    count = {"gray": 16, "color": 2}[kind]
-    paths = [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
-             for i in range(count)]
-    for name in ("source", "256"):
+    paths = fixture_paths(kind)
+    names = [n for n in ("source", "256") if f"{kind}_{n}" in ref]
+    assert names == (["256"] if kind == "progressive" else ["source", "256"])
+    for name in names:
         want = ref[f"{kind}_{name}"]
-        want = want[..., None] if kind == "gray" else want
+        want = want[..., None] if want.ndim == 3 else want
         size = want.shape[1:3]
         host = native.decode_video(paths, size)
         np.testing.assert_array_equal(np.broadcast_to(want, host.shape), host)
@@ -411,74 +461,24 @@ def test_coef_route_is_the_committed_libjpeg_reference(kind):
         np.testing.assert_array_equal(got, host)
 
 
-# libjpeg writing what cv2 cannot ask for: <in.rgb> <w> <h> <out.jpg> <mode>
-# with mode "nonint" (4:2:0, one scan per component), "rowrst" (a restart
-# marker at the end of every MCU row), "arith" (arithmetic coding)
-WRITE_JPEG_C = r"""
-#include <stdio.h>
-#include <stdlib.h>
-#include <string.h>
-#include <jpeglib.h>
-int main(int argc, char** argv) {
-  int w = atoi(argv[2]), h = atoi(argv[3]);
-  unsigned char* rgb = malloc((size_t)w * h * 3);
-  FILE* f = fopen(argv[1], "rb");
-  if (fread(rgb, 1, (size_t)w * h * 3, f) != (size_t)w * h * 3) return 1;
-  fclose(f);
-  struct jpeg_compress_struct c;
-  struct jpeg_error_mgr e;
-  c.err = jpeg_std_error(&e);
-  jpeg_create_compress(&c);
-  FILE* o = fopen(argv[4], "wb");
-  jpeg_stdio_dest(&c, o);
-  c.image_width = w;
-  c.image_height = h;
-  c.input_components = 3;
-  c.in_color_space = JCS_RGB;
-  jpeg_set_defaults(&c);
-  jpeg_set_quality(&c, 85, TRUE);
-  jpeg_scan_info scans[3];
-  if (!strcmp(argv[5], "nonint")) {
-    for (int i = 0; i < 3; i++) {
-      scans[i].comps_in_scan = 1;
-      scans[i].component_index[0] = i;
-      scans[i].Ss = 0;
-      scans[i].Se = 63;
-      scans[i].Ah = 0;
-      scans[i].Al = 0;
-    }
-    c.scan_info = scans;
-    c.num_scans = 3;
-    c.restart_interval = 7;
-  } else if (!strcmp(argv[5], "rowrst")) {
-    c.restart_in_rows = 1;
-  } else {
-    c.arith_code = TRUE;
-  }
-  jpeg_start_compress(&c, TRUE);
-  while (c.next_scanline < c.image_height) {
-    JSAMPROW row = rgb + (size_t)c.next_scanline * w * 3;
-    jpeg_write_scanlines(&c, &row, 1);
-  }
-  jpeg_finish_compress(&c);
-  fclose(o);
-  return 0;
-}
-"""
-
-
 @pytest.fixture(scope="module")
 def libjpeg_writer(tmp_path_factory):
+    """libjpeg writing what cv2 cannot ask for (``scripts/libjpeg_write.c``
+    names the modes): ``write(img, mode, path)``, a 2-D image as a
+    grayscale JPEG."""
     root = tmp_path_factory.mktemp("writer")
-    (root / "write_jpeg.c").write_text(WRITE_JPEG_C)
-    subprocess.run(["gcc", "-O2", str(root / "write_jpeg.c"), "-o",
-                    str(root / "write_jpeg"), "-ljpeg"], check=True)
+    subprocess.run(["gcc", "-O2", os.path.join(REPO, "scripts",
+                                               "libjpeg_write.c"),
+                    "-o", str(root / "libjpeg_write"), "-ljpeg"], check=True)
 
     def write(img, mode, path):
-        raw = path + ".rgb"
-        np.ascontiguousarray(img[..., ::-1]).tofile(raw)  # BGR -> RGB
-        subprocess.run([str(root / "write_jpeg"), raw, str(img.shape[1]),
-                        str(img.shape[0]), path, mode], check=True)
+        raw = path + ".raw"
+        gray = img.ndim == 2
+        # BGR -> RGB
+        np.ascontiguousarray(img if gray else img[..., ::-1]).tofile(raw)
+        subprocess.run([str(root / "libjpeg_write"), raw, str(img.shape[1]),
+                        str(img.shape[0]), path, mode]
+                       + (["gray"] if gray else []), check=True)
         return path
 
     return write
@@ -495,23 +495,82 @@ def test_coef_route_takes_what_cv2_does_not_write(coef_images,
     _host_equals_coef_route([path], ODD_SHAPE)
 
 
+def _scene(coef_images, kind):
+    img = coef_images["scene"]
+    return cv2.cvtColor(img, cv2.COLOR_BGR2GRAY) if kind == "gray" else img
+
+
+@pytest.mark.parametrize("case", [
+    "cv2_progressive-gray", "cv2_progressive-color", "arith-gray",
+    "arith-color", "sof10-gray", "sof10-color", "fixture-color"])
+def test_coef_route_is_the_host_route_on_progressive_and_arithmetic(
+        coef_images, libjpeg_writer, tmp_path, case):
+    """Fault C3, repaired: a progressive (SOF2) frame written by cv2, an
+    arithmetic-coded sequential (SOF9) and an arithmetic-coded progressive
+    (SOF10) one written by libjpeg, gray and 4:2:0 colour, and the
+    committed ``progressive.jpg``: the coefficient decode, the plain IDCT,
+    colour conversion and resize equal libjpeg's decode and the host resize
+    bitwise, at source size and at 256x256."""
+    source, kind = case.split("-")
+    path = str(tmp_path / f"{case}.jpg")
+    if source == "fixture":
+        path = os.path.join(FIXTURE, "progressive.jpg")
+        shape = cv2.imread(path).shape[:2]
+    else:
+        img = _scene(coef_images, kind)
+        shape = ODD_SHAPE
+        if source == "cv2_progressive":
+            cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+        else:
+            libjpeg_writer(img, source, path)
+    frame = {"cv2_progressive": 0xC2, "arith": 0xC9, "sof10": 0xCA,
+             "fixture": 0xC2}[source]
+    assert bytes([0xFF, frame]) in open(path, "rb").read()
+    _host_equals_coef_route([path], shape)
+
+
+@pytest.mark.parametrize("mode", ["progrst", "arithrst", "sof10rst", "sa",
+                                  "sarst"])
+@pytest.mark.parametrize("kind", ["gray", "color"])
+def test_coef_route_takes_restarts_and_successive_approximation(
+        coef_images, libjpeg_writer, tmp_path, mode, kind):
+    """Restart intervals inside progressive Huffman scans (EOB runs end at
+    each), inside arithmetic sequential and progressive scans (statistics
+    reset at each), and a deeper successive-approximation script (three DC
+    stages, split AC bands, AC refined in three stages), with and without
+    restarts: bitwise the host route."""
+    path = libjpeg_writer(_scene(coef_images, kind), mode,
+                          str(tmp_path / "f.jpg"))
+    _host_equals_coef_route([path], ODD_SHAPE)
+
+
+@pytest.mark.parametrize("case", ["lossless", "12bit", "unrefined"])
 def test_coef_route_names_what_it_does_not_take(coef_images, libjpeg_writer,
-                                                tmp_path):
-    """A progressive and an arithmetic-coded JPEG each raise their own
-    error (libjpeg on the host decodes both; the GPU route does not)."""
-    prog = str(tmp_path / "p.jpg")
-    cv2.imwrite(prog, coef_images["scene"], [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
-    arith = libjpeg_writer(coef_images["scene"], "arith",
-                           str(tmp_path / "a.jpg"))
-    # the fixture's progressive JPEG, which the card's check feeds its route
-    fixture = os.path.join(FIXTURE, "progressive.jpg")
-    for path, code in ((prog, 10), (arith, 12), (fixture, 10)):
-        with pytest.raises(RuntimeError, match=f"code {code}: "
-                           + native.ERRORS[code].split(" (")[0]):
-            native.decode_coefs([path])
+                                                tmp_path, case):
+    """A lossless header (SOF3) raises code 11 and a 12-bit one code 13, as
+    libjpeg's 8-bit decoder refuses both; a progressive frame whose AC
+    bands are never refined to their last bit raises code 10 (libjpeg
+    smooths such a frame's blocks at output, which the port does not)."""
+    path = str(tmp_path / "f.jpg")
+    if case == "unrefined":
+        libjpeg_writer(coef_images["scene"], "partial", path)
+        code = 10
+    else:
+        cv2.imwrite(path, coef_images["scene"])
+        data = bytearray(open(path, "rb").read())
+        sof = data.index(b"\xff\xc0")
+        if case == "lossless":
+            data[sof + 1] = 0xC3
+            code = 11
+        else:
+            data[sof + 4] = 12  # the sample precision byte
+            code = 13
+        open(path, "wb").write(bytes(data))
+    with pytest.raises(RuntimeError, match=f"code {code}: "
+                       + native.ERRORS[code].split(" (")[0]):
+        native.decode_coefs([path])
+    if case == "unrefined":  # libjpeg on the host decodes it
         assert native.decode_video([path], (64, 64)).shape == (1, 64, 64, 3)
-    assert "progressive" in native.ERRORS[10]
-    assert "arithmetic" in native.ERRORS[12]
 
 
 def _idct_unclamped(coefs, qtables):
