@@ -13,11 +13,13 @@
 // `idct_islow_kernel` (libjpeg's accurate integer IDCT), a colour frame's
 // planes converted to RGB by `ycc_to_rgb_kernel`, and the chunk resized to
 // (dh, dw) by `resize_bilinear_kernel` straight into the caller's device
-// buffer, (T, dh, dw, C) u8: C = 1 when every frame is grayscale (cv2's
-// decode of a grayscale JPEG is that value on all three channels, so the
-// scorer broadcasts it on the card), else 3, RGB, a grayscale frame of a
-// mixed video written to all three.  While the card works on one chunk
-// the host decodes the next into the other of two pinned buffers.
+// buffer, (T, dh, dw, 3) u8 RGB: a grayscale frame's one plane is resized
+// to three channels as the host resizes libjpeg's RGB decode of it (whose
+// channel 0 can round 1 LSB off the other two).  A progressive frame that
+// libjpeg block-smooths at output is smoothed on the host threads, after
+// its entropy decode, into the pinned buffer (jpeg_huffman.cpp
+// smooth_component).  While the card works on one chunk the host decodes
+// the next into the other of two pinned buffers.
 //
 // The IDCT is jidctint.c's jpeg_idct_islow (libjpeg-turbo 2.1.5,
 // JPEG_LIB_VERSION 62, which cv2 and the host loader run): dequantize,
@@ -47,33 +49,44 @@
 // build (ammc_loader.cpp:resize_bilinear lists them) as __fmaf_rn and
 // every other product and sum an IEEE-rounded __fmul_rn / __fadd_rn, so
 // the kernel is bitwise the host route and its plain PyTorch version
-// (ammcnet_aaai2021_torch/data/native.py:resize_bilinear_u8_ref).  One
-// output channel (a grayscale video) takes the host's channels 1 and 2.
+// (ammcnet_aaai2021_torch/data/native.py:resize_bilinear_u8_ref).  It
+// always writes three channels: a one-channel source is resized as the
+// host resizes its RGB decode, channel 0 with its own rounding.
 //
-// What bounds the kernels on this card: bytes.  The IDCT reads 2 bytes a
-// coefficient and writes 1 a pixel, with about 40 integer operations a
-// pixel; the resize reads 4 source pixels (cached) for each output pixel
-// and writes a byte a channel; the colour kernel reads 1.5 bytes and
-// writes 3 a pixel (4:2:0).  A grayscale 240x360 frame moves about 0.2 MB
-// in all, microseconds at 3.35 TB/s; the host's entropy decode and file
-// reads take the time.  The design is simple: 8 threads an 8x8 block in
-// the IDCT (a column each, then a row each, through shared memory), one
-// thread an output pixel in the others, one IDCT launch per chunk and
-// component, one resize launch per chunk, one colour launch per colour
-// frame, and one stream per decoder, ordered after the caller's stream by
-// an event and before it by another, so the frames never leave the card.
+// What bounds the kernels on this card: the IDCT and the colour kernel,
+// bytes.  The IDCT reads 2 bytes a coefficient and writes 1 a pixel, with
+// about 40 integer operations a pixel; the colour kernel reads 1.5 bytes
+// and writes 3 a pixel (4:2:0).  The resize moves few bytes (a 32-frame
+// gray 240x360 chunk reads 2.8 MB and writes 6.3 MB of 256x256 RGB, 2.7
+// microseconds at 3.35 TB/s): what held its first design back was
+// instructions and stores, each thread an output pixel that recomputed
+// both axis maps (an IEEE division each), walked back over earlier rows
+// for the row buffer's copy, gathered its 4 taps a channel through L1 and
+// stored single bytes.  So the resize now computes its axis taps once a
+// block into shared memory, stages the source rows a tile needs with
+// 16-byte loads, turns bytes into floats and rounds back by exponent
+// tricks in place of conversion instructions, and stores each thread's 16
+// whole pixels with 16-byte stores (resize_bilinear_kernel, below).  The
+// other kernels are simple: 8 threads an 8x8 block in the IDCT (a column
+// each, then a row each, through shared memory), one thread an output
+// pixel in the colour kernel, one IDCT launch per chunk and component,
+// one resize launch per chunk, one colour launch per colour frame, and one
+// stream per decoder, ordered after the caller's stream by an event and
+// before it by another, so the frames never leave the card.
 //
 // Plain C interface, built with nvcc into a shared library and bound with
 // ctypes (ammcnet_aaai2021_torch/data/native.py).  Error codes are the
 // host loader's and jpeg_huffman.cpp's: 2 a file that does not open, 3
 // corrupt data, 8 a JPEG with other than 1 or 3 components, 10-14 a JPEG
-// the entropy decode does not take (a progressive scan script libjpeg
-// rejects or would smooth, lossless or hierarchical, a malformed DAC, not
+// the entropy decode does not take (a progressive scan whose parameters
+// libjpeg rejects, lossless or hierarchical, a malformed DAC, not
 // 8-bit, not YCbCr); also 6 a CUDA error, 9 a colour JPEG subsampled other
 // than 4:4:4, 4:2:2 or 4:2:0.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <mutex>
@@ -199,11 +212,10 @@ cudaError_t launch_idct(const int16_t* coefs, const uint16_t* qtables,
 }
 
 // One axis of the half-pixel map: the two clamped source taps and the
-// weight of the second, as AxisMap in ammc_loader.cpp computes them.
-__device__ __forceinline__ void axis_map(int x, int src_n, int dst_n, int* i0,
-                                         int* i1, float* w) {
-  const float scale = __fdiv_rn(static_cast<float>(src_n),
-                                static_cast<float>(dst_n));
+// weight of the second, as AxisMap in ammc_loader.cpp computes them (scale
+// = __fdiv_rn(src_n, dst_n), computed once by the caller).
+__device__ __forceinline__ void axis_map(int x, int src_n, float scale,
+                                         int* i0, int* i1, float* w) {
   const float fx =
       __fmaf_rn(__fadd_rn(static_cast<float>(x), 0.5f), scale, -0.5f);
   const int x0 = static_cast<int>(fx >= 0.f ? fx : __fsub_rn(fx, 1.f));
@@ -212,55 +224,282 @@ __device__ __forceinline__ void axis_map(int x, int src_n, int dst_n, int* i0,
   *i1 = min(max(x0 + 1, 0), src_n - 1);
 }
 
-// fmaf(1 - w, a, w * b), and with fuse_b fmaf(w, b, (1 - w) * a)
-__device__ __forceinline__ float lerp(float a, float b, float w,
-                                      bool fuse_b = false) {
-  const float v = __fsub_rn(1.f, w);
-  return fuse_b ? __fmaf_rn(w, b, __fmul_rn(v, a))
-                : __fmaf_rn(v, a, __fmul_rn(w, b));
-}
-
-// (n, sh, sw, sc) u8 -> (n, dh, dw, dc) u8, dc = sc or (sc, dc) = (1, 3), a
-// gray source on all three; thread (x, y) of frame blockIdx.z writes one
-// output pixel's dc channels.  The host loader keeps two row buffers; its
-// second one, for source row y1, is row0's copy when the first output row
-// that needs y1 has y0 == y1, else resampled with channel 0 of a 3-channel
-// image fused the other way (ammc_loader.cpp:resize_bilinear).
-__global__ void resize_bilinear_kernel(const uint8_t* __restrict__ src, int sh,
-                                       int sw, int sc,
-                                       uint8_t* __restrict__ dst, int dh,
-                                       int dw, int dc) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= dw || y >= dh) return;
-  int x0, x1, y0, y1;
-  float wx, wy;
-  axis_map(x, sw, dw, &x0, &x1, &wx);
-  axis_map(y, sh, dh, &y0, &y1, &wy);
-  // the first output row that needs source row y1 (y1 never decreases)
-  int first = y, f0 = y0, f1 = y1;
+// The host loader keeps two row buffers; its second one, for source row
+// y1, is row0's copy when the first output row that needs y1 has y0 == y1,
+// else resampled with channel 0 of a 3-channel image fused the other way
+// (ammc_loader.cpp:resize_bilinear).  y1 never decreases with y.  Where y1
+// lies inside the image (0 < y1 < sh - 1) that first row has x0 + 1 == y1,
+// so y0 == y1 - 1 and the row is no copy; at the edges the rows that share
+// y1 are walked back.
+__device__ bool row1_is_copy(int y, int sh, float scale, int y1) {
+  if (y1 > 0 && y1 < sh - 1) return false;
+  int first = y, f0, f1;
   float fw;
   while (first > 0) {
-    axis_map(first - 1, sh, dh, &f0, &f1, &fw);
+    axis_map(first - 1, sh, scale, &f0, &f1, &fw);
     if (f1 != y1) break;
     --first;
   }
-  axis_map(first, sh, dh, &f0, &f1, &fw);
-  const bool copied = f0 == y1;
-  const int64_t frame = blockIdx.z;
-  const uint8_t* s = src + frame * sh * sw * sc;
-  const uint8_t* r0 = s + static_cast<int64_t>(y0) * sw * sc;
-  const uint8_t* r1 = s + static_cast<int64_t>(y1) * sw * sc;
-  uint8_t* d = dst + ((frame * dh + y) * dw + x) * dc;
-  for (int c = 0; c < dc; ++c) {
-    const int cc = sc == 1 ? 0 : c;
-    const float h0 = lerp(r0[x0 * sc + cc], r0[x1 * sc + cc], wx);
-    const float h1 = lerp(r1[x0 * sc + cc], r1[x1 * sc + cc], wx,
-                          dc == 3 && c == 0 && !copied);
-    const float v =
-        __fmaf_rn(__fsub_rn(1.f, wy), h0, __fmul_rn(wy, h1));
-    d[c] = static_cast<uint8_t>(__float2uint_rz(__fadd_rn(v, 0.5f)));
+  axis_map(first, sh, scale, &f0, &f1, &fw);
+  return f0 == y1;
+}
+
+// A u8 as float, exactly, without a conversion instruction: 2^23 + b's
+// bits, minus 2^23.
+__device__ __forceinline__ float u8f(uint32_t b) {
+  return __fsub_rn(__uint_as_float(0x4B000000u | b), 8388608.f);
+}
+
+// trunc(v + 0.5) of a value in [0, 256), as __float2uint_rz would give it,
+// in the low byte: 2^23 + t rounded toward zero holds floor(t) in its low
+// mantissa bits.
+__device__ __forceinline__ uint32_t round_u8(float v) {
+  return __float_as_uint(__fadd_rz(__fadd_rn(v, 0.5f), 8388608.f)) & 0xFFu;
+}
+
+// The resize kernel's tiling of one launch, chosen on the host
+// (resize_plan): a block stages the source rows and columns that
+// `rows` output rows by `tile_w` output columns of `frames` frames need,
+// `slot_rows` rows of `slot_bytes` bytes.
+struct ResizePlan {
+  int rows, tile_w, frames, slot_rows, slot_bytes, threads, smem;
+};
+
+constexpr int kResizeRun = 16;        // output pixels a thread writes
+constexpr int kResizeThreads = 256;   // at most, a block
+constexpr int kResizeSmem = 48 << 10; // a block's shared memory, at most
+
+struct ColTap {  // a tile column's taps (bytes into a staged row), weights
+  int i0, i1;
+  float w, v;  // w, 1 - w
+};
+struct RowTap {  // an output row's staged slots, source rows and weights
+  int s0, s1, y0, y1;
+  float w, v;
+  int copied, pad;
+};
+
+// (n, sh, sw, SC) u8, SC 1 or 3 -> (n, dh, dw, 3) u8, a gray source on all
+// three channels as the host resizes its RGB decode.
+// Block (bx, by, bz) writes output rows [by * rows, +rows) and columns
+// [bx * tile_w, +tile_w) of frames [bz * frames, +frames).  It computes its
+// column taps and row taps once (the same operations as the host's
+// AxisMap), then per frame stages the distinct source rows it reads with
+// 16-byte loads into shared memory (the contiguous range y0(first) ..
+// y1(last) when it fits, else each output row's pair), and each thread
+// resamples runs of kResizeRun output pixels from shared memory and
+// stores a run's whole pixels with 16-byte stores where the address
+// allows.  Every rounding step is the host's: __fmaf_rn where its build
+// fused, __fmul_rn, __fadd_rn and __fsub_rn elsewhere, in its order.
+template <int SC>
+__global__ void __launch_bounds__(kResizeThreads)
+    resize_bilinear_kernel(const uint8_t* __restrict__ src, int n, int sh,
+                           int sw, uint8_t* __restrict__ dst, int dh, int dw,
+                           ResizePlan plan) {
+  constexpr int DC = 3;  // RGB out
+  extern __shared__ __align__(16) uint8_t smem[];
+  // column x's taps at (x % kResizeRun) * runs + x / kResizeRun: the
+  // threads of a warp, on consecutive runs, read consecutive entries
+  const int runs = (plan.tile_w + kResizeRun - 1) / kResizeRun;
+  ColTap* cols = reinterpret_cast<ColTap*>(smem);
+  RowTap* rows = reinterpret_cast<RowTap*>(smem + runs * kResizeRun *
+                                                      sizeof(ColTap));
+  uint8_t* slots = reinterpret_cast<uint8_t*>(rows + plan.rows);
+  const int tid = threadIdx.x;
+  const int x_lo = blockIdx.x * plan.tile_w;
+  const int tile_w = min(plan.tile_w, dw - x_lo);
+  const int y_lo = blockIdx.y * plan.rows;
+  const int nrows = min(plan.rows, dh - y_lo);
+  const float sx = __fdiv_rn(static_cast<float>(sw), static_cast<float>(dw));
+  const float sy = __fdiv_rn(static_cast<float>(sh), static_cast<float>(dh));
+  // the staged columns: c_lo .. c_hi of every staged row
+  int c_lo, c_hi, t0, t1;
+  float tw;
+  axis_map(x_lo, sw, sx, &c_lo, &t1, &tw);
+  axis_map(x_lo + tile_w - 1, sw, sx, &t0, &c_hi, &tw);
+  const int span = (c_hi - c_lo + 1) * SC;
+  // the staged rows: r_lo .. r_hi if they fit, else each row's pair
+  int r_lo, r_hi;
+  axis_map(y_lo, sh, sy, &r_lo, &t1, &tw);
+  axis_map(y_lo + nrows - 1, sh, sy, &t0, &r_hi, &tw);
+  const bool pairs = r_hi - r_lo + 1 > plan.slot_rows;
+  const int nslots = pairs ? 2 * nrows : r_hi - r_lo + 1;
+  for (int i = tid; i < tile_w; i += blockDim.x) {
+    ColTap t;
+    float w;
+    axis_map(x_lo + i, sw, sx, &t.i0, &t.i1, &w);
+    t.i0 = (t.i0 - c_lo) * SC;
+    t.i1 = (t.i1 - c_lo) * SC;
+    t.w = w;
+    t.v = __fsub_rn(1.f, w);
+    cols[(i % kResizeRun) * runs + i / kResizeRun] = t;
   }
+  for (int r = tid; r < nrows; r += blockDim.x) {
+    RowTap t;
+    float w;
+    axis_map(y_lo + r, sh, sy, &t.y0, &t.y1, &w);
+    t.s0 = pairs ? 2 * r : t.y0 - r_lo;
+    t.s1 = pairs ? 2 * r + 1 : t.y1 - r_lo;
+    t.w = w;
+    t.v = __fsub_rn(1.f, w);
+    t.copied = row1_is_copy(y_lo + r, sh, sy, t.y1);
+    t.pad = 0;
+    rows[r] = t;
+  }
+  __syncthreads();
+  const int64_t frame_in = static_cast<int64_t>(sh) * sw * SC;
+  const int64_t frame_out = static_cast<int64_t>(dh) * dw * DC;
+  const int runs_per_row = (tile_w + kResizeRun - 1) / kResizeRun;
+  const int chunks = plan.slot_bytes / 16;
+  const int f_end = min(n, (static_cast<int>(blockIdx.z) + 1) * plan.frames);
+  for (int f = blockIdx.z * plan.frames; f < f_end; ++f) {
+    const uint8_t* frame = src + f * frame_in;
+    // stage: slot k holds source row `row` bytes [c_lo, c_hi] at offset
+    // (address & 15), so 16-byte aligned chunks land aligned
+    for (int i = tid; i < nslots * chunks; i += blockDim.x) {
+      const int k = i / chunks, q = i - k * chunks;
+      const int row = pairs ? ((k & 1) ? rows[k >> 1].y1 : rows[k >> 1].y0)
+                            : r_lo + k;
+      const uint8_t* g0 = frame + static_cast<int64_t>(row) * sw * SC +
+                          c_lo * SC;
+      const uint8_t* g1 = g0 + span;
+      const uint8_t* a0 = reinterpret_cast<const uint8_t*>(
+          reinterpret_cast<uintptr_t>(g0) & ~uintptr_t{15});
+      const uint8_t* a = a0 + 16 * q;
+      if (a >= g1) continue;
+      uint8_t* s = slots + k * plan.slot_bytes + 16 * q;
+      if (a >= g0 && a + 16 <= g1) {
+        *reinterpret_cast<uint4*>(s) = __ldg(reinterpret_cast<const uint4*>(a));
+      } else {
+        for (int b = 0; b < 16; ++b) {
+          if (a + b >= g0 && a + b < g1) s[b] = a[b];
+        }
+      }
+    }
+    __syncthreads();
+    const uintptr_t base = reinterpret_cast<uintptr_t>(frame) + c_lo * SC;
+    for (int j = tid; j < nrows * runs_per_row; j += blockDim.x) {
+      const int r = j / runs_per_row;
+      const int run = j - r * runs_per_row, x0 = run * kResizeRun;
+      const RowTap rt = rows[r];
+      const uint8_t* p0 =
+          slots + rt.s0 * plan.slot_bytes +
+          ((base + static_cast<uintptr_t>(rt.y0) * sw * SC) & 15);
+      const uint8_t* p1 =
+          slots + rt.s1 * plan.slot_bytes +
+          ((base + static_cast<uintptr_t>(rt.y1) * sw * SC) & 15);
+      const int count = min(kResizeRun, tile_w - x0);
+      uint32_t words[kResizeRun * DC / 4];
+#pragma unroll
+      for (int i = 0; i < kResizeRun * DC / 4; ++i) words[i] = 0;
+#pragma unroll
+      for (int p = 0; p < kResizeRun; ++p) {
+        if (p < count) {
+          const ColTap ct = cols[p * runs + run];
+          uint32_t out[DC];
+#pragma unroll
+          for (int c = 0; c < SC; ++c) {
+            const float a0 = u8f(p0[ct.i0 + c]), b0 = u8f(p0[ct.i1 + c]);
+            const float a1 = u8f(p1[ct.i0 + c]), b1 = u8f(p1[ct.i1 + c]);
+            // fmaf(1 - w, a, w * b) for both rows, then the vertical lerp
+            const float h0 = __fmaf_rn(ct.v, a0, __fmul_rn(ct.w, b0));
+            const float h1 = __fmaf_rn(ct.v, a1, __fmul_rn(ct.w, b1));
+            out[SC == 3 ? c : 1] =
+                round_u8(__fmaf_rn(rt.v, h0, __fmul_rn(rt.w, h1)));
+            if (c != 0) continue;
+            // channel 0 of the second row buffer, fused the other way
+            // (fmaf(w, b, (1 - w) * a)) unless it is row0's copy
+            const float h1f = __fmaf_rn(ct.w, b1, __fmul_rn(ct.v, a1));
+            out[0] = rt.copied ? out[SC == 3 ? 0 : 1]
+                               : round_u8(__fmaf_rn(rt.v, h0,
+                                                    __fmul_rn(rt.w, h1f)));
+          }
+          if constexpr (SC == 1) out[2] = out[1];
+#pragma unroll
+          for (int c = 0; c < DC; ++c) {
+            const int k = p * DC + c;
+            words[k >> 2] |= out[c] << (8 * (k & 3));
+          }
+        }
+      }
+      uint8_t* d = dst + f * frame_out +
+                   (static_cast<int64_t>(y_lo + r) * dw + x_lo + x0) * DC;
+      const uintptr_t addr = reinterpret_cast<uintptr_t>(d);
+      if (count == kResizeRun && (addr & 15) == 0) {
+#pragma unroll
+        for (int i = 0; i < DC; ++i) {
+          reinterpret_cast<uint4*>(d)[i] =
+              make_uint4(words[4 * i], words[4 * i + 1], words[4 * i + 2],
+                         words[4 * i + 3]);
+        }
+      } else if (count == kResizeRun && (addr & 3) == 0) {
+#pragma unroll
+        for (int i = 0; i < kResizeRun * DC / 4; ++i) {
+          reinterpret_cast<uint32_t*>(d)[i] = words[i];
+        }
+      } else {
+#pragma unroll
+        for (int k = 0; k < kResizeRun * DC; ++k) {
+          if (k < count * DC) d[k] = (words[k >> 2] >> (8 * (k & 3))) & 0xFF;
+        }
+      }
+    }
+    __syncthreads();  // the slots are restaged for the next frame
+  }
+}
+
+// The tiling of one resize launch: output tiles of up to 256 columns and
+// the most rows (up to 4096 pixels a block) whose staged source fits
+// kResizeSmem, shrunk row-wise, then column-wise; a block takes several
+// frames when there are more tiles than 4 blocks an SM would run.  The
+// staged rows and columns of a tile are bounded by the scale (a span of k
+// outputs reaches at most floor((k - 1) * scale) + 3 sources; one more for
+// the float map's rounding).
+ResizePlan resize_plan(int n, int sh, int sw, int sc, int dh, int dw) {
+  const double sy = static_cast<float>(sh) / static_cast<float>(dh);
+  const double sx = static_cast<float>(sw) / static_cast<float>(dw);
+  ResizePlan p{};
+  p.tile_w = std::min((dw + kResizeRun - 1) / kResizeRun * kResizeRun, 256);
+  p.rows = std::max(1, std::min(dh, 4096 / p.tile_w));
+  for (;;) {
+    const int span = std::min(
+        sw, static_cast<int>(std::floor((p.tile_w - 1) * sx)) + 4);
+    p.slot_bytes = (span * sc + 15 + 15) / 16 * 16;
+    p.slot_rows = std::min(
+        2 * p.rows, static_cast<int>(std::floor((p.rows - 1) * sy)) + 4);
+    p.smem = (p.tile_w + kResizeRun - 1) / kResizeRun * kResizeRun *
+                 static_cast<int>(sizeof(ColTap)) +
+             p.rows * static_cast<int>(sizeof(RowTap)) +
+             p.slot_rows * p.slot_bytes;
+    if (p.smem <= kResizeSmem || (p.rows == 1 && p.tile_w == 1)) break;
+    if (p.rows > 1) {
+      p.rows /= 2;
+    } else {
+      p.tile_w = std::max(1, p.tile_w / 2);
+    }
+  }
+  const int runs = p.rows * ((p.tile_w + kResizeRun - 1) / kResizeRun);
+  p.threads = std::min(kResizeThreads, std::max(32, (runs + 31) / 32 * 32));
+  const int64_t tiles = static_cast<int64_t>((dw + p.tile_w - 1) / p.tile_w) *
+                        ((dh + p.rows - 1) / p.rows);
+  constexpr int64_t kTargetBlocks = 4 * 132;
+  p.frames = static_cast<int>(std::max<int64_t>(
+      1, std::min<int64_t>(n, tiles * n / kTargetBlocks)));
+  p.frames = std::max(p.frames, (n + 65534) / 65535);
+  return p;
+}
+
+template <int SC>
+cudaError_t launch_resize_as(const uint8_t* src, int n, int sh, int sw,
+                             uint8_t* dst, int dh, int dw,
+                             cudaStream_t stream) {
+  const ResizePlan p = resize_plan(n, sh, sw, SC, dh, dw);
+  if (p.smem > kResizeSmem) return cudaErrorInvalidConfiguration;
+  const dim3 grid((dw + p.tile_w - 1) / p.tile_w, (dh + p.rows - 1) / p.rows,
+                  (n + p.frames - 1) / p.frames);
+  resize_bilinear_kernel<SC><<<grid, p.threads, p.smem, stream>>>(
+      src, n, sh, sw, dst, dh, dw, p);
+  return cudaGetLastError();
 }
 
 // One chroma plane (ch, cw) at full-resolution pixel (y, x), upsampled as
@@ -319,14 +558,12 @@ cudaError_t launch_ycc(const uint8_t* y, int ypitch, const uint8_t* cb,
   return cudaGetLastError();
 }
 
+// One resize launch: sc 1 or 3 channels in, three out.
 cudaError_t launch_resize(const uint8_t* src, int n, int sh, int sw, int sc,
-                          uint8_t* dst, int dh, int dw, int dc,
-                          cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((dw + 31) / 32, (dh + 7) / 8, n);
-  resize_bilinear_kernel<<<grid, block, 0, stream>>>(src, sh, sw, sc, dst, dh,
-                                                     dw, dc);
-  return cudaGetLastError();
+                          uint8_t* dst, int dh, int dw, cudaStream_t stream) {
+  if (sc == 3) return launch_resize_as<3>(src, n, sh, sw, dst, dh, dw, stream);
+  if (sc == 1) return launch_resize_as<1>(src, n, sh, sw, dst, dh, dw, stream);
+  return cudaErrorInvalidValue;
 }
 
 struct Decoder {
@@ -335,6 +572,7 @@ struct Decoder {
   cudaEvent_t ready = nullptr;  // the caller's stream, at the call
   cudaEvent_t done = nullptr;   // this stream, at the call's last launch
   uint8_t* staging = nullptr;  // a chunk's frames at source size, 1 or 3 ch
+                               // (a gray plane, or RGB)
   size_t staging_bytes = 0;
   uint8_t* planes = nullptr;  // a colour chunk's Y, Cb and Cr planes
   size_t planes_bytes = 0;
@@ -439,8 +677,8 @@ int read_frames(const char** paths, int n, int n_threads,
 // host into a pinned buffer, one copy to the card, the IDCT per component,
 // the colour conversion per colour frame, one resize into `out`.
 int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
-                 int count, int n_threads, int dh, int dw, int dc,
-                 uint8_t* out, Launches* launches) {
+                 int count, int n_threads, int dh, int dw, uint8_t* out,
+                 Launches* launches) {
   const ammc_jpeg::Info& info = frames[first].info;
   const int nc = info.ncomp;
   size_t coef_off[ammc_jpeg::kMaxComps + 1] = {0};
@@ -463,16 +701,29 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
     const Frame& fr = frames[first + f];
     int16_t* coefs[ammc_jpeg::kMaxComps];
     uint16_t* qts[ammc_jpeg::kMaxComps];
+    size_t blocks[ammc_jpeg::kMaxComps];
     for (int c = 0; c < nc; ++c) {
-      const size_t blocks = static_cast<size_t>(info.comp[c].blocks_h) *
-                            info.comp[c].blocks_w;
+      blocks[c] = static_cast<size_t>(info.comp[c].blocks_h) *
+                  info.comp[c].blocks_w;
       coefs[c] = reinterpret_cast<int16_t*>(host + coef_off[c]) +
-                 f * blocks * 64;
+                 f * blocks[c] * 64;
       qts[c] = reinterpret_cast<uint16_t*>(host + qt_off) +
                (static_cast<size_t>(c) * count + f) * 64;
     }
-    return ammc_jpeg::decode_coefs(fr.data.data(), fr.data.size(), info,
-                                   coefs, qts);
+    ammc_jpeg::Smoothing sm;
+    const int frc = ammc_jpeg::decode_coefs(fr.data.data(), fr.data.size(),
+                                            info, coefs, qts, &sm);
+    if (frc != kOk || !sm.apply) return frc;
+    // libjpeg smooths this frame at output: the blocks as decoded move to
+    // a copy, and the smoothed ones, which read the copy, go to the card
+    std::vector<int16_t> decoded[ammc_jpeg::kMaxComps];
+    const int16_t* unsmoothed[ammc_jpeg::kMaxComps];
+    for (int c = 0; c < nc; ++c) {
+      decoded[c].assign(coefs[c], coefs[c] + blocks[c] * 64);
+      unsmoothed[c] = decoded[c].data();
+    }
+    ammc_jpeg::smooth_frame(info, unsmoothed, coefs, qts, sm);
+    return static_cast<int>(kOk);
   });
   if (rc != kOk) return rc;
   if (reserve(dec, &dec->coefs, &dec->coefs_bytes, bytes) != cudaSuccess ||
@@ -482,7 +733,7 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
     return kCuda;
   }
   const int sh = info.height, sw = info.width, sc = nc == 1 ? 1 : 3;
-  const size_t frame_in = static_cast<size_t>(sh) * sw * sc;
+  const size_t frame_in = static_cast<size_t>(sh) * sw * sc;  // staged
   if (reserve(dec, &dec->staging, &dec->staging_bytes,
               frame_in * kChunkFrames) != cudaSuccess) {
     return kCuda;
@@ -525,7 +776,8 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
       ++launches->ycc;
     }
   }
-  if (launch_resize(dec->staging, count, sh, sw, sc, out, dh, dw, dc,
+  // a gray frame's plane to RGB, as the host resizes libjpeg's RGB decode
+  if (launch_resize(dec->staging, count, sh, sw, sc, out, dh, dw,
                     dec->stream) != cudaSuccess) {
     return kCuda;
   }
@@ -534,9 +786,9 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
 }
 
 int decode_frames(Decoder* dec, const std::vector<Frame>& frames,
-                  int n_threads, int dh, int dw, int dc, uint8_t* out,
+                  int n_threads, int dh, int dw, uint8_t* out,
                   Launches* launches) {
-  const size_t frame_out = static_cast<size_t>(dh) * dw * dc;
+  const size_t frame_out = static_cast<size_t>(dh) * dw * 3;
   const int n = static_cast<int>(frames.size());
   for (int first = 0; first < n;) {
     int end = first + 1;
@@ -545,8 +797,7 @@ int decode_frames(Decoder* dec, const std::vector<Frame>& frames,
       ++end;
     }
     const int rc = decode_chunk(dec, frames, first, end - first, n_threads,
-                                dh, dw, dc, out + frame_out * first,
-                                launches);
+                                dh, dw, out + frame_out * first, launches);
     if (rc != kOk) return rc;
     first = end;
   }
@@ -555,20 +806,17 @@ int decode_frames(Decoder* dec, const std::vector<Frame>& frames,
 
 int decode_video(Decoder* dec, const char** paths, int n, int dh, int dw,
                  int n_threads, uint8_t* out, cudaStream_t caller,
-                 int* channels, Launches* launches) {
+                 Launches* launches) {
   if (cudaSetDevice(dec->device) != cudaSuccess) return kCuda;
   std::vector<Frame> frames;
   int rc = read_frames(paths, n, n_threads, &frames);
   if (rc != kOk) return rc;
-  int dc = 1;
-  for (const Frame& f : frames) dc = f.info.ncomp == 3 ? 3 : dc;
-  *channels = dc;
   // `out` may still be in use by work queued on the caller's stream
   if (cudaEventRecord(dec->ready, caller) != cudaSuccess ||
       cudaStreamWaitEvent(dec->stream, dec->ready, 0) != cudaSuccess) {
     return kCuda;
   }
-  rc = decode_frames(dec, frames, n_threads, dh, dw, dc, out, launches);
+  rc = decode_frames(dec, frames, n_threads, dh, dw, out, launches);
   if (rc != kOk) {
     // nothing of this call writes `out` once it has returned
     cudaStreamSynchronize(dec->stream);
@@ -615,25 +863,24 @@ int ammc_jpeg_decoder_create(int device, void** out) {
   return kOk;
 }
 
-// JPEG files -> out, a device buffer of n * out_h * out_w * 3 bytes, which
-// gets (n, out_h, out_w, *channels) u8: *channels 1 when every frame is
-// grayscale, else 3 (RGB).  The entropy decode runs on n_threads host
-// threads.  The decode waits for the work queued on `stream` (the
+// JPEG files -> out, a device buffer that gets (n, out_h, out_w, 3) u8 RGB,
+// a grayscale frame's plane resized to three channels as the host route
+// resizes libjpeg's RGB decode of it.  The entropy decode (and the block
+// smoothing of a progressive frame that libjpeg smooths) runs on n_threads
+// host threads.  The decode waits for the work queued on `stream` (the
 // caller's) so far, and `stream` waits for the decode.  *idct_launches,
 // *launches and *ycc_launches get the IDCT, the resize and the colour
 // kernel's launches.  Returns 0 or an error code (above).
 int ammc_gpu_decode_video(void* handle, const char** paths, int n, int out_h,
                           int out_w, int n_threads, void* out, void* stream,
-                          int* channels, int* idct_launches, int* launches,
+                          int* idct_launches, int* launches,
                           int* ycc_launches) {
   auto* dec = static_cast<Decoder*>(handle);
   std::lock_guard<std::mutex> lock(dec->mu);
-  *channels = 0;
   Launches counts;
   const int rc = decode_video(dec, paths, n, out_h, out_w, n_threads,
                               static_cast<uint8_t*>(out),
-                              static_cast<cudaStream_t>(stream), channels,
-                              &counts);
+                              static_cast<cudaStream_t>(stream), &counts);
   *idct_launches = counts.idct;
   *launches = counts.resize;
   *ycc_launches = counts.ycc;
@@ -665,13 +912,13 @@ int ammc_ycc_to_rgb(const void* y, const void* cb, const void* cr, int h,
                     static_cast<cudaStream_t>(stream));
 }
 
-// The resize kernel alone on device buffers: src (n, sh, sw, c) u8 with c
-// in {1, 3}, dst (n, dh, dw, c) u8, on the caller's stream.  Returns a
-// cudaError_t.
-int ammc_resize_bilinear_u8(const void* src, int n, int sh, int sw, int c,
+// The resize kernel alone on device buffers: src (n, sh, sw, sc) u8, dst
+// (n, dh, dw, 3) u8, sc 1 or 3, on the caller's stream, one launch.
+// Returns a cudaError_t.
+int ammc_resize_bilinear_u8(const void* src, int n, int sh, int sw, int sc,
                             void* dst, int dh, int dw, void* stream) {
-  return launch_resize(static_cast<const uint8_t*>(src), n, sh, sw, c,
-                       static_cast<uint8_t*>(dst), dh, dw, c,
+  return launch_resize(static_cast<const uint8_t*>(src), n, sh, sw, sc,
+                       static_cast<uint8_t*>(dst), dh, dw,
                        static_cast<cudaStream_t>(stream));
 }
 

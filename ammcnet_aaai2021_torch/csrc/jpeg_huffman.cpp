@@ -22,15 +22,15 @@
 // with spectral selection and EOB runs; AC refine, which corrects the
 // coefficients earlier scans decoded and keeps their sign; successive
 // approximation) add into the component's whole-image blocks, which start
-// at zero, as jdcoefct.c's virtual arrays do.  It refuses, each with its
-// own code: lossless and hierarchical frames (libjpeg refuses them too),
-// sample precision other than 8 bits (libjpeg's 8-bit decoder refuses
-// them), other than 1 or 3 components, a 3-component frame that is not
-// YCbCr, a progressive scan whose parameters libjpeg rejects, a
-// progressive frame whose scans leave one of the first ten coefficients
-// unrefined (libjpeg then smooths its blocks at output, jdcoefct.c
-// decompress_smooth_data, which the port does not), and a malformed DAC.
-// There is no fallback: the caller raises on the code.
+// at zero, as jdcoefct.c's virtual arrays do.  A progressive frame whose
+// scans leave one of the first ten coefficients unrefined is block-smoothed
+// as libjpeg smooths it at output (jdcoefct.c decompress_smooth_data,
+// below: `smooth_component`).  It refuses, each with its own code: lossless
+// and hierarchical frames (libjpeg refuses them too), sample precision
+// other than 8 bits (libjpeg's 8-bit decoder refuses them), other than 1
+// or 3 components, a 3-component frame that is not YCbCr, a progressive
+// scan whose parameters libjpeg rejects, and a malformed DAC.  There is no
+// fallback: the caller raises on the code.
 //
 // Where libjpeg only warns, the port goes on as libjpeg does: a
 // progressive scan out of order (an AC scan before its DC scan, a refine
@@ -50,17 +50,23 @@
 // height), its quantization table in natural order (latched at the
 // component's first scan, as jdinput.c latches it) and its blocks,
 // (blocks_h, blocks_w, 64) int16 in natural order, blocks_w =
-// ceil(width / 8): the blocks libjpeg keeps.  An interleaved scan's dummy
-// blocks past the right or bottom edge are decoded and dropped.
+// ceil(width / 8): the blocks libjpeg keeps, as jpeg_read_coefficients
+// gives them (unsmoothed).  An interleaved scan's dummy blocks past the
+// right or bottom edge are decoded and dropped.  With them comes the
+// frame's smoothing latch (`Smoothing`): whether libjpeg smooths the frame
+// at output, and each component's coef_bits[0..9].
 //
 // C ABI, built alone with g++ into the "coef" form of the host library
 // (ammcnet_aaai2021_torch/data/native.py), no libjpeg:
 //   ammc_jpeg_info(path, info[kInfoInts])                  -> 0 | errcode
-//   ammc_jpeg_coefs_video(paths, n, threads, coefs, qtables) -> 0 | errcode
+//   ammc_jpeg_coefs_video(paths, n, threads, coefs, qtables, latch)
+//                                                          -> 0 | errcode
+//   ammc_jpeg_smooth(in, out, blocks_h, blocks_w, v_samp, imcu_rows,
+//                    qtable, coef_bits)                    -> 0
 // Error codes (data/native.py:ERRORS): 2 a file that does not open, 3
 // corrupt data, 8 components other than 1 or 3, 10 a progressive scan
-// script libjpeg rejects or would smooth, 11 lossless or hierarchical, 12
-// a malformed DAC segment, 13 sample precision other than 8 bits, 14 a
+// whose parameters libjpeg rejects, 11 lossless or hierarchical, 12 a
+// malformed DAC segment, 13 sample precision other than 8 bits, 14 a
 // 3-component frame coded other than as YCbCr.
 
 #include <atomic>
@@ -77,7 +83,7 @@ enum : int {
   kNoFile = 2,
   kCorrupt = 3,
   kComponents = 8,
-  kProgressive = 10,  // a scan script libjpeg rejects or would smooth
+  kProgressive = 10,  // a progressive scan whose parameters libjpeg rejects
   kLossless = 11,
   kArithmetic = 12,  // a malformed DAC segment
   kPrecision = 13,
@@ -108,6 +114,20 @@ struct Component {
 struct Info {
   int width = 0, height = 0, ncomp = 0, max_h = 1, max_v = 1;
   Component comp[kMaxComps];
+  // jdinput.c total_iMCU_rows: rows of max_v * 8 pixels
+  int imcu_rows() const { return (height + 8 * max_v - 1) / (8 * max_v); }
+};
+
+// jdcoefct.c smoothing_ok's latch at the output pass: whether libjpeg
+// block-smooths the frame, and per component coef_bits[0..9] as the last
+// scan left them (coef_bits_latch).  libjpeg-turbo latches a second row,
+// coef_bits before the component's last scan, which decompress_smooth_data
+// reads for iMCU rows past cinfo->master->last_good_iMCU_row; consume_data
+// moves that to every row it decodes with sufficient data, so on a frame
+// whose scans run to their end no row reads it, and the port keeps none.
+struct Smoothing {
+  bool apply = false;
+  int bits[kMaxComps][kSavedCoefs];
 };
 
 // A Huffman table as jdhuff.c's derived table: per code length, the
@@ -1045,20 +1065,24 @@ struct Decoder {
   // progressive frame's blocks when every component's DC is known, its
   // table's first ten quantizers are nonzero, and one of coefficients
   // 1..9 of some component is not fully refined (or never coded).
-  bool would_smooth() const {
-    if (!progressive) return false;
+  void latch_smoothing(Smoothing* sm) const {
     static constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    sm->apply = false;
+    for (int c = 0; c < info.ncomp; ++c) {
+      for (int k = 0; k < kSavedCoefs; ++k) sm->bits[c][k] = coef_bits[c][k];
+    }
+    if (!progressive) return;
     bool useful = false;
     for (int c = 0; c < info.ncomp; ++c) {
-      if (!latched[c] || coef_bits[c][0] < 0) return false;
+      if (!latched[c] || coef_bits[c][0] < 0) return;
       for (int q : kQ) {
-        if (qt_out[c][q] == 0) return false;
+        if (qt_out[c][q] == 0) return;
       }
       for (int k = 1; k < kSavedCoefs; ++k) {
         if (coef_bits[c][k] != 0) useful = true;
       }
     }
-    return useful;
+    sm->apply = useful;
   }
 
   // Markers up to the first SOS (headers only, `coefs` unset), or the whole
@@ -1106,7 +1130,7 @@ struct Decoder {
           for (int c = 0; c < info.ncomp; ++c) {
             if (!latched[c]) return kCorrupt;  // a component never coded
           }
-          return would_smooth() ? kProgressive : kOk;
+          return kOk;
         case 0xD8:
           return kCorrupt;
         default:
@@ -1151,9 +1175,11 @@ int read_info(const uint8_t* data, size_t size, Info* info) {
 }
 
 // A frame's coefficients into coefs[c] ((blocks_h, blocks_w, 64) int16 of
-// the geometry `info` gave) and qtables[c] (64 uint16, natural order).
+// the geometry `info` gave, unsmoothed) and qtables[c] (64 uint16, natural
+// order), and its smoothing latch into *sm.
 int decode_coefs(const uint8_t* data, size_t size, const Info& info,
-                 int16_t* const* coefs, uint16_t* const* qtables) {
+                 int16_t* const* coefs, uint16_t* const* qtables,
+                 Smoothing* sm) {
   Decoder d(data, size);
   for (int c = 0; c < info.ncomp; ++c) {
     d.coefs[c] = coefs[c];
@@ -1172,7 +1198,166 @@ int decode_coefs(const uint8_t* data, size_t size, const Info& info,
       return kCorrupt;
     }
   }
+  d.latch_smoothing(sm);
   return kOk;
+}
+
+// jdcoefct.c decompress_smooth_data's coefficient half (libjpeg-turbo
+// 2.1.5) on one component: `in` its unsmoothed (blocks_h, blocks_w, 64)
+// blocks, `out` the smoothed ones (never `in`: every estimate reads its
+// neighbours' unsmoothed DC values), `bits` its coef_bits[0..9] latch,
+// `qt` its latched table (natural order).  A block's coefficient k in
+// 1..9 (zigzag) that is still zero and not known to full precision
+// (coef_bits[k] != 0) is estimated from the DC values of the 5x5 blocks
+// around it, clamped below 2^Al; with no AC coefficient of 1..9 ever coded
+// (every coef_bits[k] == -1) a Gaussian-like kernel estimates them all and
+// the DC too.  libjpeg walks the blocks by iMCU rows of v_samp block rows,
+// and its neighbours follow that walk literally: the rows two above and
+// two below are replaced by the nearer row within the first two and the
+// last two iMCU rows, and a column register that no block past the right
+// edge refreshes keeps the first column's DC (images 2 blocks wide).
+void smooth_component(const int16_t* in, int16_t* out, int blocks_h,
+                      int blocks_w, int v_samp, int imcu_rows,
+                      const uint16_t* qt, const int* bits) {
+  // natural positions of zigzag coefficients 1..9
+  constexpr int kPos[kSavedCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+  int64_t q[kSavedCoefs];
+  for (int k = 0; k < kSavedCoefs; ++k) q[k] = qt[kPos[k]];
+  bool change_dc = true;
+  for (int k = 1; k < kSavedCoefs; ++k) change_dc = change_dc && bits[k] == -1;
+  // ((Q << 7) + |num|) / (Q << 8), clamped below 2^Al when Al > 0, signed
+  auto estimate = [&](int k, int64_t num, bool clamp) {
+    const int al = bits[k];
+    int pred = static_cast<int>(((q[k] << 7) + (num >= 0 ? num : -num)) /
+                                (q[k] << 8));
+    if (clamp && al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+    return static_cast<int16_t>(num >= 0 ? pred : -pred);
+  };
+  const size_t row_stride = static_cast<size_t>(blocks_w) * 64;
+  const int last_imcu = imcu_rows - 1;
+  for (int imcu = 0; imcu < imcu_rows; ++imcu) {
+    int block_rows = v_samp;
+    if (imcu == last_imcu) {
+      block_rows = blocks_h % v_samp;
+      if (block_rows == 0) block_rows = v_samp;
+    }
+    for (int br = 0; br < block_rows; ++br) {
+      const int r = imcu * v_samp + br;
+      const int prev = (br > 0 || imcu > 0) ? r - 1 : r;
+      const int prev_prev = (br > 1 || imcu > 1) ? r - 2 : prev;
+      const int next = (br < block_rows - 1 || imcu < last_imcu) ? r + 1 : r;
+      const int next_next =
+          (br < block_rows - 2 || imcu + 1 < last_imcu) ? r + 2 : next;
+      const int16_t* rows[5] = {in + prev_prev * row_stride,
+                                in + prev * row_stride, in + r * row_stride,
+                                in + next * row_stride,
+                                in + next_next * row_stride};
+      // dc[i][j]: DC(i*5 + j + 1) of libjpeg's sliding registers, rows
+      // two above .. two below, columns two left .. two right
+      int dc[5][5];
+      for (int i = 0; i < 5; ++i) {
+        for (int j = 0; j < 5; ++j) dc[i][j] = rows[i][0];
+      }
+      const int last_col = blocks_w - 1;
+      for (int b = 0; b < blocks_w; ++b) {
+        if (b == 0 && b < last_col) {
+          for (int i = 0; i < 5; ++i) dc[i][3] = rows[i][64];
+        }
+        if (b + 1 < last_col) {
+          for (int i = 0; i < 5; ++i) dc[i][4] = rows[i][(b + 2) * 64];
+        }
+        int16_t* w = out + r * row_stride + static_cast<size_t>(b) * 64;
+        std::memcpy(w, in + r * row_stride + static_cast<size_t>(b) * 64,
+                    64 * sizeof(int16_t));
+        const int DC01 = dc[0][0], DC02 = dc[0][1], DC03 = dc[0][2],
+                  DC04 = dc[0][3], DC05 = dc[0][4], DC06 = dc[1][0],
+                  DC07 = dc[1][1], DC08 = dc[1][2], DC09 = dc[1][3],
+                  DC10 = dc[1][4], DC11 = dc[2][0], DC12 = dc[2][1],
+                  DC13 = dc[2][2], DC14 = dc[2][3], DC15 = dc[2][4],
+                  DC16 = dc[3][0], DC17 = dc[3][1], DC18 = dc[3][2],
+                  DC19 = dc[3][3], DC20 = dc[3][4], DC21 = dc[4][0],
+                  DC22 = dc[4][1], DC23 = dc[4][2], DC24 = dc[4][3],
+                  DC25 = dc[4][4];
+        const int64_t q00 = q[0];
+        if (bits[1] != 0 && w[1] == 0) {  // AC01
+          w[1] = estimate(1, q00 * (change_dc ?
+              (-DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 -
+               13 * DC09 + 3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 +
+               3 * DC15 - 3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 -
+               DC21 - DC22 + DC24 + DC25) :
+              (-7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15)), true);
+        }
+        if (bits[2] != 0 && w[8] == 0) {  // AC10
+          w[8] = estimate(2, q00 * (change_dc ?
+              (-DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+               13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 -
+               13 * DC17 - 38 * DC18 - 13 * DC19 + DC20 + DC21 +
+               3 * DC22 + 3 * DC23 + 3 * DC24 + DC25) :
+              (-7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23)), true);
+        }
+        if (bits[3] != 0 && w[16] == 0) {  // AC20
+          w[16] = estimate(3, q00 * (change_dc ?
+              (DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 -
+               14 * DC13 - 5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 +
+               DC23) :
+              (-DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23)), true);
+        }
+        if (bits[4] != 0 && w[9] == 0) {  // AC11
+          w[9] = estimate(4, q00 * (change_dc ?
+              (-DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+               DC21 - DC25) :
+              (DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+               DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09)), true);
+        }
+        if (bits[5] != 0 && w[2] == 0) {  // AC02
+          w[2] = estimate(5, q00 * (change_dc ?
+              (2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 -
+               14 * DC13 + 7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 +
+               2 * DC19) :
+              (-DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15)), true);
+        }
+        if (change_dc) {
+          if (bits[6] != 0 && w[3] == 0) {  // AC03
+            w[3] = estimate(6, q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 +
+                                      DC17 - DC19), true);
+          }
+          if (bits[7] != 0 && w[10] == 0) {  // AC12
+            w[10] = estimate(7, q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                       3 * DC18 - DC19), true);
+          }
+          if (bits[8] != 0 && w[17] == 0) {  // AC21
+            w[17] = estimate(8, q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                       DC17 - DC19), true);
+          }
+          if (bits[9] != 0 && w[24] == 0) {  // AC30
+            w[24] = estimate(9, q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                       2 * DC18 - DC19), true);
+          }
+          w[0] = estimate(0, q00 * (
+              -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+              6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+              8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+              6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+              2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), false);
+        }
+        for (int i = 0; i < 5; ++i) {  // the registers slide one column
+          for (int j = 0; j < 4; ++j) dc[i][j] = dc[i][j + 1];
+        }
+      }
+    }
+  }
+}
+
+// A frame's blocks smoothed as libjpeg smooths them at output, where *sm
+// says it does: each component's `coefs[c]` (unsmoothed) into `out[c]`.
+void smooth_frame(const Info& info, const int16_t* const* coefs,
+                  int16_t* const* out, const uint16_t* const* qtables,
+                  const Smoothing& sm) {
+  for (int c = 0; c < info.ncomp; ++c) {
+    const Component& cp = info.comp[c];
+    smooth_component(coefs[c], out[c], cp.blocks_h, cp.blocks_w, cp.v_samp,
+                     info.imcu_rows(), qtables[c], sm.bits[c]);
+  }
 }
 
 // Parallel-for over items with a transient thread pool; the first error
@@ -1198,8 +1383,12 @@ int parallel_for(int n, int n_threads, Fn&& fn) {
 }
 
 // The ints ammc_jpeg_info writes: width, height, ncomp, then per component
-// (kMaxComps of them) h_samp, v_samp, width, height, blocks_w, blocks_h.
-constexpr int kInfoInts = 3 + 6 * kMaxComps;
+// (kMaxComps of them) h_samp, v_samp, width, height, blocks_w, blocks_h;
+// then the frame's iMCU rows.
+constexpr int kInfoInts = 3 + 6 * kMaxComps + 1;
+// The ints of a frame's smoothing latch (ammc_jpeg_coefs_video): whether
+// libjpeg smooths it, then per component its coef_bits[0..9].
+constexpr int kLatchInts = 1 + kSavedCoefs * kMaxComps;
 
 void pack_info(const Info& info, int* out) {
   std::memset(out, 0, sizeof(int) * kInfoInts);
@@ -1216,6 +1405,7 @@ void pack_info(const Info& info, int* out) {
     o[4] = cp.blocks_w;
     o[5] = cp.blocks_h;
   }
+  out[3 + 6 * kMaxComps] = info.imcu_rows();
 }
 
 }  // namespace ammc_jpeg
@@ -1234,12 +1424,14 @@ int ammc_jpeg_info(const char* path, int* out) {
   return rc;
 }
 
-// n JPEG files' coefficients, on n_threads threads: coefs[i * 3 + c] points
-// at frame i's component c, (blocks_h, blocks_w, 64) int16 as
-// ammc_jpeg_info gave them, qtables at n * 3 * 64 uint16 (frame i's
-// component c at (i * 3 + c) * 64).  Returns 0 or the first error code.
+// n JPEG files' coefficients, unsmoothed, on n_threads threads: coefs[i *
+// 3 + c] points at frame i's component c, (blocks_h, blocks_w, 64) int16
+// as ammc_jpeg_info gave them, qtables at n * 3 * 64 uint16 (frame i's
+// component c at (i * 3 + c) * 64), latch at n * kLatchInts ints (frame
+// i's at i * kLatchInts: 1 if libjpeg smooths it at output, else 0, then
+// per component its coef_bits[0..9]).  Returns 0 or the first error code.
 int ammc_jpeg_coefs_video(const char** paths, int n, int n_threads,
-                          int16_t** coefs, uint16_t* qtables) {
+                          int16_t** coefs, uint16_t* qtables, int* latch) {
   return ammc_jpeg::parallel_for(n, n_threads, [&](int i) {
     std::vector<uint8_t> data;
     int rc = ammc_jpeg::read_file(paths[i], &data);
@@ -1251,9 +1443,33 @@ int ammc_jpeg_coefs_video(const char** paths, int n, int n_threads,
     for (int c = 0; c < ammc_jpeg::kMaxComps; ++c) {
       qts[c] = qtables + (static_cast<size_t>(i) * 3 + c) * 64;
     }
-    return ammc_jpeg::decode_coefs(data.data(), data.size(), info,
-                                   coefs + static_cast<size_t>(i) * 3, qts);
+    ammc_jpeg::Smoothing sm;
+    rc = ammc_jpeg::decode_coefs(data.data(), data.size(), info,
+                                 coefs + static_cast<size_t>(i) * 3, qts,
+                                 &sm);
+    if (rc != 0) return rc;
+    int* out = latch + static_cast<size_t>(i) * ammc_jpeg::kLatchInts;
+    std::memset(out, 0, sizeof(int) * ammc_jpeg::kLatchInts);
+    out[0] = sm.apply ? 1 : 0;
+    for (int c = 0; c < info.ncomp; ++c) {
+      std::memcpy(out + 1 + c * ammc_jpeg::kSavedCoefs, sm.bits[c],
+                  sizeof(int) * ammc_jpeg::kSavedCoefs);
+    }
+    return 0;
   });
+}
+
+// One component's blocks smoothed as libjpeg smooths them (above,
+// smooth_component): in and out (blocks_h, blocks_w, 64) int16, distinct;
+// v_samp its vertical sampling factor; imcu_rows the frame's iMCU rows;
+// qtable its 64 quantizers (natural order); coef_bits its 10 latched
+// values.  Returns 0.
+int ammc_jpeg_smooth(const int16_t* in, int16_t* out, int blocks_h,
+                     int blocks_w, int v_samp, int imcu_rows,
+                     const uint16_t* qtable, const int* coef_bits) {
+  ammc_jpeg::smooth_component(in, out, blocks_h, blocks_w, v_samp, imcu_rows,
+                              qtable, coef_bits);
+  return 0;
 }
 
 }  // extern "C"

@@ -5,7 +5,7 @@ The port's counterpart of ``ammcnet_aaai2021_tpu/data/native.py``, with
 its API:
 
     decode_video(paths, size, n_threads=8, device="cpu") -> (T, h, w, 3) u8 RGB
-        (on a CUDA device a (T, h, w, 1 or 3) uint8 tensor there)
+        (on a CUDA device a (T, h, w, 3) uint8 tensor there)
     load_flow_video(paths, size, reproduce_bug=True, n_threads=8)
         -> (T, h, w, 2) float32, normalized
 
@@ -19,14 +19,16 @@ its API:
   no libjpeg) to quantized DCT coefficients, and the card dequantizes and
   runs libjpeg's accurate integer IDCT (the kernel behind
   :func:`idct_islow_u8`), turns a colour frame's planes into RGB as libjpeg
-  does (:func:`ycc_to_rgb_u8`) and resizes (:func:`resize_bilinear_u8`)
-  into a tensor on the card, which the scorer reads there: one channel for
-  a grayscale video (the value the host route puts on all three), else
-  RGB.  This is the route of a machine whose host has no libjpeg (the H100
-  machine has none).
+  does (:func:`ycc_to_rgb_u8`) and resizes (:func:`resize_bilinear_u8`,
+  a grayscale frame's one plane to three channels, as the host route
+  resizes libjpeg's RGB decode of it) into an RGB tensor on the card,
+  which the scorer reads there.  This is the route of a machine whose host
+  has no libjpeg (the H100 machine has none).
 
 Both routes give the same bytes: libjpeg's decode (islow IDCT, fancy
-upsampling, its YCbCr tables), then cv2 INTER_LINEAR's half-pixel map in
+upsampling, its YCbCr tables, the block smoothing of a progressive frame
+whose scans leave a low coefficient unrefined), then cv2 INTER_LINEAR's
+half-pixel map in
 float arithmetic with the fused multiply-adds of the JAX package's
 ``-O3 -march=native`` build of its loader (``csrc/ammc_loader.cpp`` says
 which), within 1 LSB of cv2's decode + resize.  The GPU route takes
@@ -89,16 +91,19 @@ ERRORS = {2: "a file does not open", 3: "a file is not a decodable JPEG",
           5: "a .flo file is truncated", 6: "a CUDA error",
           8: "a JPEG has other than 1 or 3 components",
           9: "a colour JPEG is subsampled other than 4:4:4, 4:2:2 or 4:2:0",
-          10: "a progressive JPEG's scan script is one libjpeg rejects, or "
-              "leaves one of its first ten coefficients unrefined (libjpeg "
-              "then smooths the blocks, which the port does not)",
+          10: "a progressive JPEG has a scan whose parameters libjpeg "
+              "rejects",
           11: "a JPEG is lossless or hierarchical",
           12: "a JPEG's arithmetic conditioning (DAC) is malformed",
           13: "a JPEG has other than 8-bit samples",
           14: "a colour JPEG is coded other than as YCbCr"}
 # csrc/jpeg_huffman.cpp kInfoInts: width, height, components, then per
-# component h_samp, v_samp, width, height, blocks_w, blocks_h
-INFO_INTS = 3 + 6 * 3
+# component h_samp, v_samp, width, height, blocks_w, blocks_h, then the
+# frame's iMCU rows; kLatchInts: whether libjpeg smooths the frame, then per
+# component coef_bits[0..9]
+INFO_INTS = 3 + 6 * 3 + 1
+SAVED_COEFS = 10
+LATCH_INTS = 1 + SAVED_COEFS * 3
 # libjpeg's islow IDCT (jidctint.c): CONST_BITS, PASS1_BITS and its FIX()
 # constants
 CONST_BITS, PASS1_BITS = 13, 2
@@ -160,8 +165,11 @@ def _library(form: str) -> ctypes.CDLL:
                 lib.ammc_jpeg_info.argtypes = [ctypes.c_char_p, ptr]
                 lib.ammc_jpeg_info.restype = c_int
                 lib.ammc_jpeg_coefs_video.argtypes = [
-                    paths, c_int, c_int, ctypes.POINTER(ptr), ptr]
+                    paths, c_int, c_int, ctypes.POINTER(ptr), ptr, ptr]
                 lib.ammc_jpeg_coefs_video.restype = c_int
+                lib.ammc_jpeg_smooth.argtypes = [ptr, ptr, c_int, c_int,
+                                                 c_int, c_int, ptr, ptr]
+                lib.ammc_jpeg_smooth.restype = c_int
             else:
                 if form == "jpeg":
                     lib.ammc_decode_video.argtypes = [
@@ -186,7 +194,7 @@ def _gpu_library() -> ctypes.CDLL:
     lib.ammc_gpu_decode_video.argtypes = [
         ptr, ctypes.POINTER(ctypes.c_char_p), c_int, c_int, c_int, c_int, ptr,
         ptr, ctypes.POINTER(c_int), ctypes.POINTER(c_int),
-        ctypes.POINTER(c_int), ctypes.POINTER(c_int)]
+        ctypes.POINTER(c_int)]
     lib.ammc_gpu_decode_video.restype = c_int
     lib.ammc_idct_islow_u8.argtypes = [ptr, ptr, c_int, c_int, c_int, c_int,
                                        c_int, ptr, ptr]
@@ -241,15 +249,16 @@ def decode_video(paths: Sequence[str], size: Tuple[int, int],
     """JPEG files -> frames resized to ``size``, decoded on ``device``.
 
     "cpu": the host library's ``n_threads`` threads; a (T, h, w, 3) uint8
-    RGB numpy array.  A CUDA device: the entropy decode on ``n_threads``
-    host threads, a chunk of frames at a time, then the IDCT, colour and
-    resize kernels on the decoder's stream; a (T, h, w, C) uint8 tensor on
-    that device, bitwise the host route's, C = 1 when every frame is a
-    grayscale JPEG (the value the host route puts on all three channels)
-    else 3, RGB; the current stream waits for the decode, which waits for
-    the work queued on it before the call.  Raises on a file that is not a
-    JPEG, does not open or does not decode, and (GPU route) on a JPEG it
-    does not take (:data:`ERRORS`)."""
+    RGB numpy array.  A CUDA device: the entropy decode (and a progressive
+    frame's block smoothing) on ``n_threads`` host threads, a chunk of
+    frames at a time, then the IDCT, colour and resize kernels on the
+    decoder's stream; a (T, h, w, 3) uint8 RGB tensor on that device,
+    bitwise the host route's (a grayscale frame's plane resized to three
+    channels, channel 0 with the host's own rounding); the current stream
+    waits for the decode, which waits for the work queued on it before the
+    call.  Raises on a file that is not a JPEG, does not open or does not
+    decode, and (GPU route) on a JPEG that libjpeg does not take either
+    (:data:`ERRORS`)."""
     _check_kind(paths, JPEG_EXTS, "JPEG")
     device = torch.device(device)
     h, w = size
@@ -268,25 +277,21 @@ def decode_video(paths: Sequence[str], size: Tuple[int, int],
                            "is visible")
     device = torch.device("cuda", device.index if device.index is not None
                           else torch.cuda.current_device())
-    # room for RGB; a grayscale video takes the first third
     out = torch.empty((len(paths), h, w, 3), dtype=torch.uint8, device=device)
     if not paths:
         return out
     lib = _gpu_library()
-    channels, idcts, resizes, conversions = (ctypes.c_int(0)
-                                             for _ in range(4))
+    idcts, resizes, conversions = (ctypes.c_int(0) for _ in range(3))
     rc = lib.ammc_gpu_decode_video(
         _decoder(device.index), _paths_array(paths), len(paths), h, w,
         n_threads, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
-        ctypes.byref(channels), ctypes.byref(idcts), ctypes.byref(resizes),
-        ctypes.byref(conversions))
+        ctypes.byref(idcts), ctypes.byref(resizes), ctypes.byref(conversions))
     idct_islow_u8.launches += idcts.value
     resize_bilinear_u8.launches += resizes.value
     ycc_to_rgb_u8.launches += conversions.value
     _raise_on(rc, "GPU decode_video", paths)
-    c = channels.value
-    return out.view(-1)[:len(paths) * h * w * c].view(len(paths), h, w, c)
+    return out
 
 
 def load_flow_video(paths: Sequence[str], size: Tuple[int, int],
@@ -347,7 +352,7 @@ def _resize_ref(f: torch.Tensor, size: Tuple[int, int], u8: bool
                 ) -> torch.Tensor:
     """The host loader's float resize of (n, sh, sw, c) float32 values,
     with its fused multiply-adds: horizontal lerps ``fmaf(1 - w, a, w *
-    b)``, except channel 0 of a 3-channel u8 image in the second row buffer
+    b)``, except channel 0 of a u8 (RGB) image in the second row buffer
     (not a copy of the first), ``fmaf(w, b, (1 - w) * a)``; vertical
     ``fmaf(1 - wy, h0, wy * h1)``."""
     y0, y1, wy, copied = _axis_map(f.shape[1], size[0], f.device)
@@ -364,7 +369,7 @@ def _resize_ref(f: torch.Tensor, size: Tuple[int, int], u8: bool
 
     h0 = lerp(f[:, y0], False)
     h1 = lerp(f[:, y1], False)
-    if u8 and f.shape[3] == 3:
+    if u8:
         h1 = torch.where(copied[None, :, None, None], h1,
                          lerp(f[:, y1], True))
     return _fmaf(1 - wy, h0, wy * h1)
@@ -373,11 +378,14 @@ def _resize_ref(f: torch.Tensor, size: Tuple[int, int], u8: bool
 def resize_bilinear_u8_ref(src: torch.Tensor, size: Tuple[int, int]
                            ) -> torch.Tensor:
     """Plain PyTorch version of the resize kernel: (n, sh, sw, c) u8 with c
-    1 or 3 -> (n, h, w, c) u8, the host loader's arithmetic (its fused
-    multiply-adds rounded once, :func:`_fmaf`).  One channel takes the
-    rounding of the host loader's channels 1 and 2."""
+    1 or 3 -> (n, h, w, 3) u8 (from 1: a grayscale plane resized as the
+    host loader resizes libjpeg's RGB decode of it, the same value on three
+    channels before the resize), the host loader's arithmetic (its fused
+    multiply-adds rounded once, :func:`_fmaf`)."""
+    if src.shape[3] == 1:
+        src = src.expand(*src.shape[:3], 3)
     if tuple(src.shape[1:3]) == tuple(size):
-        return src.clone()
+        return src.clone(memory_format=torch.contiguous_format)
     return (_resize_ref(src.float(), size, True) + 0.5).to(torch.uint8)
 
 
@@ -393,10 +401,10 @@ def resize_bilinear_f32_ref(src: torch.Tensor, size: Tuple[int, int]
 def resize_bilinear_u8(src: torch.Tensor, size: Tuple[int, int]
                        ) -> torch.Tensor:
     """The GPU route's resize: (n, sh, sw, c) u8, c 1 or 3, contiguous ->
-    (n, h, w, c) u8.  A CUDA tensor launches the kernel of
-    ``csrc/jpeg_decode.cu`` on the current stream (counted in
-    ``resize_bilinear_u8.launches``, as are the GPU decode's launches); a
-    CPU tensor returns the plain version's result."""
+    (n, h, w, 3) u8 (as :func:`resize_bilinear_u8_ref`).  A CUDA tensor
+    launches the kernel of ``csrc/jpeg_decode.cu`` on the current stream
+    (counted in ``resize_bilinear_u8.launches``, as are the GPU decode's
+    launches); a CPU tensor returns the plain version's result."""
     if src.ndim != 4 or src.dtype != torch.uint8 or src.shape[3] not in (1, 3):
         raise ValueError(f"want (n, h, w, 1|3) uint8, got {tuple(src.shape)} "
                          f"{src.dtype}")
@@ -406,14 +414,14 @@ def resize_bilinear_u8(src: torch.Tensor, size: Tuple[int, int]
         return resize_bilinear_u8_ref(src, size)
     if src.device.type != "cuda":
         raise ValueError(f"no kernel for device {src.device}")
-    n, sh, sw, c = src.shape
-    out = torch.empty((n, *size, c), dtype=torch.uint8, device=src.device)
+    n, sh, sw, sc = src.shape
+    out = torch.empty((n, *size, 3), dtype=torch.uint8, device=src.device)
     if n == 0:
         return out
     lib = _gpu_library()
     with torch.cuda.device(src.device):
         err = lib.ammc_resize_bilinear_u8(
-            src.data_ptr(), n, sh, sw, c, out.data_ptr(), size[0], size[1],
+            src.data_ptr(), n, sh, sw, sc, out.data_ptr(), size[0], size[1],
             torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"resize kernel launch failed: CUDA error {err} "
@@ -518,14 +526,21 @@ class Component(NamedTuple):
     qtable: np.ndarray  # (64,) uint16, natural order
     samp: Tuple[int, int]  # (h_samp, v_samp)
     size: Tuple[int, int]  # its downsampled (height, width)
+    # libjpeg's block smoothing at output: whether it smooths the frame,
+    # the component's coef_bits[0..9] latch and the frame's iMCU rows
+    smooth: bool
+    coef_bits: np.ndarray  # (10,) int32
+    imcu_rows: int
 
 
 def decode_coefs(paths: Sequence[str], n_threads: int = 8
                  ) -> List[List[Component]]:
-    """JPEG files -> each frame's components, quantized DCT coefficients and
-    tables, by the host library's "coef" form (``csrc/jpeg_huffman.cpp``,
-    the GPU route's own entropy decode, no libjpeg) on ``n_threads``
-    threads.  Raises on a file it does not take (:data:`ERRORS`)."""
+    """JPEG files -> each frame's components, quantized DCT coefficients
+    (unsmoothed, as libjpeg's ``jpeg_read_coefficients`` gives them), tables
+    and smoothing latch, by the host library's "coef" form
+    (``csrc/jpeg_huffman.cpp``, the GPU route's own entropy decode, no
+    libjpeg) on ``n_threads`` threads.  Raises on a file it does not take
+    (:data:`ERRORS`)."""
     _check_kind(paths, JPEG_EXTS, "JPEG")
     lib = _library("coef")
     frames, pointers = [], []
@@ -540,16 +555,37 @@ def decode_coefs(paths: Sequence[str], n_threads: int = 8
             coefs = np.zeros((bh, bw, 64) if c < info[2] else (0,), np.int16)
             pointers.append(coefs.ctypes.data)
             comps.append((coefs, (hs, vs), (ch, cw)))
-        frames.append(comps[:int(info[2])])
+        frames.append((comps[:int(info[2])], int(info[-1])))
     qtables = np.zeros((len(paths), 3, 64), np.uint16)
+    latch = np.zeros((len(paths), LATCH_INTS), np.int32)
     if paths:
         rc = lib.ammc_jpeg_coefs_video(
             _paths_array(paths), len(paths), n_threads,
-            (ctypes.c_void_p * len(pointers))(*pointers), qtables.ctypes.data)
+            (ctypes.c_void_p * len(pointers))(*pointers), qtables.ctypes.data,
+            latch.ctypes.data)
         _raise_on(rc, "JPEG coefficient decode", paths)
-    return [[Component(coefs, qtables[i, c], samp, size)
+    bits = latch[:, 1:].reshape(len(paths), 3, SAVED_COEFS)
+    return [[Component(coefs, qtables[i, c], samp, size, bool(latch[i, 0]),
+                       bits[i, c], imcu_rows)
              for c, (coefs, samp, size) in enumerate(comps)]
-            for i, comps in enumerate(frames)]
+            for i, (comps, imcu_rows) in enumerate(frames)]
+
+
+def smooth_coefs(comp: Component) -> np.ndarray:
+    """A component's blocks as libjpeg hands them to its IDCT: block-smoothed
+    (``csrc/jpeg_huffman.cpp:smooth_component``, the function the GPU route
+    runs on its host threads) where ``comp.smooth``, else as decoded."""
+    if not comp.smooth:
+        return comp.coefs
+    out = np.empty_like(comp.coefs)
+    bh, bw, _ = comp.coefs.shape
+    coefs = np.ascontiguousarray(comp.coefs)
+    qtable = np.ascontiguousarray(comp.qtable)
+    bits = np.ascontiguousarray(comp.coef_bits, dtype=np.int32)
+    _library("coef").ammc_jpeg_smooth(
+        coefs.ctypes.data, out.ctypes.data, bh, bw, comp.samp[1],
+        comp.imcu_rows, qtable.ctypes.data, bits.ctypes.data)
+    return out
 
 
 def _range_limit(device) -> torch.Tensor:
@@ -658,19 +694,19 @@ idct_islow_u8.launches = 0
 
 def decode_video_ref(paths: Sequence[str], size: Tuple[int, int],
                      n_threads: int = 8) -> torch.Tensor:
-    """The GPU route's plain version on the CPU: :func:`decode_coefs`, then
-    :func:`idct_islow_u8_ref`, :func:`ycc_to_rgb_u8_ref` and
-    :func:`resize_bilinear_u8_ref` -> (T, h, w, 3) u8 RGB, a grayscale
-    frame's plane resized on all three channels, as
+    """The GPU route's plain version on the CPU: :func:`decode_coefs`,
+    :func:`smooth_coefs`, then :func:`idct_islow_u8_ref`,
+    :func:`ycc_to_rgb_u8_ref` and :func:`resize_bilinear_u8_ref` -> (T, h,
+    w, 3) u8 RGB, a grayscale frame's plane resized to three channels, as
     ``decode_video(device="cpu")`` gives it."""
     out = []
     for comps in decode_coefs(paths, n_threads):
-        planes = [idct_islow_u8_ref(torch.from_numpy(c.coefs)[None],
+        planes = [idct_islow_u8_ref(torch.from_numpy(smooth_coefs(c))[None],
                                     torch.from_numpy(c.qtable)[None],
                                     c.size)[0] for c in comps]
-        rgb = (planes[0][..., None].expand(-1, -1, 3) if len(planes) == 1
+        src = (planes[0][..., None] if len(planes) == 1
                else ycc_to_rgb_u8_ref(*planes))
-        out.append(resize_bilinear_u8_ref(rgb[None].contiguous(), size)[0])
+        out.append(resize_bilinear_u8_ref(src[None].contiguous(), size)[0])
     return torch.stack(out) if out else torch.empty(
         (0, *size, 3), dtype=torch.uint8)
 
@@ -691,6 +727,4 @@ class NativeClipLoader(ClipLoader):
             return load_flow_video([path], self.size,
                                    self.reproduce_flow_bug)[0]
         frame = decode_video([path], self.size, device=self.device)[0]
-        if isinstance(frame, torch.Tensor):
-            frame = frame.expand(*self.size, 3).cpu().numpy()
-        return frame
+        return frame.cpu().numpy() if isinstance(frame, torch.Tensor) else frame

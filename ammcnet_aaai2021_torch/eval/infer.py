@@ -227,14 +227,16 @@ def _assemble_records(scores: np.ndarray, num_frame: int,
 
 def _one_channel(frames):
     """A video's first channel for the gray extractor (numpy or a tensor),
-    guarded: a colour video would be scored on its red channel alone."""
-    if frames.shape[-1] == 1:
-        return frames
+    guarded as the JAX package guards it (``eval/infer.py:698-702``): a
+    video whose first frame's channels 0 and 2 differ raises, since a
+    colour video would be scored on its red channel alone; so does a
+    grayscale JPEG whose channel 0 the resize rounded 1 LSB off in frame
+    0.  Later frames' channel 0 goes to the extractor as it is."""
     equal = torch.equal if isinstance(frames, torch.Tensor) else np.array_equal
     if not equal(frames[0, ..., 0], frames[0, ..., -1]):
         raise ValueError(
-            "--gray_upload (the gray on-the-fly extractor) on a video whose "
-            "decoded channels differ: this dataset is not grayscale; drop "
+            "gray_upload/on-the-fly gray extractor on a video whose decoded "
+            "channels differ — this dataset is not grayscale; drop "
             "--gray_upload")
     first = frames[..., :1]
     return (first.contiguous() if isinstance(first, torch.Tensor)
@@ -272,13 +274,13 @@ def score_dataset(
 
     ``use_native_loader``: JPEG frames and ``.flo`` flows through
     ``data/native.py``, the frames decoded on the scoring device (the IDCT,
-    colour and resize kernels on a GPU, into a tensor there: one channel for a
-    grayscale video, broadcast there; the C++ loader on the CPU).
+    colour and resize kernels on a GPU, into an RGB tensor there; the C++
+    loader on the CPU).
     ``flow_extractor`` (:func:`make_otf_flow_extractor`): the flows come
     from FlowNet2-SD on the device over each bucket-padded video (T_pad - 1
-    pairs); ``op_root`` is not read.  A gray extractor gets one u8 channel
-    a frame and raises ``ValueError`` on a video whose first frame's
-    channels differ.
+    pairs); ``op_root`` is not read.  A gray extractor gets channel 0 of
+    each frame and raises ``ValueError`` on a video whose first frame's
+    channels 0 and 2 differ, as the JAX package does.
 
     Decoding of the next video runs on a thread pool while the current
     one's forwards run; its copy to the device (or, for a GPU decode, the
@@ -350,8 +352,6 @@ def score_dataset(
             frames.record_stream(main)
         if flow_extractor is not None and flow_extractor.gray:
             frames = _one_channel(frames)
-        elif frames.shape[-1] == 1:  # a grayscale video decoded on the GPU
-            frames = frames.expand(*frames.shape[:-1], 3).contiguous()
         v_rgb = to_device(frames)
         if flow_extractor is not None:
             out = flow_extractor(v_rgb)

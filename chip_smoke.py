@@ -63,10 +63,15 @@ Phases, one JSON line each; any failure exits non-zero:
 9. the raw-video path (``raw_path``): ``c2_check`` first (the IDCT kernel
    against its plain version on the fixture's coefficients, bitwise and
    timed; the fixture's GPU decode, gray and colour, bitwise the committed
-   host-libjpeg reference at source size and 256x256, and likewise its
-   progressive (SOF2) and arithmetic-coded progressive (SOF10) JPEGs),
-   then the GPU JPEG route's kernels against
-   their plain versions, its decode of the committed fixture against cv2's,
+   host-libjpeg reference (RGB, three channels a grayscale frame) at
+   source size and 256x256, and likewise its progressive (SOF2) and
+   arithmetic-coded progressive (SOF10) JPEGs, ``gray_c5.jpg`` (C5: channel
+   0 with the host's own rounding) and the progressive files libjpeg
+   block-smooths (C6)), then the GPU JPEG route's kernels against their
+   plain versions (the resize at the paths' shapes, gray to RGB timed
+   against ``F.interpolate`` on three and on one channel, and on a sweep
+   of 30 seeded random sizes), its decode of the committed fixture against
+   cv2's,
    the extractor in float32 on the card against the CPU; then a ped2-shaped
    raw split (12 videos of Ped2's lengths, 240x360 grayscale JPEGs from the
    fixture, 240x360 ``.flo`` flows) scored by ``run_test.main`` three times
@@ -1496,6 +1501,20 @@ RAW_SHAPE = (240, 360)
 AVENUE_SHAPE, AVENUE_TAIL_LENGTHS = (360, 640), (294, 248, 273, 76)
 FIXTURE = os.path.join(REPO, "tests", "fixtures", "torch_jpeg")
 GRAY_FIXTURE_FRAMES, COLOR_FIXTURE_FRAMES = 16, 2
+# libjpeg_reference.npz: the host libjpeg route's RGB decode of each
+# fixture kind at each size ("source", 256, and gray_c5.jpg's 160 and
+# 248x103, where its channel 0 is off: at 256x256 no JPEG's can be, since a
+# power-of-two width makes every product of the resize exact); the GPU route
+# must give each bitwise
+FIXTURE_REFERENCES = (
+    "gray_source", "gray_256", "color_source", "color_256",
+    "progressive_256", "arithmetic_source", "arithmetic_256", "gray_c5_160",
+    "gray_c5_248x103", "gray_c5_256", "smooth_partial_source", "smooth_partial_256",
+    "smooth_dconly_source", "smooth_dconly_256", "smooth_al1_source",
+    "smooth_al1_256", "smooth_arith_source", "smooth_arith_256")
+# the resize kernel against its plain version on this many seeded random
+# (sh, sw, dh, dw), 16 to 720 pixels
+RESIZE_SWEEP = 30
 # score_dataset's bucket padding, make_otf_flow_extractor's pairs a
 # forward, the GPU decode's frames a resize launch (csrc kChunkFrames)
 BUCKET, OTF_CHUNK, DECODE_CHUNK = 64, 16, 32
@@ -1574,9 +1593,10 @@ def c2_phase(torch, native) -> dict:
     frames' three components, the colour run's chunk), bitwise, timed
     beside its bound and plain version;
     the fixture's GPU decode, gray and colour, bitwise the committed host
-    libjpeg route (libjpeg_reference.npz) at source size and at 256x256;
-    likewise its progressive JPEG (SOF2, colour, at 256x256) and its
-    arithmetic-coded progressive one (SOF10, grayscale)."""
+    libjpeg route (libjpeg_reference.npz, RGB) at source size and at
+    256x256; likewise its progressive JPEG (SOF2, colour, at 256x256), its
+    arithmetic-coded progressive one (SOF10, grayscale), ``gray_c5.jpg`` at
+    160x160, 248x103 and 256x256 (C5) and the four smoothing files (C6)."""
     import numpy as np
 
     out = {}
@@ -1622,33 +1642,36 @@ def c2_phase(torch, native) -> dict:
                              "32-bit operations, CUDA cores")}
         emit("c2_check", kernel="idct_islow_u8", input=name, **out[name])
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
-    for kind, paths in (("gray", gray), ("color", colour),
-                        ("progressive", [os.path.join(FIXTURE,
-                                                      "progressive.jpg")]),
-                        ("arithmetic", [os.path.join(FIXTURE,
-                                                     "arithmetic.jpg")])):
-        for size_name in ("source", "256"):
-            if f"{kind}_{size_name}" not in ref:
-                continue  # the progressive frame's is kept at 256 alone
-            want = ref[f"{kind}_{size_name}"]
-            want = want[..., None] if want.ndim == 3 else want
-            got = native.decode_video(paths, want.shape[1:3], device="cuda")
-            torch.cuda.synchronize()
-            if got.device.type != "cuda" or tuple(got.shape) != want.shape:
-                fail(f"c2_check: GPU decode of the {kind} fixture gave "
-                     f"{tuple(got.shape)} on {got.device}, want {want.shape}")
-            differ = int((got.cpu().numpy() != want).sum())
-            if differ:
-                fail(f"c2_check: GPU decode of the {kind} fixture at "
-                     f"{size_name} size: {differ} values differ from the "
-                     "host libjpeg route (must be bitwise)")
-            out[f"decode_{kind}_{size_name}"] = {
-                "frames": len(paths), "shape": list(want.shape),
-                "values_differing": 0}
-    if len([k for k in out if k.startswith("decode")]) != 7:
-        fail(f"c2_check: decoded {sorted(out)}, want the gray, colour and "
-             "arithmetic fixtures at both sizes and the progressive one at "
-             "256x256")
+    for key in ref.files:
+        kind, size_name = key.rsplit("_", 1)
+        paths = {"gray": gray, "color": colour}.get(
+            kind, [os.path.join(FIXTURE, f"{kind}.jpg")])
+        want = ref[key]
+        got = native.decode_video(paths, want.shape[1:3], device="cuda")
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or tuple(got.shape) != want.shape:
+            fail(f"c2_check: GPU decode of the {kind} fixture gave "
+                 f"{tuple(got.shape)} on {got.device}, want {want.shape}")
+        differ = int((got.cpu().numpy() != want).sum())
+        if differ:
+            fail(f"c2_check: GPU decode of the {kind} fixture at "
+                 f"{size_name} size: {differ} values differ from the "
+                 "host libjpeg route (must be bitwise)")
+        out[f"decode_{kind}_{size_name}"] = {
+            "frames": len(paths), "shape": list(want.shape),
+            "values_differing": 0,
+            # channel-0 values the host build rounds off channels 1 and 2
+            # (C5: gray_c5 at 160x160 and 248x103)
+            "channel_0_off": int((want[..., 0] != want[..., 1]).sum())}
+    for size_name in ("160", "248x103"):
+        if not out[f"decode_gray_c5_{size_name}"]["channel_0_off"]:
+            fail(f"c2_check: gray_c5.jpg's reference at {size_name} shows "
+                 "no channel-0 value off channels 1 and 2: the fixture "
+                 "does not exercise C5")
+    decoded = sorted(k for k in out if k.startswith("decode"))
+    if len(decoded) != len(FIXTURE_REFERENCES) or not all(
+            f"decode_{k}" in decoded for k in FIXTURE_REFERENCES):
+        fail(f"c2_check: decoded {decoded}, want {FIXTURE_REFERENCES}")
     out["huffman_s"], out["huffman_frames"] = huffman_s, len(chunk)
     emit("c2_check", **{k: v for k, v in out.items()
                         if k.startswith("decode")})
@@ -1658,10 +1681,15 @@ def c2_phase(torch, native) -> dict:
 def raw_kernel_checks(torch, native) -> dict:
     """The GPU JPEG route's kernels against their plain versions at the
     paths' shapes (the resize: a 32-frame chunk of 240x360 grayscale frames
-    to 256x256 grayscale, and a 360x640 colour one to 256x256 RGB; the
-    colour conversion: a 4:2:0 360x640 frame), bitwise, with device times
-    (CUDA graphs), the bound and, for the resize, ``F.interpolate`` on the
-    same frames as float32 NCHW."""
+    to 256x256 RGB, as the decode resizes a grayscale video, and a 360x640
+    colour one to 256x256 RGB; the colour conversion: a 4:2:0 360x640
+    frame), bitwise, with device times (CUDA graphs), the bound and, for
+    the resize, ``F.interpolate`` on the same frames as float32 NCHW (the
+    gray chunk on three channels, as the kernel writes them, and on its one
+    channel); then the resize on ``RESIZE_SWEEP`` seeded random sizes, 16 to
+    720 pixels a side, up- and downscales, 1 -> 3 and 3 -> 3 channels,
+    bitwise."""
+    import numpy as np
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(5)
@@ -1674,26 +1702,56 @@ def raw_kernel_checks(torch, native) -> dict:
         got = native.resize_bilinear_u8(src, size)
         torch.cuda.synchronize()
         if not torch.equal(got, native.resize_bilinear_u8_ref(src, size)):
-            fail(f"resize kernel ({name} {shape}) differs from its plain "
-                 "version")
+            fail(f"resize kernel ({name} {shape} to RGB) differs from its "
+                 "plain version")
         n, sh, sw, c = shape
         src_f = src.permute(0, 3, 1, 2).float().contiguous()
-        row = {"shape": list(shape), "out": [n, *size, c], "max_abs_err": 0,
+        src_f3 = src_f.expand(-1, 3, -1, -1).contiguous()
+
+        def interpolate(x):
+            return F.interpolate(x, size=size, mode="bilinear",
+                                 align_corners=False)
+        row = {"shape": list(shape), "out": [n, *size, 3], "max_abs_err": 0,
                **time_pair(torch, native.resize_bilinear_u8,
                            native.resize_bilinear_u8_ref, src, size),
                "library_call": "F.interpolate(bilinear, align_corners=False)"
-                               " on the frames as float32 NCHW",
-               "library_ms": graph_ms(torch, lambda: F.interpolate(
-                   src_f, size=size, mode="bilinear", align_corners=False)),
+                               " on the frames as float32 NCHW, 3 channels",
+               "library_ms": graph_ms(torch, lambda: interpolate(src_f3)),
                # 3 lerps (4 operations) and a rounding add per value, the
                # two axis maps (6 each) per pixel
-               **bound(n * sh * sw * c + n * size[0] * size[1] * c,
-                       n * size[0] * size[1] * (c * 13 + 12),
-                       "N*sh*sw*c + N*h*w*c", "N*h*w*(c*13 + 12)",
+               **bound(n * sh * sw * c + n * size[0] * size[1] * 3,
+                       n * size[0] * size[1] * (3 * 13 + 12),
+                       "N*sh*sw*c + N*h*w*3", "N*h*w*(3*13 + 12)",
                        FP32_FLOPS, "float32, CUDA cores")}
+        if c == 1:
+            row["library_ms_one_channel"] = graph_ms(
+                torch, lambda: interpolate(src_f))
         out[("resize", name)] = row
         emit("raw_kernel_check", kernel="resize_bilinear_u8", input=name,
              **row)
+    rng = np.random.default_rng(20261017)
+    sweep = []
+    for i in range(RESIZE_SWEEP):
+        sh, sw, dh, dw = (int(v) for v in rng.integers(16, 721, 4))
+        sc = 1 if i % 2 == 0 else 3
+        n = int(rng.integers(1, 5))
+        src = torch.randint(0, 256, (n, sh, sw, sc), dtype=torch.uint8,
+                            device="cuda", generator=g)
+        got = native.resize_bilinear_u8(src, (dh, dw))
+        torch.cuda.synchronize()
+        if not torch.equal(got, native.resize_bilinear_u8_ref(src, (dh, dw))):
+            fail(f"resize kernel differs from its plain version at "
+                 f"{n}x{sh}x{sw}x{sc} -> {dh}x{dw}x3")
+        sweep.append([n, sh, sw, sc, dh, dw])
+    kinds = {"upscales": sum(dh > sh and dw > sw for _, sh, sw, _, dh, dw
+                             in sweep),
+             "downscales": sum(dh < sh and dw < sw for _, sh, sw, _, dh, dw
+                               in sweep),
+             "gray_to_rgb": sum(c == 1 for _, _, _, c, _, _ in sweep)}
+    out["resize_sweep"] = {"sizes": len(sweep), "bitwise": True, **kinds,
+                           "n_sh_sw_sc_dh_dw": sweep}
+    emit("raw_kernel_check", kernel="resize_bilinear_u8",
+         input="sweep", **out["resize_sweep"])
     h, w = 360, 640
     y = torch.randint(0, 256, (h, w), dtype=torch.uint8, device="cuda",
                       generator=g)
@@ -1721,13 +1779,13 @@ def raw_kernel_checks(torch, native) -> dict:
 def fixture_decode_check(native) -> dict:
     """The committed fixture through ``decode_video`` on the card (the
     Huffman decode, the IDCT, colour and resize kernels) against cv2's
-    decode + resize: the grayscale frames as one channel, the colour ones
-    as RGB."""
+    decode + resize, RGB (cv2 gives a grayscale JPEG's value on all three
+    channels)."""
     import numpy as np
 
     ref = np.load(os.path.join(FIXTURE, "reference.npz"))
     out = {}
-    for kind, want in (("gray", ref["gray"][..., None]),
+    for kind, want in (("gray", np.repeat(ref["gray"][..., None], 3, -1)),
                        ("color", ref["color"])):
         paths = [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
                  for i in range(len(want))]
@@ -1928,7 +1986,9 @@ def raw_path_phase(torch, mk) -> dict:
         flownet = init_flownet_weights(FlowNet2SD(), torch.Generator()
                                        .manual_seed(1))
         flownet.to("cuda").eval()
-        # the last ped2 video, one channel on the card
+        # the last ped2 video's channel 0 on the card, as --gray_upload
+        # hands it to the extractor
+        video = video[..., :1].contiguous()
         extract = make_otf_flow_extractor(flownet, pad_to=192, gray=True)
         flownet_ms = time_ms(torch, lambda: extract(video), reps=5, warmup=1)
     torch.backends.cudnn.deterministic = deterministic
@@ -2136,12 +2196,15 @@ def main(argv=None) -> None:
             for name, run in raw["runs"].items()},
         "max_abs_err": 0,
         "ms": raw["kernels"][("resize", "gray")]["kernel_ms"],
+        "at": "32 gray 240x360 frames to 256x256 RGB",
         **{key: raw["kernels"][("resize", "gray")][key] for key in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "library_call")},
+            "bound_by", "library_ms", "library_call",
+            "library_ms_one_channel")},
         "at_colour_360x640": {key: raw["kernels"][("resize", "color")][key]
                               for key in ("kernel_ms", "plain_ms", "bound_ms",
                                           "bound_by", "library_ms")},
+        "sweep_sizes_bitwise": raw["kernels"]["resize_sweep"]["sizes"],
     }, {
         "name": "idct_islow_u8",
         "route": "cuda",

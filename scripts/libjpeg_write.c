@@ -12,7 +12,13 @@
  * approximation script: three DC stages, split AC bands, three AC stages),
  * "sarst" ("sa", restart interval 2, so EOB runs end at restarts),
  * "partial" (Huffman progressive whose AC bands are never refined to their
- * last bit, which libjpeg's decoder smooths).
+ * last bit, which libjpeg's decoder smooths), "dconly" (Huffman progressive,
+ * one DC scan and no AC scan: libjpeg smooths the DC too), "al1" (Huffman
+ * progressive: AC 1-9 coded once with Al = 1 and never refined, AC 10-63 in
+ * full), "chromadc" (Huffman progressive: luma in full, chroma DC alone),
+ * "arithpartial" ("partial", arithmetic-coded: SOF10).  The last five are
+ * the scripts libjpeg's decoder block-smooths (jdcoefct.c
+ * decompress_smooth_data).
  *
  * Built by tests/test_torch_native.py and scripts/make_torch_jpeg_fixture.py
  * with: gcc -O2 libjpeg_write.c -o libjpeg_write -ljpeg
@@ -78,6 +84,30 @@ int main(int argc, char** argv) {
     c.restart_interval = 7;
   } else if (!strcmp(mode, "rowrst")) {
     c.restart_in_rows = 1;
+  } else if (!strcmp(mode, "partial") || !strcmp(mode, "arithpartial")) {
+    int n = 0;
+    scan(&scans[n++], nc, 0, 0, 0, 0, 0);
+    for (int i = 0; i < nc; i++) scan(&scans[n++], 1, i, 1, 63, 0, 1);
+    c.scan_info = scans;
+    c.num_scans = n;
+    c.arith_code = !strcmp(mode, "arithpartial");
+  } else if (!strcmp(mode, "dconly")) {
+    scan(&scans[0], nc, 0, 0, 0, 0, 0);
+    c.scan_info = scans;
+    c.num_scans = 1;
+  } else if (!strcmp(mode, "al1")) {
+    int n = 0;
+    scan(&scans[n++], nc, 0, 0, 0, 0, 0);
+    for (int i = 0; i < nc; i++) scan(&scans[n++], 1, i, 1, 9, 0, 1);
+    for (int i = 0; i < nc; i++) scan(&scans[n++], 1, i, 10, 63, 0, 0);
+    c.scan_info = scans;
+    c.num_scans = n;
+  } else if (!strcmp(mode, "chromadc")) {
+    int n = 0;
+    scan(&scans[n++], nc, 0, 0, 0, 0, 0);
+    scan(&scans[n++], 1, 0, 1, 63, 0, 0);
+    c.scan_info = scans;
+    c.num_scans = n;
   } else if (!strncmp(mode, "arith", 5) || !strncmp(mode, "sof10", 5)) {
     c.arith_code = TRUE;
     if (!strncmp(mode, "sof10", 5)) jpeg_simple_progression(&c);
@@ -90,12 +120,6 @@ int main(int argc, char** argv) {
     c.scan_info = scans;
     c.num_scans = sa_script(scans, nc);
     if (!strcmp(mode, "sarst")) c.restart_interval = 2;
-  } else if (!strcmp(mode, "partial")) {
-    int n = 0;
-    scan(&scans[n++], nc, 0, 0, 0, 0, 0);
-    for (int i = 0; i < nc; i++) scan(&scans[n++], 1, i, 1, 63, 0, 1);
-    c.scan_info = scans;
-    c.num_scans = n;
   } else {
     return 2;
   }

@@ -19,33 +19,56 @@ own decode with it.  It writes, into ``tests/fixtures/torch_jpeg/``:
   arithmetic-coded and progressive (SOF10, quality 85,
   ``scripts/libjpeg_write.c`` mode ``sof10rst``: restart intervals of 3
   MCUs), which cv2 cannot write;
+* ``gray_c5.jpg``: a grayscale JPEG of seeded noise whose host-route
+  decode at 160x160 and at 248x103 puts a channel-0 value 1 LSB off
+  channels 1 and 2 (the JAX loader's build fuses that channel's product
+  the other way; fault C5 in ``ROADMAP.md``): the first of a seeded loop
+  of random sizes that does at both, at quality 95.  At 256x256 no JPEG
+  can show it: a power-of-two width makes every horizontal weight a
+  multiple of 1/512, so both fused orders are exact and equal;
+* ``smooth_partial.jpg``, ``smooth_dconly.jpg``, ``smooth_al1.jpg``,
+  ``smooth_arith.jpg``: progressive JPEGs that libjpeg block-smooths at
+  output (jdcoefct.c decompress_smooth_data), written by
+  ``scripts/libjpeg_write.c`` from crops of ``color_00.jpg`` and
+  ``gray_00.jpg``: 4:2:0 colour in mode ``partial`` (AC never refined past
+  Al = 1), grayscale in mode ``dconly`` (one DC scan: the DC is
+  re-estimated too), colour in mode ``al1`` (AC 1-9 once at Al = 1), and
+  grayscale in mode ``arithpartial`` (``partial``, arithmetic-coded);
 * ``libjpeg_reference.npz``: the port's host route
   (``ammcnet_aaai2021_torch.data.native.decode_video(device="cpu")``,
   libjpeg, then the float resize), which the GPU route must equal bitwise,
-  u8: ``gray_source`` (16, 240, 360) and ``gray_256`` (16, 256, 256), one
-  channel of the three equal ones; ``color_source`` (2, 360, 640, 3) and
-  ``color_256`` (2, 256, 256, 3); ``progressive_256`` (1, 256, 256, 3);
-  ``arithmetic_source`` (1, 240, 360) and ``arithmetic_256`` (1, 256,
-  256), one channel (the fixture stays under 3 MB, so the colour
-  progressive frame's reference is kept at 256x256 alone).
+  u8 RGB, every array (T, h, w, 3): ``gray_source`` (16, 240, 360) and
+  ``gray_256``; ``color_source`` (2, 360, 640) and ``color_256``;
+  ``progressive_256``; ``arithmetic_source`` (240, 360) and
+  ``arithmetic_256``; ``gray_c5_160``, ``gray_c5_248x103`` and
+  ``gray_c5_256``; each smoothing
+  file's ``_source`` and ``_256``.  It is a zip of ``.npy`` files as
+  ``np.savez`` writes, compressed with LZMA (``np.load`` reads it), so that
+  the fixture stays under 3 MB with the grayscale frames on three channels
+  (the colour progressive frame's reference is kept at 256x256 alone).
 
-JPEGs at quality 95 but the arithmetic one, from a fixed seed; the script
-builds the libjpeg writer with ``gcc -ljpeg``.  Run from the repository
-root:
+JPEGs at quality 95 but the libjpeg-written ones (85), from fixed seeds;
+the script needs cv2 and libjpeg's headers and library (it builds the
+libjpeg writer with ``gcc -ljpeg`` and the port's host loader with
+``g++ -ljpeg``).  Run from the repository root on such a host:
 
     python scripts/make_torch_jpeg_fixture.py               # everything
-    python scripts/make_torch_jpeg_fixture.py --keep-jpegs  # the last three
-                                                            # files, from the
-                                                            # committed JPEGs
+    python scripts/make_torch_jpeg_fixture.py --keep-jpegs  # all but the
+                                                            # cv2 frames and
+                                                            # reference.npz,
+                                                            # from the
+                                                            # committed ones
 """
 
 from __future__ import annotations
 
 import argparse
+import io
 import os
 import subprocess
 import sys
 import tempfile
+import zipfile
 
 import numpy as np
 
@@ -55,6 +78,15 @@ GRAY_FRAMES, GRAY_SHAPE = 16, (240, 360)
 COLOR_FRAMES, COLOR_SHAPE = 2, (360, 640)
 SIZE = (256, 256)
 QUALITY = 95
+# gray_c5.jpg: the seed of its loop and the sizes it is resized to, where
+# its channel 0 must be off (the ROADMAP reproducer's 248x103 among them)
+C5_SEED, C5_SIZES = 3, {"160": (160, 160), "248x103": (248, 103)}
+# the smoothing fixtures: (name, libjpeg_write.c mode, source, crop (top,
+# left, height, width)); ragged sizes, an odd number of 4:2:0 MCU rows
+SMOOTH = (("smooth_partial", "partial", "color", (40, 96, 136, 200)),
+          ("smooth_dconly", "dconly", "gray", (20, 60, 120, 172)),
+          ("smooth_al1", "al1", "color", (150, 300, 104, 168)),
+          ("smooth_arith", "arithpartial", "gray", (100, 150, 96, 140)))
 
 
 def gray_frames(rng: np.random.Generator) -> list:
@@ -91,66 +123,91 @@ def color_frames(rng: np.random.Generator) -> list:
     return frames
 
 
-def write_arithmetic(gray, path: str) -> None:
-    """A grayscale image written by libjpeg as an arithmetic-coded
-    progressive JPEG (``scripts/libjpeg_write.c``, mode ``sof10rst``)."""
-    import numpy as np
-
+def libjpeg_write(img, path: str, mode: str) -> None:
+    """``img`` (gray (h, w), or RGB (h, w, 3)) written by libjpeg in
+    ``scripts/libjpeg_write.c``'s ``mode``, which cv2 cannot ask for."""
     with tempfile.TemporaryDirectory() as tmp:
         writer = os.path.join(tmp, "libjpeg_write")
         subprocess.run(["gcc", "-O2", os.path.join(REPO, "scripts",
                                                    "libjpeg_write.c"),
                         "-o", writer, "-ljpeg"], check=True)
         raw = os.path.join(tmp, "in.raw")
-        np.ascontiguousarray(gray).tofile(raw)
-        subprocess.run([writer, raw, str(gray.shape[1]), str(gray.shape[0]),
-                        path, "sof10rst", "gray"], check=True)
+        np.ascontiguousarray(img).tofile(raw)
+        subprocess.run([writer, raw, str(img.shape[1]), str(img.shape[0]),
+                        path, mode] + (["gray"] if img.ndim == 2 else []),
+                       check=True)
+
+
+def write_gray_c5(native, path: str) -> None:
+    """The first of a seeded loop of grayscale noise JPEGs (random sizes,
+    quality 95) whose host-route decode has a channel-0 value off channels
+    1 and 2 at each of ``C5_SIZES``."""
+    import cv2
+
+    rng = np.random.default_rng(C5_SEED)
+    for _ in range(1000):
+        h, w = rng.integers(16, 160, 2)
+        img = rng.integers(0, 256, (h, w), np.uint8)
+        if not cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, QUALITY]):
+            raise RuntimeError(f"cv2 could not write {path}")
+        frames = [native.decode_video([path], size)
+                  for size in C5_SIZES.values()]
+        if all((f[..., 0] != f[..., 1]).any() for f in frames):
+            return
+    raise RuntimeError("no grayscale JPEG of the loop shows C5")
+
+
+def save_lzma_npz(path: str, arrays: dict) -> None:
+    """``np.savez``'s layout (one ``.npy`` a key in a zip), LZMA-compressed."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_LZMA) as z:
+        for name, arr in arrays.items():
+            buf = io.BytesIO()
+            np.lib.format.write_array(buf, np.ascontiguousarray(arr))
+            z.writestr(f"{name}.npy", buf.getvalue())
 
 
 def write_references() -> None:
-    """``progressive.jpg``, ``arithmetic.jpg``, and the host route's decode
-    of the committed JPEGs, at source size and at 256x256, into
-    ``libjpeg_reference.npz``."""
+    """``progressive.jpg``, ``arithmetic.jpg``, ``gray_c5.jpg``, the
+    smoothing fixtures, and the host route's decode of the committed JPEGs
+    into ``libjpeg_reference.npz``."""
     import cv2
 
     colour = cv2.imread(os.path.join(OUT, "color_00.jpg"))
+    gray = cv2.imread(os.path.join(OUT, "gray_00.jpg"), cv2.IMREAD_GRAYSCALE)
     if not cv2.imwrite(os.path.join(OUT, "progressive.jpg"), colour,
                        [cv2.IMWRITE_JPEG_QUALITY, QUALITY,
                         cv2.IMWRITE_JPEG_PROGRESSIVE, 1]):
         raise RuntimeError("cv2 could not write progressive.jpg")
-    write_arithmetic(cv2.imread(os.path.join(OUT, "gray_00.jpg"),
-                                cv2.IMREAD_GRAYSCALE),
-                     os.path.join(OUT, "arithmetic.jpg"))
+    libjpeg_write(gray, os.path.join(OUT, "arithmetic.jpg"), "sof10rst")
+    for name, mode, kind, (top, left, h, w) in SMOOTH:
+        img = (cv2.cvtColor(colour, cv2.COLOR_BGR2RGB) if kind == "color"
+               else gray)[top:top + h, left:left + w]
+        libjpeg_write(img, os.path.join(OUT, f"{name}.jpg"), mode)
     sys.path.insert(0, REPO)
     from ammcnet_aaai2021_torch.data import native
 
+    write_gray_c5(native, os.path.join(OUT, "gray_c5.jpg"))
+    kinds = [("gray", GRAY_FRAMES, {"source": GRAY_SHAPE}),
+             ("color", COLOR_FRAMES, {"source": COLOR_SHAPE}),
+             ("progressive", 1, {}), ("arithmetic", 1, {"source": GRAY_SHAPE}),
+             ("gray_c5", 1, C5_SIZES)]
+    kinds += [(name, 1, {"source": (h, w)})
+              for name, _, _, (_, _, h, w) in SMOOTH]
     out = {}
-    for kind, count, shape in (("gray", GRAY_FRAMES, GRAY_SHAPE),
-                               ("color", COLOR_FRAMES, COLOR_SHAPE),
-                               ("progressive", 1, None),
-                               ("arithmetic", 1, GRAY_SHAPE)):
+    for kind, count, sizes in kinds:
         paths = ([os.path.join(OUT, f"{kind}.jpg")] if count == 1 else
                  [os.path.join(OUT, f"{kind}_{i:02d}.jpg")
                   for i in range(count)])
-        for name, size in (("source", shape), ("256", SIZE)):
-            if size is None:
-                continue
-            frames = native.decode_video(paths, size)
-            if kind in ("gray", "arithmetic"):
-                if not (frames == frames[..., :1]).all():
-                    raise RuntimeError("the host route decoded a grayscale "
-                                       "JPEG to unequal channels")
-                frames = frames[..., 0]
-            out[f"{kind}_{name}"] = frames
-    np.savez_compressed(os.path.join(OUT, "libjpeg_reference.npz"), **out)
+        for name, size in {**sizes, "256": SIZE}.items():
+            out[f"{kind}_{name}"] = native.decode_video(paths, size)
+    save_lzma_npz(os.path.join(OUT, "libjpeg_reference.npz"), out)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--keep-jpegs", action="store_true",
-                        help="write progressive.jpg, arithmetic.jpg and "
-                             "libjpeg_reference.npz alone, from the "
-                             "committed JPEGs")
+                        help="keep the committed cv2 frames and "
+                             "reference.npz; write the rest from them")
     if parser.parse_args().keep_jpegs:
         write_references()
         return

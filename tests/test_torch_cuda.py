@@ -6,10 +6,12 @@ the repository's ``conftest.py`` imports JAX, so run it there with
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 
-The GPU JPEG route (``data/native.py``: the port's Huffman decode, then
-the IDCT, colour and resize kernels) is held against its plain versions
-bitwise, against the host libjpeg route's decode of the committed fixture
-bitwise and against cv2's within 1 LSB (``tests/fixtures/torch_jpeg``).
+The GPU JPEG route (``data/native.py``: the port's Huffman decode and
+block smoothing, then the IDCT, colour and resize kernels) is held against
+its plain versions bitwise (the resize on a sweep of random sizes too),
+against the host libjpeg route's decode of the committed fixture bitwise
+(grayscale frames as three channels, C5; smoothed progressive files, C6)
+and against cv2's within 1 LSB (``tests/fixtures/torch_jpeg``).
 The int8 convolution kernels are held against their plain versions
 bitwise: accumulators and epilogue; the int8 calibration reads JPEG
 training frames through the GPU route as its plain pipeline reads them.
@@ -531,20 +533,46 @@ FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("channels", [3, "1to3"])
 @pytest.mark.parametrize("src,size", [((240, 360), (256, 256)),
                                       ((360, 640), (256, 256)),
                                       ((37, 53), (64, 48))])
 def test_resize_kernel_matches_plain_version(cuda_device, channels, src,
                                              size):
     g = torch.Generator(device=cuda_device).manual_seed(25)
-    img = torch.randint(0, 256, (3, *src, channels), dtype=torch.uint8,
-                        device=cuda_device, generator=g)
+    img = torch.randint(0, 256, (3, *src, 3 if channels == 3 else 1),
+                        dtype=torch.uint8, device=cuda_device, generator=g)
     before = native.resize_bilinear_u8.launches
     out = native.resize_bilinear_u8(img, size)
     torch.cuda.synchronize()
     assert native.resize_bilinear_u8.launches == before + 1
+    assert out.shape == (3, *size, 3)
     assert torch.equal(out, native.resize_bilinear_u8_ref(img, size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_resize_kernel_is_its_plain_version_across_sizes(cuda_device, seed):
+    """The resize kernel bitwise its plain version on 12 seeded random
+    (sh, sw, dh, dw) from 16 to 720 pixels, up- and downscales, 1 -> 3 and
+    3 -> 3 channels, 1 to 4 frames, at an unaligned source
+    offset (the staging's byte head and tail) and in place: the host
+    build's fused multiply-adds, the row buffer's copy at both edges, the
+    tiling's column and row limits and its pairs of staged rows."""
+    rng = np.random.default_rng(100 + seed)
+    g = torch.Generator(device=cuda_device).manual_seed(seed)
+    for i in range(12):
+        sh, sw, dh, dw = (int(v) for v in rng.integers(16, 721, 4))
+        sc = 1 if i % 2 == 0 else 3
+        n = int(rng.integers(1, 5))
+        flat = torch.randint(0, 256, (n * sh * sw * sc + 5,),
+                             dtype=torch.uint8, device=cuda_device,
+                             generator=g)
+        img = flat[5:].view(n, sh, sw, sc)
+        out = native.resize_bilinear_u8(img, (dh, dw))
+        torch.cuda.synchronize()
+        assert torch.equal(out, native.resize_bilinear_u8_ref(
+            img, (dh, dw))), (sh, sw, dh, dw, sc)
 
 
 @pytest.mark.cuda
@@ -569,10 +597,10 @@ def test_colour_kernel_matches_plain_version(cuda_device, chroma):
 @pytest.mark.cuda
 def test_gpu_decode_of_the_fixture_is_within_its_tolerance(cuda_device):
     """The committed JPEGs through the GPU route against cv2's decode +
-    resize (``reference.npz``): grayscale frames come back as one channel
-    on the card, colour as RGB, every value within 1 LSB (libjpeg's decode,
-    then the float resize against cv2's fixed-point one), as the host route
-    is; every frame launched the kernels it needs."""
+    resize (``reference.npz``): grayscale and colour frames come back as
+    RGB on the card, every value within 1 LSB (libjpeg's decode, then the
+    float resize against cv2's fixed-point one), as the host route is;
+    every frame launched the kernels it needs."""
     ref = np.load(os.path.join(FIXTURE, "reference.npz"))
     launches = (native.resize_bilinear_u8.launches,
                 native.ycc_to_rgb_u8.launches)
@@ -581,7 +609,8 @@ def test_gpu_decode_of_the_fixture_is_within_its_tolerance(cuda_device):
         paths = [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
                  for i in range(len(want))]
         got = native.decode_video(paths, (256, 256), device=cuda_device)
-        assert got.device.type == "cuda" and got.shape == want.shape
+        assert got.device.type == "cuda"
+        assert got.shape == (len(paths), 256, 256, 3)
         diff = np.abs(got.cpu().numpy().astype(int) - want)
         assert diff.max() <= 1
     # one resize launch for the 16 gray frames and one for the 2 colour
@@ -592,16 +621,15 @@ def test_gpu_decode_of_the_fixture_is_within_its_tolerance(cuda_device):
 
 @pytest.mark.cuda
 def test_gpu_decode_of_a_mixed_video_is_rgb(cuda_device):
-    """A video of grayscale and colour JPEGs comes back as RGB, its
-    grayscale frame on all three channels, each frame as it decodes
-    alone."""
+    """A video of grayscale and colour JPEGs comes back as RGB, each frame
+    as it decodes alone (a grayscale video too is RGB, C5)."""
     paths = [os.path.join(FIXTURE, name) for name in ("gray_00.jpg",
                                                       "color_00.jpg")]
     got = native.decode_video(paths, (64, 64), device=cuda_device)
     gray = native.decode_video(paths[:1], (64, 64), device=cuda_device)
     colour = native.decode_video(paths[1:], (64, 64), device=cuda_device)
-    assert got.shape == (2, 64, 64, 3) and gray.shape == (1, 64, 64, 1)
-    assert torch.equal(got[:1], gray.expand(-1, -1, -1, 3))
+    assert got.shape == (2, 64, 64, 3) and gray.shape == (1, 64, 64, 3)
+    assert torch.equal(got[:1], gray)
     assert torch.equal(got[1:], colour)
 
 
@@ -646,7 +674,6 @@ def test_gpu_decode_is_the_host_route_bitwise(cuda_device, kind):
              for i in range(count)]
     for name in ("source", "256"):
         want = ref[f"{kind}_{name}"]
-        want = want[..., None] if kind == "gray" else want
         before = native.idct_islow_u8.launches
         got = native.decode_video(paths, want.shape[1:3], device=cuda_device)
         assert got.device.type == "cuda" and got.shape == want.shape
@@ -668,11 +695,37 @@ def test_gpu_decode_of_progressive_and_arithmetic_jpegs_is_libjpegs(
     assert names
     for name in names:
         want = ref[f"{kind}_{name}"]
-        want = want[..., None] if want.ndim == 3 else want
         got = native.decode_video([os.path.join(FIXTURE, f"{kind}.jpg")],
                                   want.shape[1:3], device=cuda_device)
         assert got.device.type == "cuda" and got.shape == want.shape
         np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gray_c5", "smooth_partial",
+                                  "smooth_dconly", "smooth_al1",
+                                  "smooth_arith"])
+def test_gpu_decode_of_c5_and_smoothing_fixtures_is_libjpegs(cuda_device,
+                                                             kind):
+    """Faults C5 and C6 on the card: ``gray_c5.jpg`` (a grayscale JPEG whose
+    channel 0 the host build rounds 1 LSB off at 160x160 and 248x103)
+    comes back as three channels, channel 0 with the host's rounding, and
+    the progressive files that libjpeg block-smooths come back smoothed,
+    each bitwise its host-libjpeg reference at every size
+    (``libjpeg_reference.npz``)."""
+    ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+    names = [k for k in ref.files if k.startswith(f"{kind}_")]
+    assert len(names) == (3 if kind == "gray_c5" else 2)
+    for name in names:
+        want = ref[name]
+        got = native.decode_video([os.path.join(FIXTURE, f"{kind}.jpg")],
+                                  want.shape[1:3], device=cuda_device)
+        assert got.device.type == "cuda" and got.shape == want.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if kind == "gray_c5":
+        for name in ("gray_c5_160", "gray_c5_248x103"):
+            want = ref[name]
+            assert (want[..., 0] != want[..., 1]).any()
 
 
 @pytest.mark.cuda

@@ -25,9 +25,18 @@ JAX package's loader.
   256x256, on the fixture and on cv2-written JPEGs (4:4:4, 4:2:2, 4:2:0,
   qualities 50 to 100, odd sizes, restart intervals) and libjpeg-written
   ones (non-interleaved scans, a restart marker at the end of every MCU
-  row); progressive and arithmetic-coded JPEGs raise their named errors;
-  the plain IDCT's range limit is jdmaster.c's table and libjpeg's zero-AC
-  shortcuts give what its full path gives;
+  row, progressive and arithmetic-coded scripts); lossless and 12-bit
+  JPEGs raise their named errors; the plain IDCT's range limit is
+  jdmaster.c's table and libjpeg's zero-AC shortcuts give what its full
+  path gives;
+* fault C5, repaired: a grayscale JPEG's plane resized to three channels
+  (``resize_bilinear_u8_ref``) is the JAX loader's RGB decode
+  bitwise, channel 0 with its own rounding, on ``gray_c5.jpg`` and on
+  random sizes;
+* fault C6, repaired: progressive scripts that libjpeg block-smooths at
+  output (AC never refined, DC alone, AC 1-9 at Al = 1, chroma DC alone,
+  arithmetic-coded; narrow and ragged sizes) decode bitwise through the
+  coefficient route and ``smooth_coefs``;
 * without cv2 the cv2 loaders raise ``ImportError`` naming
   ``--native_loader``.
 """
@@ -152,17 +161,27 @@ def test_gpu_decode_without_a_gpu_raises(jpegs):
         native.decode_video(jpegs["gray"], (64, 64), device="cuda")
 
 
-@pytest.mark.parametrize("channels", [1, 3])
+@pytest.mark.parametrize("channels", [3, "1to3", "1as3"])
 @pytest.mark.parametrize("src,size", [((240, 360), (256, 256)),
                                       ((37, 53), (64, 48)),
                                       ((64, 64), (64, 64))])
 def test_resize_plain_version_matches_cv2(channels, src, size):
+    """Three channels from 3, or from 1 ("1to3" against cv2's one-channel
+    resize; "1as3": bitwise the resize of the plane repeated on three
+    channels, and that against cv2's three-channel resize)."""
     rng = np.random.default_rng(7)
-    img = rng.integers(0, 256, (2, *src, channels), np.uint8)
+    img = rng.integers(0, 256, (2, *src, 3 if channels == 3 else 1),
+                       np.uint8)
     got = native.resize_bilinear_u8(torch.from_numpy(img), size).numpy()
-    assert got.shape == (2, *size, channels)
+    assert got.shape == (2, *size, 3)
+    if channels == "1as3":
+        img = np.ascontiguousarray(np.repeat(img, 3, axis=3))
+        np.testing.assert_array_equal(
+            got, native.resize_bilinear_u8(torch.from_numpy(img),
+                                           size).numpy())
     for frame, out in zip(img, got):
-        want = cv2.resize(frame, (size[1], size[0])).reshape(out.shape)
+        want = cv2.resize(frame, (size[1], size[0])).reshape(
+            (*size, img.shape[3]))
         assert int(np.abs(out.astype(int) - want).max()) <= 1
 
 
@@ -431,34 +450,127 @@ def test_coef_route_is_the_host_route(coef_images, tmp_path, case):
     _host_equals_coef_route([path], ODD_SHAPE)
 
 
+# libjpeg_reference.npz's kinds: baseline gray and colour frames, a
+# progressive and an arithmetic-coded one, C5's grayscale JPEG, and the
+# progressive files libjpeg block-smooths (C6); each kind's sizes
+REFERENCE_SIZES = {"gray": ["source", "256"], "color": ["source", "256"],
+                   "progressive": ["256"], "arithmetic": ["source", "256"],
+                   "gray_c5": ["160", "248x103", "256"],
+                   "smooth_partial": ["source", "256"],
+                   "smooth_dconly": ["source", "256"],
+                   "smooth_al1": ["source", "256"],
+                   "smooth_arith": ["source", "256"]}
+
+
 def fixture_paths(kind):
     """The committed fixture's JPEGs of one ``libjpeg_reference.npz`` kind."""
-    if kind in ("progressive", "arithmetic"):
-        return [os.path.join(FIXTURE, f"{kind}.jpg")]
-    return [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
-            for i in range({"gray": 16, "color": 2}[kind])]
+    if kind in ("gray", "color"):
+        return [os.path.join(FIXTURE, f"{kind}_{i:02d}.jpg")
+                for i in range({"gray": 16, "color": 2}[kind])]
+    return [os.path.join(FIXTURE, f"{kind}.jpg")]
 
 
-@pytest.mark.parametrize("kind", ["gray", "color", "progressive",
-                                  "arithmetic"])
-def test_coef_route_is_the_committed_libjpeg_reference(kind):
+@pytest.mark.parametrize("kind", list(REFERENCE_SIZES))
+def test_coef_route_is_the_committed_libjpeg_reference(kind, monkeypatch):
     """The fixture's ``libjpeg_reference.npz`` is the host route's decode,
-    and the coefficient route gives it bitwise, at source size and at
-    256x256 (the card holds its GPU route against the same file): the
-    baseline frames, the progressive one (SOF2, kept at 256x256 alone) and
-    the arithmetic-coded progressive one (SOF10, grayscale)."""
+    three channels a frame, bitwise the JAX loader's, and the coefficient
+    route gives it bitwise (the card holds its GPU route against the same
+    file): the baseline frames, the progressive one (SOF2, kept at 256x256
+    alone), the arithmetic-coded progressive one (SOF10, grayscale),
+    ``gray_c5.jpg`` (at 160x160 and 248x103 its channel 0 is off channels 1
+    and 2 where
+    the JAX loader's build rounds it so: C5) and the smoothing files (C6:
+    libjpeg smooths each, and unsmoothed they would decode otherwise)."""
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
     paths = fixture_paths(kind)
-    names = [n for n in ("source", "256") if f"{kind}_{n}" in ref]
-    assert names == (["256"] if kind == "progressive" else ["source", "256"])
+    names = [k[len(kind) + 1:] for k in ref.files
+             if k.startswith(f"{kind}_") and k[len(kind) + 1:] in (
+                 "source", "160", "248x103", "256")]
+    assert names == REFERENCE_SIZES[kind]
     for name in names:
         want = ref[f"{kind}_{name}"]
-        want = want[..., None] if want.ndim == 3 else want
         size = want.shape[1:3]
+        assert want.shape == (len(paths), *size, 3)
         host = native.decode_video(paths, size)
-        np.testing.assert_array_equal(np.broadcast_to(want, host.shape), host)
+        np.testing.assert_array_equal(want, host)
+        np.testing.assert_array_equal(want, jnative.decode_video(paths, size))
         got = native.decode_video_ref(paths, size).numpy()
         np.testing.assert_array_equal(got, host)
+        if kind == "gray_c5" and name != "256":
+            assert (want[..., 0] != want[..., 1]).any()
+            assert np.array_equal(want[..., 1], want[..., 2])
+    comps = native.decode_coefs(paths)[0]
+    assert all(c.smooth for c in comps) == kind.startswith("smooth")
+    if kind.startswith("smooth"):
+        unsmoothed = _unsmoothed_decode(monkeypatch, paths[0],
+                                        want.shape[1:3])
+        assert not np.array_equal(unsmoothed, want)
+
+
+def _unsmoothed_decode(monkeypatch, path, size):
+    """The coefficient route without libjpeg's block smoothing."""
+    with monkeypatch.context() as m:
+        m.setattr(native, "smooth_coefs", lambda comp: comp.coefs)
+        return native.decode_video_ref([path], size).numpy()
+
+
+# fault C5 (ROADMAP.md): grayscale noise JPEGs at random sizes, written by
+# cv2 at quality 95, resized to random sizes; image i of this loop.  The
+# JAX loader's channel 0 is 1 LSB off channels 1 and 2 on images 22, 34,
+# 80, 95, 125 and 139 (and on 119, 127, 128 and 129); 0 and 1 show none.
+def _c5_image(i):
+    rng = np.random.default_rng(5)
+    for _ in range(i + 1):
+        h, w = rng.integers(16, 200, 2)
+        size = tuple(int(v) for v in rng.integers(16, 300, 2))
+        img = rng.integers(0, 256, (h, w), np.uint8)
+    return img, size
+
+
+@pytest.mark.parametrize("image", [22, 34, 80, 95, 125, 139, 0, 1])
+def test_gray_jpeg_is_the_jax_loaders_rgb(tmp_path, image):
+    """Fault C5, repaired: the host route and the GPU route's plain version
+    (one plane, resized to three channels) give the JAX loader's RGB
+    decode of a grayscale JPEG bitwise, channel 0 included."""
+    img, size = _c5_image(image)
+    path = str(tmp_path / "g.jpg")
+    cv2.imwrite(path, img, [cv2.IMWRITE_JPEG_QUALITY, 95])
+    want = jnative.decode_video([path], size)
+    assert (want[..., 0] != want[..., 1]).any() == (image > 1)
+    np.testing.assert_array_equal(native.decode_video([path], size), want)
+    np.testing.assert_array_equal(native.decode_video_ref([path],
+                                                          size).numpy(), want)
+    # the plain resize of the one plane to three channels is the
+    # three-channel resize of the plane repeated
+    plane = torch.from_numpy(np.ascontiguousarray(
+        native.decode_video([path], img.shape)[..., :1]))
+    np.testing.assert_array_equal(
+        native.resize_bilinear_u8(plane, size).numpy(), want)
+
+
+
+@pytest.mark.parametrize("dw", [256, 248])
+def test_c5_needs_a_width_that_is_not_a_power_of_two(dw):
+    """Why ``gray_c5.jpg`` shows C5 at 160x160 and 248x103 and no JPEG can
+    at 256x256: at a power-of-two width every horizontal weight of a source
+    16 to 720 wide is a multiple of 1/512, so both orders in which the
+    host's build fuses a lerp (``fmaf(1 - w, a, w * b)``, and channel 0's
+    ``fmaf(w, b, (1 - w) * a)``) are exact and equal for every pair of
+    bytes; at 248 some differ."""
+    w = torch.unique(torch.cat([native._axis_map(sw, dw, "cpu")[2]
+                                for sw in range(16, 721)]))
+    v = torch.arange(256, dtype=torch.float32)
+    a, b = v[None, :, None], v[None, None, :]
+    differ = 0
+    for chunk in w.split(32):
+        wk = chunk[:, None, None]
+        differ += int((native._fmaf(1 - wk, a, wk * b)
+                       != native._fmaf(wk, b, (1 - wk) * a)).sum())
+        if differ:
+            break
+    assert (differ == 0) == (dw == 256)
+    if dw == 256:
+        assert torch.equal(w * 512, torch.round(w * 512))
 
 
 @pytest.fixture(scope="module")
@@ -544,33 +656,51 @@ def test_coef_route_takes_restarts_and_successive_approximation(
     _host_equals_coef_route([path], ODD_SHAPE)
 
 
-@pytest.mark.parametrize("case", ["lossless", "12bit", "unrefined"])
-def test_coef_route_names_what_it_does_not_take(coef_images, libjpeg_writer,
-                                                tmp_path, case):
+@pytest.mark.parametrize("case", ["lossless", "12bit"])
+def test_coef_route_names_what_it_does_not_take(coef_images, tmp_path, case):
     """A lossless header (SOF3) raises code 11 and a 12-bit one code 13, as
-    libjpeg's 8-bit decoder refuses both; a progressive frame whose AC
-    bands are never refined to their last bit raises code 10 (libjpeg
-    smooths such a frame's blocks at output, which the port does not)."""
+    libjpeg's 8-bit decoder refuses both."""
     path = str(tmp_path / "f.jpg")
-    if case == "unrefined":
-        libjpeg_writer(coef_images["scene"], "partial", path)
-        code = 10
+    cv2.imwrite(path, coef_images["scene"])
+    data = bytearray(open(path, "rb").read())
+    sof = data.index(b"\xff\xc0")
+    if case == "lossless":
+        data[sof + 1] = 0xC3
+        code = 11
     else:
-        cv2.imwrite(path, coef_images["scene"])
-        data = bytearray(open(path, "rb").read())
-        sof = data.index(b"\xff\xc0")
-        if case == "lossless":
-            data[sof + 1] = 0xC3
-            code = 11
-        else:
-            data[sof + 4] = 12  # the sample precision byte
-            code = 13
-        open(path, "wb").write(bytes(data))
+        data[sof + 4] = 12  # the sample precision byte
+        code = 13
+    open(path, "wb").write(bytes(data))
     with pytest.raises(RuntimeError, match=f"code {code}: "
-                       + native.ERRORS[code].split(" (")[0]):
+                       + native.ERRORS[code]):
         native.decode_coefs([path])
-    if case == "unrefined":  # libjpeg on the host decodes it
-        assert native.decode_video([path], (64, 64)).shape == (1, 64, 64, 3)
+
+
+@pytest.mark.parametrize("case", [
+    "partial-gray", "partial-color", "dconly-gray", "dconly-color",
+    "al1-gray", "al1-color", "chromadc-color", "arithpartial-gray",
+    "arithpartial-color", "partial-narrow", "dconly-narrow"])
+def test_coef_route_smooths_as_libjpeg(coef_images, libjpeg_writer, tmp_path,
+                                       monkeypatch, case):
+    """Fault C6, repaired: progressive scripts that leave one of the first
+    ten coefficients unrefined, which libjpeg-turbo block-smooths at output
+    (``scripts/libjpeg_write.c`` modes: AC never refined past Al = 1, the
+    DC alone, AC 1-9 at Al = 1, chroma DC alone, ``partial``
+    arithmetic-coded), gray and 4:2:0 colour at an odd size, and 2 blocks
+    wide (the column registers' edge): the coefficient route with
+    ``smooth_coefs`` is the host libjpeg route bitwise, and without the
+    smoothing it would not be."""
+    mode, kind = case.split("-")
+    img = _scene(coef_images, "gray" if kind == "narrow" else kind)
+    if kind == "narrow":
+        img = img[:61, :15]
+    path = libjpeg_writer(img, mode, str(tmp_path / "f.jpg"))
+    comps = native.decode_coefs([path])[0]
+    assert all(c.smooth for c in comps)
+    _host_equals_coef_route([path], img.shape[:2])
+    assert not np.array_equal(
+        _unsmoothed_decode(monkeypatch, path, img.shape[:2]),
+        native.decode_video([path], img.shape[:2]))
 
 
 def _idct_unclamped(coefs, qtables):

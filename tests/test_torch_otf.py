@@ -15,7 +15,10 @@
   float32 flows of those weights as the other (see the test).
 * ``score_dataset`` with the extractor: gray and 3-channel uploads give
   bitwise equal records (the broadcast is exact), a colour video under the
-  gray extractor raises, and ``op_root`` is never read.
+  gray extractor raises, and ``op_root`` is never read; on JPEG frames
+  through the native loader, a grayscale video whose first frame's channel
+  0 the resize rounded off channels 1 and 2 raises where the JAX package
+  raises, and otherwise the extractor gets the JAX package's channel 0.
 * ``score_dataset(use_native_loader=True)`` on a JPEG + ``.flo`` tree
   against the JAX ``score_dataset`` with its native loader: the records to
   1e-4 (float32 generators of two frameworks, as
@@ -231,3 +234,74 @@ def test_score_dataset_native_loader_matches_jax(tmp_path):
         for g, w in zip(got[key], want[key]):
             np.testing.assert_allclose(g, w, rtol=1e-4, atol=1e-4,
                                        err_msg=key)
+
+
+FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",
+                       "torch_jpeg")
+C5_SIZE = 160  # where gray_c5.jpg's channel 0 is off (libjpeg_reference.npz)
+
+
+class _Handed(Exception):
+    """Raised by the recording extractor once it has its input."""
+
+
+def _recording_extractor():
+    """A gray extractor that keeps the (T, h, w, 1) frames it is handed and
+    stops the scoring there."""
+    def extract(video_u8):
+        extract.frames = np.asarray(video_u8)
+        raise _Handed
+
+    extract.gray, extract.returns_pair, extract.frames = True, True, None
+    return extract
+
+
+@pytest.mark.parametrize("first", ["c5", "clean"])
+def test_gray_upload_of_jpeg_frames_acts_as_the_jax_package(tmp_path, first):
+    """Fault C5 under ``--gray_upload``: a grayscale JPEG video decoded by
+    the native loader at 160x160.  With ``gray_c5.jpg`` (channel 0 off in
+    places) as frame 0 both packages raise "not grayscale"; with a clean
+    frame 0 and ``gray_c5.jpg`` as frame 1 both hand their extractor the
+    same channel 0, the value that differs included."""
+    import shutil
+
+    frames = tmp_path / "toydata" / "testing" / "frames" / "01"
+    frames.mkdir(parents=True)
+    order = (["gray_c5.jpg", "gray_00.jpg"] if first == "c5"
+             else ["gray_00.jpg", "gray_c5.jpg"])
+    for t in range(6):
+        shutil.copyfile(os.path.join(FIXTURE, order[min(t, 1)]),
+                        frames / f"{t:03d}.jpg")
+    cfg = NetConfig(dtype="float32", n_embed=32)
+    net = init_weights(build_generator(cfg, per_sample_diff=True),
+                       torch.Generator().manual_seed(3)).eval()
+    variables = jax.tree.map(jnp.asarray, convert_twostream(
+        {k: v.numpy() for k, v in net.state_dict().items()}))
+    jgen = j_build_generator(JNetConfig(dtype="float32", n_embed=32),
+                             per_sample_diff=True)
+    kwargs = dict(image_size=C5_SIZE, scorer_mode="batch", batch_size=4,
+                  use_native_loader=True)
+    roots = (str(frames.parent), str(tmp_path / "no_flows_here"), "toydata")
+    handed = []
+    for score in (lambda ex: jinfer.score_dataset(
+                      jgen, variables, *roots, flow_extractor=ex, **kwargs),
+                  lambda ex: infer.score_dataset(net, *roots,
+                                                 flow_extractor=ex,
+                                                 **kwargs)):
+        ex = _recording_extractor()
+        if first == "c5":
+            with pytest.raises(ValueError, match="not grayscale"):
+                score(ex)
+            assert ex.frames is None
+        else:
+            with pytest.raises(_Handed):
+                score(ex)
+            handed.append(ex.frames)
+    if first == "clean":
+        want, got = handed
+        assert want.shape[1:] == (C5_SIZE, C5_SIZE, 1)
+        np.testing.assert_array_equal(got, want)
+        ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+        c5 = ref[f"gray_c5_{C5_SIZE}"][0]
+        np.testing.assert_array_equal(want[1, ..., 0], c5[..., 0])
+        assert (c5[..., 0] != c5[..., 1]).any()
