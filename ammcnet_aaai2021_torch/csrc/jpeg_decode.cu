@@ -10,7 +10,7 @@
 // no library on the card's machine hands out coefficients), a chunk of up
 // to kChunkFrames frames at a time into pinned memory, copied to the card
 // in one transfer, dequantized and inverse-transformed there by
-// `idct_islow_kernel` (libjpeg's accurate integer IDCT), a colour frame's
+// `idct_islow_kernel` (libjpeg's accurate integer IDCT), a colour chunk's
 // planes converted to RGB by `ycc_to_rgb_kernel`, and the chunk resized to
 // (dh, dw) by `resize_bilinear_kernel` straight into the caller's device
 // buffer, (T, dh, dw, 3) u8 RGB: a grayscale frame's one plane is resized
@@ -21,19 +21,24 @@
 // smooth_component).  While the card works on one chunk the host decodes
 // the next into the other of two pinned buffers.
 //
-// The IDCT is jidctint.c's jpeg_idct_islow (libjpeg-turbo 2.1.5,
-// JPEG_LIB_VERSION 62, which cv2 and the host loader run): dequantize,
-// a column pass with CONST_BITS 13 and PASS1_BITS 2 and its DESCALE
-// rounding, a row pass descaled by CONST_BITS + PASS1_BITS + 3, and the
-// range limit of jdmaster.c (index `x & 1023` into the post-IDCT table: x
-// + 128 clamped for -512 <= x < 512, wrapping beyond).  libjpeg's zero-AC
-// shortcuts give the same values as its full path (the DC term alone
-// descales to the same number), so the kernel always takes the full path.
-// Products of a valid 8-bit JPEG's dequantized coefficients stay within
-// 32 bits, as in libjpeg's SIMD build.  With libjpeg's planes, the colour
-// conversion below is libjpeg's (fancy upsampling, the jdcolor.c tables),
-// so a frame is bitwise the host route's; the plain version of each kernel
-// sits in ammcnet_aaai2021_torch/data/native.py.
+// The IDCT is libjpeg-turbo 2.1.5's islow IDCT (JPEG_LIB_VERSION 62, which
+// cv2 and the host loader run) as its x86 SIMD build computes it
+// (jidctint-avx2.asm; jsimd picks it over jidctint.c on any x86-64 host):
+// dequantize by pmullw (the low 16 bits of coefficient x table, the table
+// as a short), a column pass with CONST_BITS 13 and PASS1_BITS 2 whose
+// outputs are descaled and saturated to 16 bits (packssdw) -- or, when
+// rows 1-7 of the block are all zero, row 0 << PASS1_BITS in 16-bit lanes
+// -- and a row pass descaled by CONST_BITS + PASS1_BITS + 3 and saturated
+// to [-128, 127] (packssdw, packsswb) before + 128.  Its butterfly is
+// jidctint.c's with the sums in0 +- in4, in1 + in5, in3 + in7 in 16-bit
+// lanes.  On a real image's coefficients that is jidctint.c's result; it
+// differs where a lane wraps or saturates or a sum passes jidctint.c's
+// range limit (which wraps beyond +-512), as coefficients decoded from
+// zero bytes past a truncated arithmetic-coded frame's end do.  With
+// libjpeg's planes, the colour conversion below is libjpeg's (fancy
+// upsampling, the jdcolor.c tables), so a frame is bitwise the host
+// route's; the plain version of each kernel sits in
+// ammcnet_aaai2021_torch/data/native.py.
 //
 // The colour conversion is libjpeg's, which cv2 runs: "fancy" (triangle)
 // upsampling of 4:2:0 or 4:2:2 chroma (jdsample.c h2v2_fancy_upsample,
@@ -53,26 +58,27 @@
 // always writes three channels: a one-channel source is resized as the
 // host resizes its RGB decode, channel 0 with its own rounding.
 //
-// What bounds the kernels on this card: the IDCT and the colour kernel,
-// bytes.  The IDCT reads 2 bytes a coefficient and writes 1 a pixel, with
-// about 40 integer operations a pixel; the colour kernel reads 1.5 bytes
-// and writes 3 a pixel (4:2:0).  The resize moves few bytes (a 32-frame
-// gray 240x360 chunk reads 2.8 MB and writes 6.3 MB of 256x256 RGB, 2.7
-// microseconds at 3.35 TB/s): what held its first design back was
-// instructions and stores, each thread an output pixel that recomputed
-// both axis maps (an IEEE division each), walked back over earlier rows
-// for the row buffer's copy, gathered its 4 taps a channel through L1 and
-// stored single bytes.  So the resize now computes its axis taps once a
-// block into shared memory, stages the source rows a tile needs with
-// 16-byte loads, turns bytes into floats and rounds back by exponent
-// tricks in place of conversion instructions, and stores each thread's 16
-// whole pixels with 16-byte stores (resize_bilinear_kernel, below).  The
-// other kernels are simple: 8 threads an 8x8 block in the IDCT (a column
-// each, then a row each, through shared memory), one thread an output
-// pixel in the colour kernel, one IDCT launch per chunk and component,
-// one resize launch per chunk, one colour launch per colour frame, and one
-// stream per decoder, ordered after the caller's stream by an event and
-// before it by another, so the frames never leave the card.
+// What bounds the kernels on this card: bytes, with the integer work
+// close behind.  The IDCT reads 2 bytes a coefficient and writes 1 a
+// pixel, with about 25 integer operations a pixel; the colour kernel reads
+// 1.5 bytes and writes 3 a pixel (4:2:0), with about 28.  The resize moves
+// few bytes (a 32-frame gray 240x360 chunk reads 2.8 MB and writes 6.3 MB
+// of 256x256 RGB, 2.7 microseconds at 3.35 TB/s): what held its first
+// design back was instructions and stores, each thread an output pixel
+// that recomputed both axis maps (an IEEE division each), walked back over
+// earlier rows for the row buffer's copy, gathered its 4 taps a channel
+// through L1 and stored single bytes.  So the resize now computes its axis
+// taps once a block into shared memory, stages the source rows a tile
+// needs with 16-byte loads, turns bytes into floats and rounds back by
+// exponent tricks in place of conversion instructions, and stores each
+// thread's 16 whole pixels with 16-byte stores (resize_bilinear_kernel,
+// below).  The IDCT's and the colour kernel's tilings likewise lay the
+// grid over (rows, frames) with no division in a thread, stage what a
+// tile reads with coalesced copies, and store whole words.  One IDCT
+// launch per chunk and component, one colour launch and one resize launch
+// per chunk, and one stream per decoder, ordered after the caller's stream
+// by an event and before it by another, so the frames never leave the
+// card.
 //
 // Plain C interface, built with nvcc into a shared library and bound with
 // ctypes (ammcnet_aaai2021_torch/data/native.py).  Error codes are the
@@ -86,6 +92,7 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <chrono>
 #include <cmath>
 #include <cstdint>
 #include <cstdio>
@@ -106,33 +113,35 @@ enum : int {
 
 // jidctint.c's constants: CONST_BITS, PASS1_BITS and FIX(c) = c * 2^13
 constexpr int kConstBits = 13, kPass1Bits = 2;
+constexpr int F029 = 2446, F039 = 3196, F054 = 4433, F076 = 6270,
+              F089 = 7373, F117 = 9633, F150 = 12299, F184 = 15137,
+              F196 = 16069, F205 = 16819, F256 = 20995, F307 = 25172;
 
-// The butterfly of jidctint.c on 8 inputs along one axis (dequantized in
-// the column pass): the 8 outputs before their DESCALE.
+// A 16-bit lane's value: the low 16 bits of x, sign-extended.
+__device__ __forceinline__ int wrap16(int x) {
+  return static_cast<int16_t>(static_cast<uint16_t>(x));
+}
+
+// The butterfly of libjpeg-turbo's x86 SIMD islow IDCT (jidctint-avx2.asm,
+// jidctint-sse2.asm) on 8 inputs of 16 bits along one axis: jidctint.c's
+// butterfly with its products regrouped as pmaddwd pairs and the sums in0
+// +- in4, in1 + in5 and in3 + in7 taken in 16-bit lanes; the 8 outputs
+// before their DESCALE.  For 16-bit inputs no other sum leaves int32
+// (|out| < 1.7e9).
 __device__ __forceinline__ void idct_1d(const int d[8], int o[8]) {
-  int z1 = (d[2] + d[6]) * 4433;                 // FIX_0_541196100
-  const int tmp2 = z1 + d[6] * -15137;           // FIX_1_847759065
-  const int tmp3 = z1 + d[2] * 6270;             // FIX_0_765366865
-  const int tmp0 = (d[0] + d[4]) * (1 << kConstBits);
-  const int tmp1 = (d[0] - d[4]) * (1 << kConstBits);
+  const int tmp3 = d[2] * (F054 + F076) + d[6] * F054;
+  const int tmp2 = d[2] * F054 + d[6] * (F054 - F184);
+  const int tmp0 = wrap16(d[0] + d[4]) * (1 << kConstBits);
+  const int tmp1 = wrap16(d[0] - d[4]) * (1 << kConstBits);
   const int tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
   const int tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-  int t0 = d[7], t1 = d[5], t2 = d[3], t3 = d[1];
-  z1 = t0 + t3;
-  int z2 = t1 + t2, z3 = t0 + t2, z4 = t1 + t3;
-  const int z5 = (z3 + z4) * 9633;               // FIX_1_175875602
-  t0 *= 2446;                                    // FIX_0_298631336
-  t1 *= 16819;                                   // FIX_2_053119869
-  t2 *= 25172;                                   // FIX_3_072711026
-  t3 *= 12299;                                   // FIX_1_501321110
-  z1 *= -7373;                                   // FIX_0_899976223
-  z2 *= -20995;                                  // FIX_2_562915447
-  z3 = z3 * -16069 + z5;                         // FIX_1_961570560
-  z4 = z4 * -3196 + z5;                          // FIX_0_390180644
-  t0 += z1 + z3;
-  t1 += z2 + z4;
-  t2 += z2 + z3;
-  t3 += z1 + z4;
+  const int z3 = wrap16(d[7] + d[3]), z4 = wrap16(d[5] + d[1]);
+  const int z3p = z3 * (F117 - F196) + z4 * F117;
+  const int z4p = z3 * F117 + z4 * (F117 - F039);
+  const int t0 = d[7] * (F029 - F089) + d[1] * -F089 + z3p;
+  const int t3 = d[7] * -F089 + d[1] * (F150 - F089) + z4p;
+  const int t1 = d[5] * (F205 - F256) + d[3] * -F256 + z4p;
+  const int t2 = d[5] * -F256 + d[3] * (F307 - F256) + z3p;
   o[0] = tmp10 + t3;
   o[7] = tmp10 - t3;
   o[1] = tmp11 + t2;
@@ -147,67 +156,221 @@ __device__ __forceinline__ int descale(int x, int n) {
   return (x + (1 << (n - 1))) >> n;
 }
 
-// jdmaster.c's range limit as the IDCT indexes it (x & 1023 of a descaled,
-// centred value x).
-__device__ __forceinline__ uint8_t range_limit(int x) {
-  const int v = x & 1023;
-  if (v < 128) return static_cast<uint8_t>(v + 128);
-  if (v < 512) return 255;
-  if (v < 896) return 0;
-  return static_cast<uint8_t>(v - 896);
+// (c << 16) | sat_u8(a) << 8 | sat_u8(b): two ints saturated to bytes and
+// packed over c's low half (cvt.pack.sat.u8.s32.b32)
+__device__ __forceinline__ uint32_t pack_u8(int a, int b, uint32_t c) {
+  uint32_t d;
+  asm("cvt.pack.sat.u8.s32.b32 %0, %1, %2, %3;"
+      : "=r"(d) : "r"(a), "r"(b), "r"(c));
+  return d;
 }
 
-constexpr int kIdctBlocks = 32;  // 8x8 blocks a thread block, 8 threads each
+// 4 ints saturated to bytes, v[0] lowest
+__device__ __forceinline__ uint32_t pack4_u8(int v0, int v1, int v2, int v3) {
+  return pack_u8(v1, v0, pack_u8(v3, v2, 0));
+}
+
+// sat_s16(a) << 16 | sat_s16(b) (cvt.pack.sat.s16.s32: packssdw's
+// saturation)
+__device__ __forceinline__ uint32_t pack_s16(int a, int b) {
+  uint32_t d;
+  asm("cvt.pack.sat.s16.s32 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// Coefficient (row k, column c) of a block held as 8 uint4 rows (natural
+// order), dequantized by q (its table entry as a short) as pmullw does: the
+// low 16 bits of the product, sign-extended.  The high half of a word is
+// multiplied in place, so no carry from the low half reaches its bits.
+template <int K, int C>
+__device__ __forceinline__ int dequantize(const uint4 (&rows)[8], int q) {
+  const uint32_t* w = reinterpret_cast<const uint32_t*>(&rows[K]);
+  const uint32_t word = w[C >> 1];
+  if (C & 1) {
+    return static_cast<int>((word & 0xFFFF0000u) * static_cast<uint32_t>(q)) >>
+           16;
+  }
+  return wrap16(static_cast<int>(word * static_cast<uint32_t>(q)));
+}
+
+// Pass 1 of a block whose rows 1-7 are all zero, columns C and C + 1: row
+// 0 dequantized << PASS1_BITS in 16-bit lanes on every row, packed (the
+// SIMD build's shortcut).  qs: the table column-major, as ints.
+template <int C>
+__device__ __forceinline__ void dc_rows(const uint4 (&blk)[8], const int* qs,
+                                        uint32_t (&ws)[8][4]) {
+  const int lo = wrap16(dequantize<0, C>(blk, qs[C * 8]) * (1 << kPass1Bits));
+  const int hi =
+      wrap16(dequantize<0, C + 1>(blk, qs[(C + 1) * 8]) * (1 << kPass1Bits));
+  const uint32_t v = pack_s16(hi, lo);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) ws[r][C / 2] = v;
+}
+
+// Pass 1 of column C, descaled (not yet saturated).
+template <int C>
+__device__ __forceinline__ void column(const uint4 (&blk)[8], const int* qs,
+                                       int (&o)[8]) {
+  const int4 qa = *reinterpret_cast<const int4*>(qs + C * 8);
+  const int4 qb = *reinterpret_cast<const int4*>(qs + C * 8 + 4);
+  const int d[8] = {
+      dequantize<0, C>(blk, qa.x), dequantize<1, C>(blk, qa.y),
+      dequantize<2, C>(blk, qa.z), dequantize<3, C>(blk, qa.w),
+      dequantize<4, C>(blk, qb.x), dequantize<5, C>(blk, qb.y),
+      dequantize<6, C>(blk, qb.z), dequantize<7, C>(blk, qb.w)};
+  idct_1d(d, o);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) o[r] = descale(o[r], kConstBits - kPass1Bits);
+}
+
+// Pass 1 of columns C and C + 1, saturated to 16 bits and packed as
+// packssdw packs them: ws[r][C / 2] = column C + 1's row r << 16 | column
+// C's.
+template <int C>
+__device__ __forceinline__ void column_pair(const uint4 (&blk)[8],
+                                            const int* qs,
+                                            uint32_t (&ws)[8][4]) {
+  int even[8], odd[8];
+  column<C>(blk, qs, even);
+  column<C + 1>(blk, qs, odd);
+#pragma unroll
+  for (int r = 0; r < 8; ++r) ws[r][C / 2] = pack_s16(odd[r], even[r]);
+}
+
+// The IDCT's tiling: a CTA of (cols, rows) threads, a thread an 8x8 block,
+// covers `rows` block rows (strips) of one frame, `cols` blocks of each.
+constexpr int kIdctCols = 128;     // blocks a strip of a CTA, at most
+constexpr int kIdctThreads = 128;  // a CTA's threads, about
 
 // (F, bh, bw, 64) int16 quantized coefficients (natural order) and (F, 64)
-// uint16 tables -> (F, h, w) u8 planes, cropped.  Thread `lane` of a
-// block's 8 transforms column `lane`, then row `lane`.
-__global__ void idct_islow_kernel(const int16_t* __restrict__ coefs,
-                                  const uint16_t* __restrict__ qtables,
-                                  int nframes, int bh, int bw, int h, int w,
-                                  uint8_t* __restrict__ out) {
-  __shared__ int ws[kIdctBlocks][64];
-  const int group = threadIdx.x >> 3, lane = threadIdx.x & 7;
-  const int64_t per_frame = static_cast<int64_t>(bh) * bw;
-  const int64_t block = static_cast<int64_t>(blockIdx.x) * kIdctBlocks + group;
-  const bool valid = block < per_frame * nframes;
-  const int64_t frame = valid ? block / per_frame : 0;
-  const int rem = valid ? static_cast<int>(block - frame * per_frame) : 0;
-  const int by = rem / bw, bx = rem - (rem / bw) * bw;
-  if (valid) {
-    const int16_t* c = coefs + block * 64;
-    const uint16_t* q = qtables + frame * 64;
-    int d[8], o[8];
-    for (int k = 0; k < 8; ++k) {
-      // DEQUANTIZE, the table as libjpeg stores it (short)
-      d[k] = static_cast<int>(c[k * 8 + lane]) *
-             static_cast<int>(static_cast<int16_t>(q[k * 8 + lane]));
+// uint16 tables -> (F, h, w) u8 planes, cropped; `aligned`: every output
+// row starts on 8 bytes (w % 8 == 0 and `out` 8-aligned).
+// CTA (bx, by, bz): strips [bx * rows, +rows) of frames bz, bz + gridDim.z,
+// ..., blocks [by * cols, +cols) of each.  The frame's table goes to shared
+// memory as ints (short-cast), the tile's coefficients by 16-byte cp.async
+// copies, coalesced (a strip's blocks are one contiguous run), each block's
+// eight 16-byte rows at row ^ (block & 7) so that the 8 threads of a
+// quarter-warp, reading row k of 8 consecutive blocks, hit 8 distinct bank
+// groups.  A thread then holds its block in registers: pass 1 (columns)
+// descaled and saturated to 16 bits, or, where rows 1-7 of the block are
+// all zero, row 0 << PASS1_BITS in 16 bits (the SIMD build's shortcut);
+// pass 2 (rows) descaled and saturated to samples; each 8-pixel row stored
+// as one 8-byte word, a warp's 32 blocks of a strip one contiguous 256-byte
+// run per row.  Bitwise the plain version (idct_islow_u8_ref).
+__global__ void __launch_bounds__(kIdctThreads) idct_islow_kernel(
+    const int16_t* __restrict__ coefs, const uint16_t* __restrict__ qtables,
+    int nframes, int bh, int bw, int h, int w, bool aligned,
+    uint8_t* __restrict__ out) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int cols = blockDim.x, rows = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  // the table as shorts widened to ints, column-major (column C's eight
+  // quantizers one 32-byte run)
+  int* qs = reinterpret_cast<int*>(smem + rows * cols * 128);
+  const int by = blockIdx.x * rows + ty;
+  const int bx = blockIdx.y * cols + tx;
+  const int ncols = min(cols, bw - static_cast<int>(blockIdx.y) * cols);
+  const int tid = ty * cols + tx;
+  uint8_t* tile = smem + ty * cols * 128;
+  for (int f = blockIdx.z; f < nframes; f += gridDim.z) {
+    for (int i = tid; i < 64; i += rows * cols) {
+      qs[(i & 7) * 8 + (i >> 3)] =
+          static_cast<int16_t>(qtables[static_cast<size_t>(f) * 64 + i]);
     }
-    idct_1d(d, o);
-    for (int k = 0; k < 8; ++k) {
-      ws[group][k * 8 + lane] = descale(o[k], kConstBits - kPass1Bits);
+    if (by < bh) {
+      const uint8_t* g = reinterpret_cast<const uint8_t*>(coefs) +
+                         ((static_cast<size_t>(f) * bh + by) * bw +
+                          static_cast<size_t>(blockIdx.y) * cols) * 128;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const int j = tx + k * cols;  // 16-byte chunk j of the strip's run
+        if (j < ncols * 8) {
+          const int b = j >> 3, r = j & 7;
+          const uint32_t dst = static_cast<uint32_t>(__cvta_generic_to_shared(
+              tile + b * 128 + ((r ^ (b & 7)) << 4)));
+          asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                       "l"(g + j * 16));
+        }
+      }
     }
-  }
-  __syncwarp();  // a block's 8 threads share a warp
-  if (!valid) return;
-  int d[8], o[8];
-  for (int k = 0; k < 8; ++k) d[k] = ws[group][lane * 8 + k];
-  idct_1d(d, o);
-  const int y = by * 8 + lane;
-  if (y >= h) return;
-  uint8_t* row = out + (frame * h + y) * static_cast<int64_t>(w) + bx * 8;
-  for (int k = 0; k < 8 && bx * 8 + k < w; ++k) {
-    row[k] = range_limit(descale(o[k], kConstBits + kPass1Bits + 3));
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    if (by < bh && tx < ncols) {
+      uint4 blk[8];
+      const uint8_t* mine = tile + tx * 128;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        blk[k] = *reinterpret_cast<const uint4*>(mine + ((k ^ (tx & 7)) << 4));
+      }
+      uint32_t ac = 0;
+#pragma unroll
+      for (int k = 1; k < 8; ++k) ac |= blk[k].x | blk[k].y | blk[k].z | blk[k].w;
+      // pass 1's outputs, 16-bit, packed: ws[r][c / 2] holds row r's
+      // columns c (low half) and c + 1 (high half)
+      uint32_t ws[8][4];
+      if (ac == 0) {
+        dc_rows<0>(blk, qs, ws);
+        dc_rows<2>(blk, qs, ws);
+        dc_rows<4>(blk, qs, ws);
+        dc_rows<6>(blk, qs, ws);
+      } else {
+        column_pair<0>(blk, qs, ws);
+        column_pair<2>(blk, qs, ws);
+        column_pair<4>(blk, qs, ws);
+        column_pair<6>(blk, qs, ws);
+      }
+      const int x0 = bx * 8;
+#pragma unroll
+      for (int r = 0; r < 8; ++r) {
+        const int y = by * 8 + r;
+        if (y >= h) break;
+        int d[8], o[8];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          d[2 * c] = wrap16(static_cast<int>(ws[r][c]));
+          d[2 * c + 1] = static_cast<int>(ws[r][c]) >> 16;
+        }
+        idct_1d(d, o);
+        // descaled, + CENTERJSAMPLE (a multiple of 2^18 before the shift),
+        // saturated to [0, 255]: the SIMD build's saturation to [-128,
+        // 127] before its + 128
+        constexpr int kRound = (1 << (kConstBits + kPass1Bits + 2)) +
+                               (128 << (kConstBits + kPass1Bits + 3));
+#pragma unroll
+        for (int k = 0; k < 8; ++k) {
+          o[k] = (o[k] + kRound) >> (kConstBits + kPass1Bits + 3);
+        }
+        const uint32_t lo = pack4_u8(o[0], o[1], o[2], o[3]);
+        const uint32_t hi = pack4_u8(o[4], o[5], o[6], o[7]);
+        uint8_t* row = out + (static_cast<size_t>(f) * h + y) * w + x0;
+        if (aligned && x0 + 8 <= w) {
+          *reinterpret_cast<uint2*>(row) = make_uint2(lo, hi);
+        } else {
+          for (int k = 0; k < 8 && x0 + k < w; ++k) {
+            row[k] = static_cast<uint8_t>((k < 4 ? lo >> (8 * k)
+                                                 : hi >> (8 * (k - 4))) & 0xFF);
+          }
+        }
+      }
+    }
+    __syncthreads();  // the tile and the table are restaged for the next frame
   }
 }
 
 cudaError_t launch_idct(const int16_t* coefs, const uint16_t* qtables,
                         int nframes, int bh, int bw, int h, int w,
                         uint8_t* out, cudaStream_t stream) {
-  const int64_t blocks = static_cast<int64_t>(nframes) * bh * bw;
-  const int grid = static_cast<int>((blocks + kIdctBlocks - 1) / kIdctBlocks);
-  idct_islow_kernel<<<grid, kIdctBlocks * 8, 0, stream>>>(
-      coefs, qtables, nframes, bh, bw, h, w, out);
+  const int cols = std::min(bw, kIdctCols);
+  const int rows = std::max(1, std::min(bh, kIdctThreads / cols));
+  const dim3 grid((bh + rows - 1) / rows, (bw + cols - 1) / cols,
+                  std::min(nframes, 65535));
+  if (reinterpret_cast<uintptr_t>(coefs) % 16 != 0) {
+    return cudaErrorMisalignedAddress;  // the cp.async copies take 16 bytes
+  }
+  const bool aligned = w % 8 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+  idct_islow_kernel<<<grid, dim3(cols, rows),
+                      rows * cols * 128 + 64 * sizeof(int), stream>>>(
+      coefs, qtables, nframes, bh, bw, h, w, aligned, out);
   return cudaGetLastError();
 }
 
@@ -502,60 +665,272 @@ cudaError_t launch_resize_as(const uint8_t* src, int n, int sh, int sw,
   return cudaGetLastError();
 }
 
-// One chroma plane (ch, cw) at full-resolution pixel (y, x), upsampled as
-// libjpeg does: (hs, vs) = (2, 2) h2v2 fancy, (2, 1) h2v1 fancy, (1, 1) as
-// it is.  Out-of-range neighbours are the edge's own samples.
-__device__ __forceinline__ int upsample(const uint8_t* c, int pitch, int ch,
-                                        int cw, int hs, int vs, int y, int x) {
-  if (hs == 1) return c[y * pitch + x];
-  const int col = x >> 1;
-  const bool odd = x & 1;
-  const int nb = odd ? min(col + 1, cw - 1) : max(col - 1, 0);
-  if (vs == 1) {
-    const uint8_t* row = c + y * pitch;
-    return (3 * row[col] + row[nb] + (odd ? 2 : 1)) >> 2;
+// The colour kernel's tiling: a CTA of (runs, rows) threads, a thread a
+// run of RUN output pixels of a row, covers `rows` rows of one frame and
+// runs * RUN columns.  RUN is 16 where the launch has enough of them to
+// fill the card (a chunk), else 4 (a frame: four times the threads, and
+// its chroma read straight from the planes through L1, since so small a
+// launch is bound by latency, not bytes, and a staging round adds one).
+constexpr int kYccRuns = 64;      // runs a CTA row, at most
+constexpr int kYccThreads = 256;  // a CTA's threads, about
+constexpr int64_t kYccWideRuns = 64 * 1024;  // 16-pixel runs that fill it
+
+// N bytes of a plane row from column c0 on as ints, columns clamped to
+// [0, cw) (edge samples standing in for missing neighbours)
+template <int N>
+__device__ __forceinline__ void row_bytes(const uint8_t* row, int c0, int cw,
+                                          int (&v)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) v[i] = __ldg(row + min(max(c0 + i, 0), cw - 1));
+}
+
+// N staged bytes from byte 3 of the 32-bit words at p on, as ints
+template <int N>
+__device__ __forceinline__ void staged_bytes(const uint32_t* p, int (&v)[N]) {
+  uint32_t words[(N + 6) / 4];
+#pragma unroll
+  for (int q = 0; q < (N + 6) / 4; ++q) words[q] = p[q];
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    v[i] = (words[(i + 3) >> 2] >> (8 * ((i + 3) & 3))) & 0xFF;
   }
-  const int r = y >> 1;
-  const int far = (y & 1) ? min(r + 1, ch - 1) : max(r - 1, 0);
-  const uint8_t* near_row = c + r * pitch;
-  const uint8_t* far_row = c + far * pitch;
-  const int this_sum = 3 * near_row[col] + far_row[col];
-  const int nb_sum = 3 * near_row[nb] + far_row[nb];
-  return (3 * this_sum + nb_sum + (odd ? 7 : 8)) >> 4;
 }
 
-// Y (h, w) and Cb, Cr (ch, cw) planes -> (h, w, 3) u8 RGB, libjpeg's
-// upsampling and jdcolor.c's tables (FIX(1.40200) = 91881, FIX(1.77200) =
-// 116130, FIX(0.71414) = 46802, FIX(0.34414) = 22554, ONE_HALF = 32768).
-__global__ void ycc_to_rgb_kernel(const uint8_t* __restrict__ yp, int ypitch,
-                                  const uint8_t* __restrict__ cb,
-                                  const uint8_t* __restrict__ cr, int cpitch,
-                                  int h, int w, int ch, int cw, int hs, int vs,
-                                  uint8_t* __restrict__ rgb) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y * blockDim.y + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const int luma = yp[y * ypitch + x];
-  const int b = upsample(cb, cpitch, ch, cw, hs, vs, y, x) - 128;
-  const int r = upsample(cr, cpitch, ch, cw, hs, vs, y, x) - 128;
-  const int red = luma + ((91881 * r + 32768) >> 16);
-  const int green = luma + ((-22554 * b + 32768 - 46802 * r) >> 16);
-  const int blue = luma + ((116130 * b + 32768) >> 16);
-  uint8_t* d = rgb + (static_cast<int64_t>(y) * w + x) * 3;
-  d[0] = static_cast<uint8_t>(min(max(red, 0), 255));
-  d[1] = static_cast<uint8_t>(min(max(green, 0), 255));
-  d[2] = static_cast<uint8_t>(min(max(blue, 0), 255));
+// Y (F, h, w) and Cb, Cr (F, ch, cw) u8 planes -> (F, h, w, 3) u8 RGB:
+// libjpeg's fancy upsampling (HS, VS) = (2, 2) h2v2, (2, 1) h2v1, (1, 1)
+// none (jdsample.c, edge samples standing in for missing neighbours) and
+// jdcolor.c's tables (FIX(1.40200) = 91881, FIX(1.77200) = 116130,
+// FIX(0.71414) = 46802, FIX(0.34414) = 22554, ONE_HALF = 32768, the
+// chroma's - 128 folded into each constant term); `aligned`: every run
+// starts on a whole word of Y and of RGB (w % RUN == 0 and the buffers
+// 16-aligned); `chroma_words`: every chroma row starts on 4 bytes.
+// CTA (bx, by, bz): rows [bx * rows, +rows) and columns [by * runs * RUN,
+// ...) of frames bz, bz + gridDim.z, ...  At RUN 16 the chroma rows and
+// columns the tile reads (one more on each side for the triangle filter,
+// the edge rows and columns replicated) are staged once into shared
+// memory by 32-bit words, so a chroma sample is read from memory once a
+// tile.  Each thread loads its run's
+// luma bytes in one load before the staging (the two overlap), then forms
+// the chroma column sums (3 * near row + far row) of its RUN / HS + 2
+// chroma columns from shared memory, converts four pixels (one luma word)
+// at a time, saturates and packs four bytes at a time (cvt.pack.sat) and
+// stores its 3 * RUN RGB bytes as three words (16 bytes each at RUN 16).
+// Bitwise the plain version (ycc_to_rgb_u8_ref).
+template <int HS, int VS, int RUN>
+__global__ void __launch_bounds__(kYccThreads) ycc_to_rgb_kernel(
+    const uint8_t* __restrict__ yp, const uint8_t* __restrict__ cbp,
+    const uint8_t* __restrict__ crp, int nframes, int h, int w, int ch,
+    int cw, bool aligned, bool chroma_words, uint8_t* __restrict__ rgb) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  constexpr int kCols = RUN / HS + 2;  // chroma columns a run reads
+  constexpr bool kStaged = RUN == 16;
+  const int runs = blockDim.x, rows = blockDim.y;
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int y0 = blockIdx.x * rows;
+  const int x0 = blockIdx.y * runs * RUN;
+  // staged chroma: slot s of a plane holds chroma row r_lo - 1 + s (VS 2;
+  // VS 1: r_lo + s), clamped; byte j of a slot chroma column c_lo - 4 + j,
+  // clamped (c_lo is a multiple of 8, so a slot's words are the row's
+  // words); slots of `words` 32-bit words
+  const int r_lo = y0 / VS, c_lo = x0 / HS;
+  const int nslots =
+      VS == 2 ? (min(y0 + rows, h) - 1) / 2 - r_lo + 3 : min(rows, h - y0);
+  const int words = (runs * RUN / HS + 5 + 3) / 4;
+  uint32_t* stage[2] = {reinterpret_cast<uint32_t*>(smem),
+                        reinterpret_cast<uint32_t*>(smem) + nslots * words};
+  const size_t luma = static_cast<size_t>(h) * w;
+  const size_t chroma = static_cast<size_t>(ch) * cw;
+  const int y = y0 + ty, x = x0 + tx * RUN;
+  const bool active = y < h && x < w;
+  const int count = active ? min(RUN, w - x) : 0;
+  for (int f = blockIdx.z; f < nframes; f += gridDim.z) {
+    // the run's luma first, so its load overlaps the staging
+    uint32_t lw[RUN / 4];
+    const uint8_t* ysrc = yp + f * luma + static_cast<size_t>(y) * w + x;
+    if (active && aligned && count == RUN) {
+      if constexpr (RUN == 16) {
+        const uint4 v = __ldg(reinterpret_cast<const uint4*>(ysrc));
+        lw[0] = v.x;
+        lw[1] = v.y;
+        lw[2] = v.z;
+        lw[3] = v.w;
+      } else {
+        lw[0] = __ldg(reinterpret_cast<const uint32_t*>(ysrc));
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < RUN / 4; ++i) lw[i] = 0;
+      for (int i = 0; i < count; ++i) {
+        lw[i >> 2] |= static_cast<uint32_t>(ysrc[i]) << (8 * (i & 3));
+      }
+    }
+    if constexpr (kStaged) {
+      for (int p = 0; p < 2; ++p) {
+        const uint8_t* plane = (p ? crp : cbp) + f * chroma;
+        for (int s = ty; s < nslots; s += rows) {
+          const int r = min(max(r_lo + s - (VS == 2 ? 1 : 0), 0), ch - 1);
+          const uint8_t* src = plane + static_cast<size_t>(r) * cw;
+          for (int q = tx; q < words; q += runs) {
+            const int c = c_lo - 4 + 4 * q;
+            uint32_t word;
+            if (chroma_words && c >= 0 && c + 4 <= cw) {
+              word = __ldg(reinterpret_cast<const uint32_t*>(src + c));
+            } else {  // the edges, clamped
+              word = 0;
+#pragma unroll
+              for (int b = 0; b < 4; ++b) {
+                word |= static_cast<uint32_t>(
+                            src[min(max(c + b, 0), cw - 1)]) << (8 * b);
+              }
+            }
+            stage[p][s * words + q] = word;
+          }
+        }
+      }
+      __syncthreads();
+    }
+    if (active) {
+      // the chroma column sums of the run's columns (3 * near row + far
+      // row where VS is 2, the samples where it is 1): sum[p][j] is column
+      // x / HS - 1 + j of Cb (p 0) or Cr (p 1), staged byte x / HS - 1 -
+      // (c_lo - 4), byte 3 of the slot's word q0
+      int sum[2][kCols];
+      const int q0 = tx * (RUN / HS) / 4;
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        const uint8_t* plane = (p ? crp : cbp) + f * chroma;
+        const int c0 = x / HS - 1;
+        if (VS == 2) {
+          int n[kCols], fv[kCols];
+          if constexpr (kStaged) {
+            const int near = y / 2 - r_lo + 1;
+            const int far = (y & 1) ? near + 1 : near - 1;
+            staged_bytes(stage[p] + near * words + q0, n);
+            staged_bytes(stage[p] + far * words + q0, fv);
+          } else {
+            const int near = y / 2;
+            const int far = (y & 1) ? min(near + 1, ch - 1) : max(near - 1, 0);
+            row_bytes(plane + static_cast<size_t>(near) * cw, c0, cw, n);
+            row_bytes(plane + static_cast<size_t>(far) * cw, c0, cw, fv);
+          }
+#pragma unroll
+          for (int i = 0; i < kCols; ++i) sum[p][i] = 3 * n[i] + fv[i];
+        } else if constexpr (kStaged) {
+          staged_bytes(stage[p] + (y - y0) * words + q0, sum[p]);
+        } else {
+          row_bytes(plane + static_cast<size_t>(y) * cw, c0, cw, sum[p]);
+        }
+      }
+      // four pixels (a luma word, three RGB words) at a time
+      uint32_t ow[3 * RUN / 4];
+#pragma unroll
+      for (int g = 0; g < RUN / 4; ++g) {
+        int px[12];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int i = 4 * g + k;
+          int up[2];
+#pragma unroll
+          for (int p = 0; p < 2; ++p) {
+            const int c = i / HS + 1;  // this pixel's column in sum[p]
+            const int nb = (i & 1) ? c + 1 : c - 1;
+            if (HS == 1) {
+              up[p] = sum[p][c];
+            } else if (VS == 2) {  // (3 * sum[c] + nb + 8 | 7) >> 4
+              up[p] = (3 * sum[p][c] + sum[p][nb] + ((i & 1) ? 7 : 8)) >> 4;
+            } else {  // (3 * v[c] + nb + 1 | 2) >> 2
+              up[p] = (3 * sum[p][c] + sum[p][nb] + ((i & 1) ? 2 : 1)) >> 2;
+            }
+          }
+          const int l = static_cast<int>((lw[g] >> (8 * k)) & 0xFF);
+          px[3 * k] = l + ((91881 * up[1] + (32768 - 91881 * 128)) >> 16);
+          px[3 * k + 1] = l + ((-22554 * up[0] - 46802 * up[1] +
+                                (32768 + (22554 + 46802) * 128)) >> 16);
+          px[3 * k + 2] =
+              l + ((116130 * up[0] + (32768 - 116130 * 128)) >> 16);
+        }
+#pragma unroll
+        for (int k = 0; k < 3; ++k) {
+          ow[3 * g + k] = pack4_u8(px[4 * k], px[4 * k + 1], px[4 * k + 2],
+                                   px[4 * k + 3]);
+        }
+      }
+      uint8_t* dst = rgb + (f * luma + static_cast<size_t>(y) * w + x) * 3;
+      if (aligned && count == RUN) {
+        if constexpr (RUN == 16) {
+#pragma unroll
+          for (int i = 0; i < 3; ++i) {
+            reinterpret_cast<uint4*>(dst)[i] = make_uint4(
+                ow[4 * i], ow[4 * i + 1], ow[4 * i + 2], ow[4 * i + 3]);
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < 3 * RUN / 4; ++i) {
+            reinterpret_cast<uint32_t*>(dst)[i] = ow[i];
+          }
+        }
+      } else {
+        for (int k = 0; k < count * 3; ++k) {
+          dst[k] = static_cast<uint8_t>((ow[k >> 2] >> (8 * (k & 3))) & 0xFF);
+        }
+      }
+    }
+    if constexpr (kStaged) __syncthreads();  // restaged for the next frame
+  }
 }
 
-cudaError_t launch_ycc(const uint8_t* y, int ypitch, const uint8_t* cb,
-                       const uint8_t* cr, int cpitch, int h, int w, int ch,
-                       int cw, int hs, int vs, uint8_t* rgb,
-                       cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const dim3 grid((w + 31) / 32, (h + 7) / 8);
-  ycc_to_rgb_kernel<<<grid, block, 0, stream>>>(y, ypitch, cb, cr, cpitch, h,
-                                                w, ch, cw, hs, vs, rgb);
+template <int HS, int VS, int RUN>
+cudaError_t launch_ycc_run(const uint8_t* y, const uint8_t* cb,
+                          const uint8_t* cr, int nframes, int h, int w,
+                          int ch, int cw, uint8_t* rgb, cudaStream_t stream) {
+  const int run_count = (w + RUN - 1) / RUN;
+  const int runs = std::min(run_count, kYccRuns);
+  int rows = std::max(1, std::min(h, kYccThreads / runs));
+  if (VS == 2 && rows > 1) rows &= ~1;
+  const int nslots = VS == 2 ? rows / 2 + 3 : rows;
+  const int words = (runs * RUN / HS + 5 + 3) / 4;
+  const dim3 grid((h + rows - 1) / rows, (run_count + runs - 1) / runs,
+                  std::min(nframes, 65535));
+  const bool aligned = w % RUN == 0 &&
+                       reinterpret_cast<uintptr_t>(y) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(rgb) % 16 == 0;
+  const bool chroma_words = cw % 4 == 0 &&
+                            reinterpret_cast<uintptr_t>(cb) % 4 == 0 &&
+                            reinterpret_cast<uintptr_t>(cr) % 4 == 0;
+  const int smem = RUN == 16 ? 2 * nslots * words * 4 : 0;  // staged at 16
+  ycc_to_rgb_kernel<HS, VS, RUN><<<grid, dim3(runs, rows), smem, stream>>>(
+      y, cb, cr, nframes, h, w, ch, cw, aligned, chroma_words, rgb);
   return cudaGetLastError();
+}
+
+template <int HS, int VS>
+cudaError_t launch_ycc_as(const uint8_t* y, const uint8_t* cb,
+                          const uint8_t* cr, int nframes, int h, int w,
+                          int ch, int cw, uint8_t* rgb, cudaStream_t stream) {
+  const int64_t wide = static_cast<int64_t>(nframes) * h * ((w + 15) / 16);
+  if (wide >= kYccWideRuns) {
+    return launch_ycc_run<HS, VS, 16>(y, cb, cr, nframes, h, w, ch, cw, rgb,
+                                     stream);
+  }
+  return launch_ycc_run<HS, VS, 4>(y, cb, cr, nframes, h, w, ch, cw, rgb,
+                                  stream);
+}
+
+// One colour launch: nframes frames' Y (h, w) and Cb, Cr (ch, cw) planes,
+// each plane's frames contiguous; (hs, vs) the chroma factors.
+cudaError_t launch_ycc(const uint8_t* y, const uint8_t* cb, const uint8_t* cr,
+                       int nframes, int h, int w, int ch, int cw, int hs,
+                       int vs, uint8_t* rgb, cudaStream_t stream) {
+  if (hs == 2 && vs == 2) {
+    return launch_ycc_as<2, 2>(y, cb, cr, nframes, h, w, ch, cw, rgb, stream);
+  }
+  if (hs == 2 && vs == 1) {
+    return launch_ycc_as<2, 1>(y, cb, cr, nframes, h, w, ch, cw, rgb, stream);
+  }
+  if (hs == 1 && vs == 1) {
+    return launch_ycc_as<1, 1>(y, cb, cr, nframes, h, w, ch, cw, rgb, stream);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // One resize launch: sc 1 or 3 channels in, three out.
@@ -649,9 +1024,18 @@ struct Frame {
   ammc_jpeg::Info info;
 };
 
+// A call's kernel launches, and the host's wall seconds in its two
+// phases: reading the files and parsing their headers, and the entropy
+// decode (with block smoothing) of every chunk.
 struct Launches {
   int idct = 0, ycc = 0, resize = 0;
+  double read_s = 0, entropy_s = 0;
 };
+
+double seconds_since(std::chrono::steady_clock::time_point t0) {
+  return std::chrono::duration<double>(std::chrono::steady_clock::now() - t0)
+      .count();
+}
 
 // Every file read and its headers parsed, on the host's threads, so the
 // output's channels are known before the first write and no file fails
@@ -675,7 +1059,7 @@ int read_frames(const char** paths, int n, int n_threads,
 
 // Frames [first, first + count) of one geometry: entropy decode on the
 // host into a pinned buffer, one copy to the card, the IDCT per component,
-// the colour conversion per colour frame, one resize into `out`.
+// one colour conversion for a colour chunk, one resize into `out`.
 int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
                  int count, int n_threads, int dh, int dw, uint8_t* out,
                  Launches* launches) {
@@ -697,6 +1081,7 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
     return kCuda;
   }
   uint8_t* host = dec->host[slot];
+  const auto t0 = std::chrono::steady_clock::now();
   const int rc = ammc_jpeg::parallel_for(count, n_threads, [&](int f) {
     const Frame& fr = frames[first + f];
     int16_t* coefs[ammc_jpeg::kMaxComps];
@@ -725,6 +1110,7 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
     ammc_jpeg::smooth_frame(info, unsmoothed, coefs, qts, sm);
     return static_cast<int>(kOk);
   });
+  launches->entropy_s += seconds_since(t0);
   if (rc != kOk) return rc;
   if (reserve(dec, &dec->coefs, &dec->coefs_bytes, bytes) != cudaSuccess ||
       cudaMemcpyAsync(dec->coefs, host, bytes, cudaMemcpyHostToDevice,
@@ -767,14 +1153,11 @@ int decode_chunk(Decoder* dec, const std::vector<Frame>& frames, int first,
         idct(2, cr) != cudaSuccess) {
       return kCuda;
     }
-    for (int f = 0; f < count; ++f) {
-      if (launch_ycc(y + luma * f, sw, cb + chroma * f, cr + chroma * f, cw,
-                     sh, sw, ch, cw, hs, vs, dec->staging + frame_in * f,
-                     dec->stream) != cudaSuccess) {
-        return kCuda;
-      }
-      ++launches->ycc;
+    if (launch_ycc(y, cb, cr, count, sh, sw, ch, cw, hs, vs, dec->staging,
+                   dec->stream) != cudaSuccess) {
+      return kCuda;
     }
+    ++launches->ycc;
   }
   // a gray frame's plane to RGB, as the host resizes libjpeg's RGB decode
   if (launch_resize(dec->staging, count, sh, sw, sc, out, dh, dw,
@@ -809,7 +1192,9 @@ int decode_video(Decoder* dec, const char** paths, int n, int dh, int dw,
                  Launches* launches) {
   if (cudaSetDevice(dec->device) != cudaSuccess) return kCuda;
   std::vector<Frame> frames;
+  const auto t0 = std::chrono::steady_clock::now();
   int rc = read_frames(paths, n, n_threads, &frames);
+  launches->read_s += seconds_since(t0);
   if (rc != kOk) return rc;
   // `out` may still be in use by work queued on the caller's stream
   if (cudaEventRecord(dec->ready, caller) != cudaSuccess ||
@@ -870,11 +1255,13 @@ int ammc_jpeg_decoder_create(int device, void** out) {
 // host threads.  The decode waits for the work queued on `stream` (the
 // caller's) so far, and `stream` waits for the decode.  *idct_launches,
 // *launches and *ycc_launches get the IDCT, the resize and the colour
-// kernel's launches.  Returns 0 or an error code (above).
+// kernel's launches, host_s[0] and host_s[1] the host's seconds reading
+// the files (and their headers) and entropy-decoding them.  Returns 0 or
+// an error code (above).
 int ammc_gpu_decode_video(void* handle, const char** paths, int n, int out_h,
                           int out_w, int n_threads, void* out, void* stream,
                           int* idct_launches, int* launches,
-                          int* ycc_launches) {
+                          int* ycc_launches, double* host_s) {
   auto* dec = static_cast<Decoder*>(handle);
   std::lock_guard<std::mutex> lock(dec->mu);
   Launches counts;
@@ -884,6 +1271,8 @@ int ammc_gpu_decode_video(void* handle, const char** paths, int n, int out_h,
   *idct_launches = counts.idct;
   *launches = counts.resize;
   *ycc_launches = counts.ycc;
+  host_s[0] = counts.read_s;
+  host_s[1] = counts.entropy_s;
   return rc;
 }
 
@@ -899,16 +1288,17 @@ int ammc_idct_islow_u8(const void* coefs, const void* qtables, int nframes,
                      static_cast<cudaStream_t>(stream));
 }
 
-// The colour kernel alone on device buffers: y (h, w), cb and cr (ch, cw)
-// u8, contiguous, (hs, vs) the chroma factors; rgb (h, w, 3) u8; on the
-// caller's stream.  Returns a cudaError_t.
-int ammc_ycc_to_rgb(const void* y, const void* cb, const void* cr, int h,
-                    int w, int ch, int cw, int hs, int vs, void* rgb,
-                    void* stream) {
-  return launch_ycc(static_cast<const uint8_t*>(y), w,
+// The colour kernel alone on device buffers: y (nframes, h, w), cb and cr
+// (nframes, ch, cw) u8, contiguous, (hs, vs) the chroma factors; rgb
+// (nframes, h, w, 3) u8; on the caller's stream, one launch.  Returns a
+// cudaError_t.
+int ammc_ycc_to_rgb(const void* y, const void* cb, const void* cr,
+                    int nframes, int h, int w, int ch, int cw, int hs, int vs,
+                    void* rgb, void* stream) {
+  return launch_ycc(static_cast<const uint8_t*>(y),
                     static_cast<const uint8_t*>(cb),
-                    static_cast<const uint8_t*>(cr), cw, h, w, ch, cw, hs, vs,
-                    static_cast<uint8_t*>(rgb),
+                    static_cast<const uint8_t*>(cr), nframes, h, w, ch, cw, hs,
+                    vs, static_cast<uint8_t*>(rgb),
                     static_cast<cudaStream_t>(stream));
 }
 

@@ -38,12 +38,24 @@
 // blocks hold; a sequential scan whose Ss, Se, Ah, Al are not 0, 63, 0, 0
 // (JWRN_NOT_SEQUENTIAL) is decoded as a sequential scan; an arithmetic
 // code that overflows (JWRN_ARITH_BAD_CODE) leaves the rest of its
-// restart interval at what the blocks hold.  A premature marker or the end
-// of the data feeds zero bits (Huffman; libjpeg warns, JWRN_HIT_MARKER) or
-// zero bytes (arithmetic, where it is legal), and the end of the file
-// reads as an EOI marker, as libjpeg's source manager inserts one; a
-// restart marker other than the one expected is corrupt data (libjpeg
-// resynchronises).
+// restart interval at what the blocks hold.  A truncated or cut-short
+// stream decodes as libjpeg-turbo decodes it: past the end of the file
+// the bytes read as its source manager's fake EOI (0xFF 0xD9 repeated);
+// a Huffman MCU that needs bits past a premature marker or that end gets
+// zero bits (JWRN_HIT_MARKER) and every later MCU of the scan is skipped
+// (jdhuff.c, jdphuff.c insufficient_data), its blocks left as they are:
+// zero in a sequential frame (the blocks are zeroed at the SOF, as
+// libjpeg zeroes its MCU buffer and pre-zeroes its arrays), what earlier
+// scans left in a progressive one; an arithmetic scan goes on with zero
+// bytes, where that is legal.  At a restart boundary the next marker is
+// taken as jdmarker.c read_restart_marker and jpeg_resync_to_restart take
+// it: the RSTn expected (or one too far off) is swallowed and the decode
+// resumes after it (a Huffman scan's skipping ends there), a prior RSTn
+// or an invalid marker is scanned past, and the next two RSTn or any
+// other marker (an EOI: the real one or the fake one) is left unread, so
+// the rest of the scan reads zeros.  A component that no scan coded
+// before the EOI is a flat 128 plane (zero coefficients and table), as
+// libjpeg outputs it.
 //
 // Per component the decode yields its sampling factors, its downsampled
 // size (libjpeg's: ceil(image_w * h_samp / max_h_samp), likewise the
@@ -54,7 +66,8 @@
 // gives them (unsmoothed).  An interleaved scan's dummy blocks past the
 // right or bottom edge are decoded and dropped.  With them comes the
 // frame's smoothing latch (`Smoothing`): whether libjpeg smooths the frame
-// at output, and each component's coef_bits[0..9].
+// at output, each component's coef_bits[0..9] and their second row, and
+// the last good iMCU row.
 //
 // C ABI, built alone with g++ into the "coef" form of the host library
 // (ammcnet_aaai2021_torch/data/native.py), no libjpeg:
@@ -62,13 +75,14 @@
 //   ammc_jpeg_coefs_video(paths, n, threads, coefs, qtables, latch)
 //                                                          -> 0 | errcode
 //   ammc_jpeg_smooth(in, out, blocks_h, blocks_w, v_samp, imcu_rows,
-//                    qtable, coef_bits)                    -> 0
+//                    qtable, coef_bits, prev_bits, last_good) -> 0
 // Error codes (data/native.py:ERRORS): 2 a file that does not open, 3
 // corrupt data, 8 components other than 1 or 3, 10 a progressive scan
 // whose parameters libjpeg rejects, 11 lossless or hierarchical, 12 a
 // malformed DAC segment, 13 sample precision other than 8 bits, 14 a
 // 3-component frame coded other than as YCbCr.
 
+#include <algorithm>
 #include <atomic>
 #include <cstdint>
 #include <cstdio>
@@ -118,16 +132,20 @@ struct Info {
   int imcu_rows() const { return (height + 8 * max_v - 1) / (8 * max_v); }
 };
 
-// jdcoefct.c smoothing_ok's latch at the output pass: whether libjpeg
-// block-smooths the frame, and per component coef_bits[0..9] as the last
-// scan left them (coef_bits_latch).  libjpeg-turbo latches a second row,
-// coef_bits before the component's last scan, which decompress_smooth_data
-// reads for iMCU rows past cinfo->master->last_good_iMCU_row; consume_data
-// moves that to every row it decodes with sufficient data, so on a frame
-// whose scans run to their end no row reads it, and the port keeps none.
+// jdcoefct.c smoothing_ok's latch at the output pass (libjpeg-turbo
+// 2.1.5): whether libjpeg block-smooths the frame; per component
+// coef_bits[0..9] as the last scan left them (coef_bits_latch) and the
+// second row, coef_bits[1..9] before the component's last scan (0 if that
+// was the frame's first scan; -1 throughout if the frame has one scan);
+// and the frame's last good iMCU row (cinfo->master->last_good_iMCU_row:
+// the row of the last MCU that began with sufficient data).
+// decompress_smooth_data reads the second row for the iMCU rows past the
+// last good one, which a frame whose scans run to their end does not have.
 struct Smoothing {
   bool apply = false;
+  int last_good = 0;
   int bits[kMaxComps][kSavedCoefs];
+  int prev[kMaxComps][kSavedCoefs];
 };
 
 // A Huffman table as jdhuff.c's derived table: per code length, the
@@ -171,13 +189,17 @@ int build_huffman(const uint8_t bits[17], const uint8_t* vals, int nvals,
 }
 
 // Entropy-coded data: a 64-bit bit buffer filled a byte at a time, 0xFF00
-// unstuffed; at a marker (or the end) it feeds zeros.
+// unstuffed; at a marker (or the end) it feeds zeros.  `real` counts the
+// buffered bits that came from the data; `hit` is set when a read takes
+// more than those (jdhuff.c jpeg_fill_bit_buffer's insufficient data).
 struct BitReader {
   const uint8_t* p;
   const uint8_t* end;
   uint64_t buf = 0;
   int bits = 0;
+  int real = 0;
   bool at_marker = false;
+  bool hit = false;
 
   void fill() {
     while (bits <= 56) {
@@ -189,6 +211,7 @@ struct BitReader {
           while (q < end && *q == 0xFF) ++q;  // fill bytes
           if (q < end && *q == 0x00) {
             p = q + 1;
+            real += 8;
           } else {
             at_marker = true;  // p stays on the marker's 0xFF
             p = q - 1;
@@ -196,10 +219,19 @@ struct BitReader {
           }
         } else {
           ++p;
+          real += 8;
         }
       }
       buf |= static_cast<uint64_t>(b) << (56 - bits);
       bits += 8;
+    }
+  }
+  void take(int n) {
+    if (n > real) {
+      hit = true;
+      real = 0;
+    } else {
+      real -= n;
     }
   }
   int get(int n) {  // n <= 16
@@ -208,6 +240,7 @@ struct BitReader {
     const int v = static_cast<int>(buf >> (64 - n));
     buf <<= n;
     bits -= n;
+    take(n);
     return v;
   }
   int peek8() {
@@ -217,15 +250,17 @@ struct BitReader {
   void skip(int n) {
     buf <<= n;
     bits -= n;
+    take(n);
   }
-  // Drop the buffered bits and stand on the next marker.
+  // Drop the buffered bits and stand on the next marker (or the end).
   void to_marker() {
     buf = 0;
-    bits = 0;
+    bits = real = 0;
     if (at_marker) return;
     while (p + 1 < end && !(p[0] == 0xFF && p[1] != 0x00 && p[1] != 0xFF)) {
       ++p;
     }
+    if (p + 1 >= end) p = end;  // no marker: the fake EOI past the data
     at_marker = true;
   }
 };
@@ -274,6 +309,40 @@ inline const uint8_t* find_marker(const uint8_t* p, const uint8_t* end) {
     p = q;  // FF00 (or the end): not a marker
   }
   return end;
+}
+
+// The code of the marker whose first 0xFF is at `at`; past the data it is
+// the EOI that libjpeg's source manager inserts.
+inline int marker_code(const uint8_t* at, const uint8_t* end) {
+  while (at < end && *at == 0xFF) ++at;
+  return at < end ? *at : 0xD9;
+}
+
+// The first byte after the marker at `at`.
+inline const uint8_t* past_marker(const uint8_t* at, const uint8_t* end) {
+  while (at < end && *at == 0xFF) ++at;
+  return at < end ? at + 1 : end;
+}
+
+// jdmarker.c read_restart_marker with jpeg_resync_to_restart, from the
+// marker at *at with RSTn `rst` expected: the expected marker, or an RSTn
+// too far off, is swallowed and the data resumes past it (returned); a
+// prior RSTn or an invalid code (below SOF0) is scanned past to the next
+// marker; the next two RSTn or any other marker (an EOI) is left unread:
+// nullptr, *at on it.
+inline const uint8_t* resync_to_restart(const uint8_t** at,
+                                        const uint8_t* end, int rst) {
+  for (;;) {
+    const int code = marker_code(*at, end);
+    const int ahead = (code - 0xD0 - rst) & 7;
+    if (code < 0xC0 || (code >= 0xD0 && code <= 0xD7 && ahead >= 6)) {
+      *at = find_marker(past_marker(*at, end), end);  // scan on
+    } else if (code < 0xD0 || code > 0xD7 || ahead == 1 || ahead == 2) {
+      return nullptr;  // left unread
+    } else {
+      return past_marker(*at, end);
+    }
+  }
 }
 
 // jaricom.c jpeg_aritab: Table D.2 of ITU-T T.81 (Qe, then the next state
@@ -469,6 +538,7 @@ struct Decoder {
     for (auto& bits : coef_bits) {
       for (int& b : bits) b = -1;
     }
+    std::memset(prev_bits, 0, sizeof(prev_bits));
   }
   const uint8_t* data;
   size_t size;
@@ -484,21 +554,29 @@ struct Decoder {
   // DAC conditioning (jdmarker.c get_soi's defaults)
   uint8_t dc_l[kArithTables], dc_u[kArithTables], ac_k[kArithTables];
   // jdinput.c coef_bits: per component and coefficient the Al of the last
-  // progressive scan that coded it, -1 before any
+  // progressive scan that coded it, -1 before any; prev_bits its second
+  // row (jdphuff.c and jdarith.c start_pass: coef_bits[1..9] before the
+  // component's latest scan, 0 at the frame's first scan)
   int coef_bits[kMaxComps][64];
+  int prev_bits[kMaxComps][64];
+  int scans = 0;  // SOS markers read (cinfo->input_scan_number)
+  int last_good = 0;  // cinfo->master->last_good_iMCU_row
   // output: per component, its latched table and its blocks
   bool latched[kMaxComps] = {false, false, false};
   uint16_t* qt_out[kMaxComps] = {nullptr, nullptr, nullptr};
   int16_t* coefs[kMaxComps] = {nullptr, nullptr, nullptr};
 
+  // Byte i of the stream; past the data, the fake EOI (0xFF 0xD9,
+  // repeated) that libjpeg's source manager inserts there.
+  uint8_t byte_at(size_t i) const {
+    return i < size ? data[i] : ((i - size) & 1) ? 0xD9 : 0xFF;
+  }
   int u8(uint8_t* v) {
-    if (pos >= size) return kCorrupt;
-    *v = data[pos++];
+    *v = byte_at(pos++);
     return kOk;
   }
   int u16(int* v) {
-    if (pos + 2 > size) return kCorrupt;
-    *v = (data[pos] << 8) | data[pos + 1];
+    *v = (byte_at(pos) << 8) | byte_at(pos + 1);
     pos += 2;
     return kOk;
   }
@@ -514,7 +592,7 @@ struct Decoder {
   }
   int segment(size_t* seg_end) {
     int len;
-    if (u16(&len) != kOk || len < 2 || pos + len - 2 > size) return kCorrupt;
+    if (u16(&len) != kOk || len < 2) return kCorrupt;
     *seg_end = pos + len - 2;
     return kOk;
   }
@@ -587,7 +665,7 @@ struct Decoder {
     if (segment(&seg_end) != kOk) return kCorrupt;
     if ((seg_end - pos) % 2) return kArithmetic;
     while (pos < seg_end) {
-      const int index = data[pos], val = data[pos + 1];
+      const int index = byte_at(pos), val = byte_at(pos + 1);
       pos += 2;
       if (index >= 2 * kArithTables) return kArithmetic;
       if (index >= kArithTables) {
@@ -640,8 +718,9 @@ struct Decoder {
         count += bits[l];
       }
       if (count > 256 || pos + count > seg_end) return kCorrupt;
-      const int rc =
-          build_huffman(bits, data + pos, count, tc ? &ac[th] : &dc[th]);
+      uint8_t vals[256];
+      for (int i = 0; i < count; ++i) vals[i] = byte_at(pos + i);
+      const int rc = build_huffman(bits, vals, count, tc ? &ac[th] : &dc[th]);
       if (rc != kOk) return rc;
       pos += count;
     }
@@ -651,8 +730,8 @@ struct Decoder {
   int read_app(int marker) {
     size_t seg_end;
     if (segment(&seg_end) != kOk) return kCorrupt;
-    const uint8_t* d = data + pos;
-    const size_t n = seg_end - pos;
+    const size_t n = std::min(seg_end, std::max(size, pos)) - pos;
+    const uint8_t* d = data + std::min(pos, size);
     if (marker == 0xE0 && n >= 5 && std::memcmp(d, "JFIF\0", 5) == 0) {
       jfif = true;
     }
@@ -897,6 +976,7 @@ struct Decoder {
     if (u8(&ss_u8) || u8(&se_u8) || u8(&ah_al)) return kCorrupt;
     const int ss = ss_u8, se = se_u8, ah = ah_al >> 4, al = ah_al & 15;
     if (pos != seg_end) return kCorrupt;
+    ++scans;
     const bool dc_band = ss == 0;
     if (progressive) {
       // jdphuff.c / jdarith.c start_pass: parameters libjpeg rejects
@@ -906,7 +986,11 @@ struct Decoder {
         return kProgressive;
       }
       for (int i = 0; i < ns; ++i) {
-        for (int k = ss; k <= se; ++k) coef_bits[sc[i]][k] = al;
+        int* bits = coef_bits[sc[i]];
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k) {
+          prev_bits[sc[i]][k] = scans > 1 ? bits[k] : 0;
+        }
+        for (int k = ss; k <= se; ++k) bits[k] = al;
       }
     }
     // the tables the scan reads: Huffman sequential both; progressive DC
@@ -957,33 +1041,42 @@ struct Decoder {
     unsigned eobrun = 0;
     int restarts_to_go = restart_interval;
     int next_rst = 0;
+    // a Huffman MCU ran past the data: the scan's later MCUs are skipped
+    // until a restart marker is swallowed (jdhuff.c insufficient_data)
+    bool insufficient = false;
     int16_t dummy[64];
     for (int my = 0; my < mcus_h; ++my) {
+      // jdcoefct.c consume_data: the iMCU row of this MCU row
+      const int imcu_row = ns == 1 ? my / info.comp[sc[0]].v_samp : my;
       for (int mx = 0; mx < mcus_w; ++mx) {
+        if (!insufficient) last_good = imcu_row;
         if (restart_interval) {
           if (restarts_to_go == 0) {  // process_restart
             if (arithmetic) {
               if (!ar.unread_marker) {
                 ar.marker_at = find_marker(ar.p, ar.end);
-                if (ar.marker_at >= ar.end) return kCorrupt;
-                const uint8_t* q = ar.marker_at;
-                while (*q == 0xFF) ++q;
-                ar.unread_marker = *q;
               }
-              if (ar.unread_marker != 0xD0 + next_rst) return kCorrupt;
-              const uint8_t* q = ar.marker_at;
-              while (*q == 0xFF) ++q;
-              ar.p = q + 1;
-              ar.unread_marker = 0;
+              const uint8_t* resume =
+                  resync_to_restart(&ar.marker_at, ar.end, next_rst);
+              if (resume != nullptr) {
+                ar.p = resume;
+                ar.unread_marker = 0;
+              } else {
+                ar.unread_marker = marker_code(ar.marker_at, ar.end);
+              }
               ar.reset();
               zero_stats();
             } else {
               br.to_marker();
-              if (br.p + 1 >= br.end || br.p[1] != 0xD0 + next_rst) {
-                return kCorrupt;
+              const uint8_t* at = br.p;
+              const uint8_t* resume = resync_to_restart(&at, br.end, next_rst);
+              if (resume != nullptr) {
+                br.p = resume;
+                br.at_marker = false;
+                insufficient = false;
+              } else {
+                br.p = at;
               }
-              br.p += 2;
-              br.at_marker = false;
             }
             next_rst = (next_rst + 1) & 7;
             restarts_to_go = restart_interval;
@@ -992,6 +1085,7 @@ struct Decoder {
           }
           --restarts_to_go;
         }
+        if (insufficient) continue;
         for (int i = 0; i < ns; ++i) {
           const int c = sc[i];
           const Component& cp = info.comp[c];
@@ -1048,6 +1142,10 @@ struct Decoder {
             }
           }
         }
+        if (br.hit) {  // this MCU took zero bits past the data
+          insufficient = true;
+          br.hit = false;
+        }
       }
     }
     if (arithmetic) {
@@ -1068,8 +1166,13 @@ struct Decoder {
   void latch_smoothing(Smoothing* sm) const {
     static constexpr int kQ[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
     sm->apply = false;
+    sm->last_good = last_good;
     for (int c = 0; c < info.ncomp; ++c) {
-      for (int k = 0; k < kSavedCoefs; ++k) sm->bits[c][k] = coef_bits[c][k];
+      for (int k = 0; k < kSavedCoefs; ++k) {
+        sm->bits[c][k] = coef_bits[c][k];
+        sm->prev[c][k] = k == 0 ? coef_bits[c][0]
+                         : scans > 1 ? prev_bits[c][k] : -1;
+      }
     }
     if (!progressive) return;
     bool useful = false;
@@ -1128,7 +1231,11 @@ struct Decoder {
         case 0xD9:  // EOI
           if (!scanned) return kCorrupt;
           for (int c = 0; c < info.ncomp; ++c) {
-            if (!latched[c]) return kCorrupt;  // a component never coded
+            // a component never coded: zero blocks, no table (libjpeg's
+            // multiplier table stays zero), a flat 128 plane
+            if (!latched[c] && qt_out[c] != nullptr) {
+              std::memset(qt_out[c], 0, sizeof(qt[0]));
+            }
           }
           return kOk;
         case 0xD8:
@@ -1206,7 +1313,9 @@ int decode_coefs(const uint8_t* data, size_t size, const Info& info,
 // 2.1.5) on one component: `in` its unsmoothed (blocks_h, blocks_w, 64)
 // blocks, `out` the smoothed ones (never `in`: every estimate reads its
 // neighbours' unsmoothed DC values), `bits` its coef_bits[0..9] latch,
-// `qt` its latched table (natural order).  A block's coefficient k in
+// `prev_bits` the latch's second row, which the iMCU rows past
+// `last_good` (the frame's last good iMCU row) read in its place, `qt`
+// its latched table (natural order).  A block's coefficient k in
 // 1..9 (zigzag) that is still zero and not known to full precision
 // (coef_bits[k] != 0) is estimated from the DC values of the 5x5 blocks
 // around it, clamped below 2^Al; with no AC coefficient of 1..9 ever coded
@@ -1218,13 +1327,14 @@ int decode_coefs(const uint8_t* data, size_t size, const Info& info,
 // edge refreshes keeps the first column's DC (images 2 blocks wide).
 void smooth_component(const int16_t* in, int16_t* out, int blocks_h,
                       int blocks_w, int v_samp, int imcu_rows,
-                      const uint16_t* qt, const int* bits) {
+                      const uint16_t* qt, const int* latch_bits,
+                      const int* prev_bits, int last_good) {
   // natural positions of zigzag coefficients 1..9
   constexpr int kPos[kSavedCoefs] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
   int64_t q[kSavedCoefs];
   for (int k = 0; k < kSavedCoefs; ++k) q[k] = qt[kPos[k]];
+  const int* bits = latch_bits;
   bool change_dc = true;
-  for (int k = 1; k < kSavedCoefs; ++k) change_dc = change_dc && bits[k] == -1;
   // ((Q << 7) + |num|) / (Q << 8), clamped below 2^Al when Al > 0, signed
   auto estimate = [&](int k, int64_t num, bool clamp) {
     const int al = bits[k];
@@ -1236,6 +1346,13 @@ void smooth_component(const int16_t* in, int16_t* out, int blocks_h,
   const size_t row_stride = static_cast<size_t>(blocks_w) * 64;
   const int last_imcu = imcu_rows - 1;
   for (int imcu = 0; imcu < imcu_rows; ++imcu) {
+    // an incomplete last scan: the rows past the last good one read the
+    // coefficient bits from before it
+    bits = imcu > last_good ? prev_bits : latch_bits;
+    change_dc = true;
+    for (int k = 1; k < kSavedCoefs; ++k) {
+      change_dc = change_dc && bits[k] == -1;
+    }
     int block_rows = v_samp;
     if (imcu == last_imcu) {
       block_rows = blocks_h % v_samp;
@@ -1356,7 +1473,8 @@ void smooth_frame(const Info& info, const int16_t* const* coefs,
   for (int c = 0; c < info.ncomp; ++c) {
     const Component& cp = info.comp[c];
     smooth_component(coefs[c], out[c], cp.blocks_h, cp.blocks_w, cp.v_samp,
-                     info.imcu_rows(), qtables[c], sm.bits[c]);
+                     info.imcu_rows(), qtables[c], sm.bits[c], sm.prev[c],
+                     sm.last_good);
   }
 }
 
@@ -1387,8 +1505,9 @@ int parallel_for(int n, int n_threads, Fn&& fn) {
 // then the frame's iMCU rows.
 constexpr int kInfoInts = 3 + 6 * kMaxComps + 1;
 // The ints of a frame's smoothing latch (ammc_jpeg_coefs_video): whether
-// libjpeg smooths it, then per component its coef_bits[0..9].
-constexpr int kLatchInts = 1 + kSavedCoefs * kMaxComps;
+// libjpeg smooths it, its last good iMCU row, then per component its
+// coef_bits[0..9], then per component the latch's second row.
+constexpr int kLatchInts = 2 + 2 * kSavedCoefs * kMaxComps;
 
 void pack_info(const Info& info, int* out) {
   std::memset(out, 0, sizeof(int) * kInfoInts);
@@ -1428,8 +1547,9 @@ int ammc_jpeg_info(const char* path, int* out) {
 // 3 + c] points at frame i's component c, (blocks_h, blocks_w, 64) int16
 // as ammc_jpeg_info gave them, qtables at n * 3 * 64 uint16 (frame i's
 // component c at (i * 3 + c) * 64), latch at n * kLatchInts ints (frame
-// i's at i * kLatchInts: 1 if libjpeg smooths it at output, else 0, then
-// per component its coef_bits[0..9]).  Returns 0 or the first error code.
+// i's at i * kLatchInts: 1 if libjpeg smooths it at output, else 0, its
+// last good iMCU row, per component its coef_bits[0..9], then per
+// component the second row).  Returns 0 or the first error code.
 int ammc_jpeg_coefs_video(const char** paths, int n, int n_threads,
                           int16_t** coefs, uint16_t* qtables, int* latch) {
   return ammc_jpeg::parallel_for(n, n_threads, [&](int i) {
@@ -1451,9 +1571,13 @@ int ammc_jpeg_coefs_video(const char** paths, int n, int n_threads,
     int* out = latch + static_cast<size_t>(i) * ammc_jpeg::kLatchInts;
     std::memset(out, 0, sizeof(int) * ammc_jpeg::kLatchInts);
     out[0] = sm.apply ? 1 : 0;
+    out[1] = sm.last_good;
     for (int c = 0; c < info.ncomp; ++c) {
-      std::memcpy(out + 1 + c * ammc_jpeg::kSavedCoefs, sm.bits[c],
+      std::memcpy(out + 2 + c * ammc_jpeg::kSavedCoefs, sm.bits[c],
                   sizeof(int) * ammc_jpeg::kSavedCoefs);
+      std::memcpy(out + 2 + (ammc_jpeg::kMaxComps + c) *
+                                ammc_jpeg::kSavedCoefs,
+                  sm.prev[c], sizeof(int) * ammc_jpeg::kSavedCoefs);
     }
     return 0;
   });
@@ -1463,12 +1587,14 @@ int ammc_jpeg_coefs_video(const char** paths, int n, int n_threads,
 // smooth_component): in and out (blocks_h, blocks_w, 64) int16, distinct;
 // v_samp its vertical sampling factor; imcu_rows the frame's iMCU rows;
 // qtable its 64 quantizers (natural order); coef_bits its 10 latched
-// values.  Returns 0.
+// values, prev_bits the latch's second row, which the iMCU rows past
+// last_good read.  Returns 0.
 int ammc_jpeg_smooth(const int16_t* in, int16_t* out, int blocks_h,
                      int blocks_w, int v_samp, int imcu_rows,
-                     const uint16_t* qtable, const int* coef_bits) {
+                     const uint16_t* qtable, const int* coef_bits,
+                     const int* prev_bits, int last_good) {
   ammc_jpeg::smooth_component(in, out, blocks_h, blocks_w, v_samp, imcu_rows,
-                              qtable, coef_bits);
+                              qtable, coef_bits, prev_bits, last_good);
   return 0;
 }
 

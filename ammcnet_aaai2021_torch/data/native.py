@@ -25,13 +25,14 @@ its API:
   which the scorer reads there.  This is the route of a machine whose host
   has no libjpeg (the H100 machine has none).
 
-Both routes give the same bytes: libjpeg's decode (islow IDCT, fancy
-upsampling, its YCbCr tables, the block smoothing of a progressive frame
-whose scans leave a low coefficient unrefined), then cv2 INTER_LINEAR's
-half-pixel map in
-float arithmetic with the fused multiply-adds of the JAX package's
-``-O3 -march=native`` build of its loader (``csrc/ammc_loader.cpp`` says
-which), within 1 LSB of cv2's decode + resize.  The GPU route takes
+Both routes give the same bytes: libjpeg's decode (islow IDCT as its x86
+SIMD build computes it, fancy upsampling, its YCbCr tables, the block
+smoothing of a progressive frame whose scans leave a low coefficient
+unrefined, a truncated file decoded as far as libjpeg decodes it), then
+cv2 INTER_LINEAR's half-pixel map in float arithmetic with the fused
+multiply-adds of the JAX package's ``-O3 -march=native`` build of its
+loader (``csrc/ammc_loader.cpp`` says which), within 1 LSB of cv2's
+decode + resize.  The GPU route takes
 every frame type that libjpeg-turbo 2.1's 8-bit decoder takes: baseline,
 extended sequential and progressive JPEGs, Huffman- or arithmetic-coded,
 with 8-bit samples; a lossless or hierarchical frame, another sample
@@ -99,11 +100,12 @@ ERRORS = {2: "a file does not open", 3: "a file is not a decodable JPEG",
           14: "a colour JPEG is coded other than as YCbCr"}
 # csrc/jpeg_huffman.cpp kInfoInts: width, height, components, then per
 # component h_samp, v_samp, width, height, blocks_w, blocks_h, then the
-# frame's iMCU rows; kLatchInts: whether libjpeg smooths the frame, then per
-# component coef_bits[0..9]
+# frame's iMCU rows; kLatchInts: whether libjpeg smooths the frame, its last
+# good iMCU row, then per component coef_bits[0..9], then per component the
+# latch's second row
 INFO_INTS = 3 + 6 * 3 + 1
 SAVED_COEFS = 10
-LATCH_INTS = 1 + SAVED_COEFS * 3
+LATCH_INTS = 2 + 2 * SAVED_COEFS * 3
 # libjpeg's islow IDCT (jidctint.c): CONST_BITS, PASS1_BITS and its FIX()
 # constants
 CONST_BITS, PASS1_BITS = 13, 2
@@ -168,7 +170,8 @@ def _library(form: str) -> ctypes.CDLL:
                     paths, c_int, c_int, ctypes.POINTER(ptr), ptr, ptr]
                 lib.ammc_jpeg_coefs_video.restype = c_int
                 lib.ammc_jpeg_smooth.argtypes = [ptr, ptr, c_int, c_int,
-                                                 c_int, c_int, ptr, ptr]
+                                                 c_int, c_int, ptr, ptr, ptr,
+                                                 c_int]
                 lib.ammc_jpeg_smooth.restype = c_int
             else:
                 if form == "jpeg":
@@ -194,13 +197,13 @@ def _gpu_library() -> ctypes.CDLL:
     lib.ammc_gpu_decode_video.argtypes = [
         ptr, ctypes.POINTER(ctypes.c_char_p), c_int, c_int, c_int, c_int, ptr,
         ptr, ctypes.POINTER(c_int), ctypes.POINTER(c_int),
-        ctypes.POINTER(c_int)]
+        ctypes.POINTER(c_int), ctypes.POINTER(ctypes.c_double)]
     lib.ammc_gpu_decode_video.restype = c_int
     lib.ammc_idct_islow_u8.argtypes = [ptr, ptr, c_int, c_int, c_int, c_int,
                                        c_int, ptr, ptr]
     lib.ammc_idct_islow_u8.restype = c_int
     lib.ammc_ycc_to_rgb.argtypes = [ptr, ptr, ptr, c_int, c_int, c_int,
-                                    c_int, c_int, c_int, ptr, ptr]
+                                    c_int, c_int, c_int, c_int, ptr, ptr]
     lib.ammc_ycc_to_rgb.restype = c_int
     lib.ammc_resize_bilinear_u8.argtypes = [
         ptr, c_int, c_int, c_int, c_int, ptr, c_int, c_int, ptr]
@@ -256,9 +259,10 @@ def decode_video(paths: Sequence[str], size: Tuple[int, int],
     bitwise the host route's (a grayscale frame's plane resized to three
     channels, channel 0 with the host's own rounding); the current stream
     waits for the decode, which waits for the work queued on it before the
-    call.  Raises on a file that is not a JPEG, does not open or does not
-    decode, and (GPU route) on a JPEG that libjpeg does not take either
-    (:data:`ERRORS`)."""
+    call; ``decode_video.host_s`` sums the host's seconds of the GPU route
+    (its files' reads, its entropy decode).  Raises on a file that is not a
+    JPEG, does not open or does not decode, and (GPU route) on a JPEG that
+    libjpeg does not take either (:data:`ERRORS`)."""
     _check_kind(paths, JPEG_EXTS, "JPEG")
     device = torch.device(device)
     h, w = size
@@ -282,16 +286,25 @@ def decode_video(paths: Sequence[str], size: Tuple[int, int],
         return out
     lib = _gpu_library()
     idcts, resizes, conversions = (ctypes.c_int(0) for _ in range(3))
+    host_s = (ctypes.c_double * 2)()
     rc = lib.ammc_gpu_decode_video(
         _decoder(device.index), _paths_array(paths), len(paths), h, w,
         n_threads, out.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
-        ctypes.byref(idcts), ctypes.byref(resizes), ctypes.byref(conversions))
+        ctypes.byref(idcts), ctypes.byref(resizes), ctypes.byref(conversions),
+        host_s)
     idct_islow_u8.launches += idcts.value
     resize_bilinear_u8.launches += resizes.value
     ycc_to_rgb_u8.launches += conversions.value
+    decode_video.host_s["read"] += host_s[0]
+    decode_video.host_s["entropy"] += host_s[1]
     _raise_on(rc, "GPU decode_video", paths)
     return out
+
+
+# the GPU route's host seconds, summed over calls: reading the files and
+# parsing their headers, and the entropy decode (with block smoothing)
+decode_video.host_s = {"read": 0.0, "entropy": 0.0}
 
 
 def load_flow_video(paths: Sequence[str], size: Tuple[int, int],
@@ -434,8 +447,9 @@ resize_bilinear_u8.launches = 0
 
 
 def _chroma_factors(y: torch.Tensor, cb: torch.Tensor) -> Tuple[int, int]:
-    """(hs, vs) of planes y (h, w) and cb (ch, cw): 4:4:4, 4:2:2 or 4:2:0."""
-    (h, w), (ch, cw) = y.shape, cb.shape
+    """(hs, vs) of planes y (..., h, w) and cb (..., ch, cw): 4:4:4, 4:2:2
+    or 4:2:0."""
+    (h, w), (ch, cw) = y.shape[-2:], cb.shape[-2:]
     hs, vs = (1 if cw == w else 2), (1 if ch == h else 2)
     if ((hs, vs) not in ((1, 1), (2, 1), (2, 2)) or cw != -(-w // hs)
             or ch != -(-h // vs)):
@@ -446,33 +460,34 @@ def _chroma_factors(y: torch.Tensor, cb: torch.Tensor) -> Tuple[int, int]:
 
 def _upsample_ref(c: torch.Tensor, h: int, w: int, hs: int, vs: int
                   ) -> torch.Tensor:
-    """libjpeg's fancy upsampling of one chroma plane to (h, w), int32
-    (jdsample.c h2v2_fancy_upsample / h2v1_fancy_upsample; edge samples
-    stand in for missing neighbours)."""
+    """libjpeg's fancy upsampling of chroma planes (..., ch, cw) to (..., h,
+    w), int32 (jdsample.c h2v2_fancy_upsample / h2v1_fancy_upsample; edge
+    samples stand in for missing neighbours)."""
     c = c.int()
     if hs == 1:
         return c
-    ch, cw = c.shape
+    ch, cw = c.shape[-2:]
     x = torch.arange(w, device=c.device)
     col, odd = x // 2, x % 2 == 1
     nb = torch.where(odd, (col + 1).clamp(max=cw - 1), (col - 1).clamp(min=0))
     if vs == 1:
-        return (3 * c[:, col] + c[:, nb] + torch.where(odd, 2, 1)) >> 2
+        return (3 * c[..., col] + c[..., nb] + torch.where(odd, 2, 1)) >> 2
     y = torch.arange(h, device=c.device)
     r = y // 2
     far = torch.where(y % 2 == 1, (r + 1).clamp(max=ch - 1),
                       (r - 1).clamp(min=0))
-    sums = 3 * c[r] + c[far]  # (h, cw): the two rows' triangle
-    return (3 * sums[:, col] + sums[:, nb] + torch.where(odd, 7, 8)) >> 4
+    sums = 3 * c[..., r, :] + c[..., far, :]  # (..., h, cw): the triangle
+    return (3 * sums[..., col] + sums[..., nb] + torch.where(odd, 7, 8)) >> 4
 
 
 def ycc_to_rgb_u8_ref(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
                       ) -> torch.Tensor:
     """Plain PyTorch version of the colour kernel: a JPEG's Y (h, w) and
-    Cb, Cr (ch, cw) u8 planes -> (h, w, 3) u8 RGB, libjpeg's upsampling and
-    fixed-point conversion (bitwise libjpeg's RGB decode on its planes)."""
+    Cb, Cr (ch, cw) u8 planes -> (h, w, 3) u8 RGB, or a chunk's, (F, h, w)
+    and (F, ch, cw) -> (F, h, w, 3): libjpeg's upsampling and fixed-point
+    conversion (bitwise libjpeg's RGB decode on its planes)."""
     hs, vs = _chroma_factors(y, cb)
-    h, w = y.shape
+    h, w = y.shape[-2:]
     b = _upsample_ref(cb, h, w, hs, vs) - 128
     r = _upsample_ref(cr, h, w, hs, vs) - 128
     luma = y.int()
@@ -487,27 +502,36 @@ def ycc_to_rgb_u8(y: torch.Tensor, cb: torch.Tensor, cr: torch.Tensor
                   ) -> torch.Tensor:
     """The GPU route's colour conversion: contiguous u8 planes Y (h, w),
     Cb and Cr (ch, cw) of a 4:4:4, 4:2:2 or 4:2:0 JPEG -> (h, w, 3) u8
-    RGB.  CUDA tensors launch the kernel of ``csrc/jpeg_decode.cu`` on the
+    RGB, or a chunk of frames, (F, h, w) and (F, ch, cw) -> (F, h, w, 3).
+    CUDA tensors launch the kernel of ``csrc/jpeg_decode.cu`` once on the
     current stream (counted in ``ycc_to_rgb_u8.launches``, as are the GPU
-    decode's launches); CPU tensors return the plain version's result."""
+    decode's launches, one a chunk); CPU tensors return the plain version's
+    result."""
     planes = (y, cb, cr)
-    if (any(p.ndim != 2 or p.dtype != torch.uint8 or not p.is_contiguous()
+    if (y.ndim not in (2, 3) or any(
+            p.ndim != y.ndim or p.dtype != torch.uint8 or not p.is_contiguous()
             for p in planes) or cb.shape != cr.shape
+            or cb.shape[:-2] != y.shape[:-2]
             or len({p.device for p in planes}) != 1):
-        raise ValueError("want contiguous 2-D uint8 planes on one device, Cb "
-                         "and Cr of one shape")
+        raise ValueError("want contiguous 2-D or 3-D uint8 planes on one "
+                         "device, Cb and Cr of one shape, as many frames as "
+                         "Y")
     hs, vs = _chroma_factors(y, cb)
     if y.device.type == "cpu":
         return ycc_to_rgb_u8_ref(y, cb, cr)
     if y.device.type != "cuda":
         raise ValueError(f"no kernel for device {y.device}")
-    (h, w), (ch, cw) = y.shape, cb.shape
-    out = torch.empty((h, w, 3), dtype=torch.uint8, device=y.device)
+    (h, w), (ch, cw) = y.shape[-2:], cb.shape[-2:]
+    frames = y.shape[0] if y.ndim == 3 else 1
+    out = torch.empty((*y.shape, 3), dtype=torch.uint8, device=y.device)
+    if frames == 0:
+        return out
     lib = _gpu_library()
     with torch.cuda.device(y.device):
         err = lib.ammc_ycc_to_rgb(
-            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), h, w, ch, cw, hs, vs,
-            out.data_ptr(), torch.cuda.current_stream(y.device).cuda_stream)
+            y.data_ptr(), cb.data_ptr(), cr.data_ptr(), frames, h, w, ch, cw,
+            hs, vs, out.data_ptr(),
+            torch.cuda.current_stream(y.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"colour kernel launch failed: CUDA error {err} "
                            f"({lib.ammc_cuda_error_string(err).decode()})")
@@ -527,9 +551,14 @@ class Component(NamedTuple):
     samp: Tuple[int, int]  # (h_samp, v_samp)
     size: Tuple[int, int]  # its downsampled (height, width)
     # libjpeg's block smoothing at output: whether it smooths the frame,
-    # the component's coef_bits[0..9] latch and the frame's iMCU rows
+    # the component's coef_bits[0..9] latch and the latch's second row
+    # (coef_bits before the component's last scan), which the iMCU rows past
+    # the frame's last good one read (a truncated last scan), and the
+    # frame's iMCU rows
     smooth: bool
     coef_bits: np.ndarray  # (10,) int32
+    prev_coef_bits: np.ndarray  # (10,) int32
+    last_good_imcu: int
     imcu_rows: int
 
 
@@ -564,9 +593,10 @@ def decode_coefs(paths: Sequence[str], n_threads: int = 8
             (ctypes.c_void_p * len(pointers))(*pointers), qtables.ctypes.data,
             latch.ctypes.data)
         _raise_on(rc, "JPEG coefficient decode", paths)
-    bits = latch[:, 1:].reshape(len(paths), 3, SAVED_COEFS)
+    bits = latch[:, 2:].reshape(len(paths), 2, 3, SAVED_COEFS)
     return [[Component(coefs, qtables[i, c], samp, size, bool(latch[i, 0]),
-                       bits[i, c], imcu_rows)
+                       bits[i, 0, c], bits[i, 1, c], int(latch[i, 1]),
+                       imcu_rows)
              for c, (coefs, samp, size) in enumerate(comps)]
             for i, (comps, imcu_rows) in enumerate(frames)]
 
@@ -582,40 +612,55 @@ def smooth_coefs(comp: Component) -> np.ndarray:
     coefs = np.ascontiguousarray(comp.coefs)
     qtable = np.ascontiguousarray(comp.qtable)
     bits = np.ascontiguousarray(comp.coef_bits, dtype=np.int32)
+    prev = np.ascontiguousarray(comp.prev_coef_bits, dtype=np.int32)
     _library("coef").ammc_jpeg_smooth(
         coefs.ctypes.data, out.ctypes.data, bh, bw, comp.samp[1],
-        comp.imcu_rows, qtable.ctypes.data, bits.ctypes.data)
+        comp.imcu_rows, qtable.ctypes.data, bits.ctypes.data,
+        prev.ctypes.data, comp.last_good_imcu)
     return out
 
 
-def _range_limit(device) -> torch.Tensor:
-    """jdmaster.c's range-limit table as the IDCT reads it: entry
-    ``v = x & 1023`` of a descaled sum x (centred on 0) is ``x + 128``
-    clamped to [0, 255] for -512 <= x < 512, and wraps beyond."""
-    v = torch.arange(1024, device=device)
-    out = torch.where(v < 128, v + 128, torch.where(v < 512, 255, 0))
-    return torch.where(v >= 896, v - 896, out).to(torch.uint8)
+def _wrap16(x: torch.Tensor) -> torch.Tensor:
+    """The low 16 bits of int32 ``x``, sign-extended (a 16-bit lane's
+    wrapping add or multiply)."""
+    return ((x + 0x8000) & 0xFFFF) - 0x8000
+
+
+def _sample(x: torch.Tensor) -> torch.Tensor:
+    """Pass 2's descaled values as samples: saturated to [-128, 127]
+    (``packssdw``, ``packsswb``), then + CENTERJSAMPLE."""
+    return (x.clamp(-128, 127) + 128).to(torch.uint8)
 
 
 def _idct_1d(d):
-    """jidctint.c's butterfly on 8 int32 tensors (the inputs along one
-    axis, dequantized in pass 1): the 8 outputs before their DESCALE."""
-    z1 = (d[2] + d[6]) * FIX_0_541196100
-    tmp2 = z1 + d[6] * -FIX_1_847759065
-    tmp3 = z1 + d[2] * FIX_0_765366865
-    tmp0 = (d[0] + d[4]) << CONST_BITS
-    tmp1 = (d[0] - d[4]) << CONST_BITS
+    """The butterfly of libjpeg-turbo's x86 SIMD islow IDCT
+    (jidctint-avx2.asm, jidctint-sse2.asm) on 8 int32 tensors of 16-bit
+    values (the inputs along one axis): the 8 outputs before their
+    DESCALE.  It is jidctint.c's butterfly with its products regrouped as
+    ``pmaddwd`` pairs, and the sums in0 + in4, in0 - in4, in1 + in5 and
+    in3 + in7 taken in 16-bit lanes, which wrap; every other sum fits in
+    int32 for 16-bit inputs."""
+    in0, in1, in2, in3, in4, in5, in6, in7 = d
+    # even part: tmp3 = z2 (F054 + F076) + z3 F054, tmp2 = z2 F054 + z3
+    # (F054 - F184)
+    tmp3 = in2 * (FIX_0_541196100 + FIX_0_765366865) + in6 * FIX_0_541196100
+    tmp2 = in2 * FIX_0_541196100 + in6 * (FIX_0_541196100 - FIX_1_847759065)
+    tmp0 = _wrap16(in0 + in4) << CONST_BITS
+    tmp1 = _wrap16(in0 - in4) << CONST_BITS
     tmp10, tmp13, tmp11, tmp12 = (tmp0 + tmp3, tmp0 - tmp3, tmp1 + tmp2,
                                   tmp1 - tmp2)
-    t0, t1, t2, t3 = d[7], d[5], d[3], d[1]
-    z1, z2, z3, z4 = t0 + t3, t1 + t2, t0 + t2, t1 + t3
-    z5 = (z3 + z4) * FIX_1_175875602
-    t0, t1 = t0 * FIX_0_298631336, t1 * FIX_2_053119869
-    t2, t3 = t2 * FIX_3_072711026, t3 * FIX_1_501321110
-    z1, z2 = z1 * -FIX_0_899976223, z2 * -FIX_2_562915447
-    z3, z4 = z3 * -FIX_1_961570560 + z5, z4 * -FIX_0_390180644 + z5
-    t0, t1 = t0 + z1 + z3, t1 + z2 + z4
-    t2, t3 = t2 + z2 + z3, t3 + z1 + z4
+    # odd part: z3 = in7 + in3, z4 = in5 + in1 (16-bit), then z5 folded in
+    z3, z4 = _wrap16(in7 + in3), _wrap16(in5 + in1)
+    z3, z4 = (z3 * (FIX_1_175875602 - FIX_1_961570560) + z4 * FIX_1_175875602,
+              z3 * FIX_1_175875602 + z4 * (FIX_1_175875602 - FIX_0_390180644))
+    t0 = (in7 * (FIX_0_298631336 - FIX_0_899976223) + in1 * -FIX_0_899976223
+          + z3)
+    t3 = (in7 * -FIX_0_899976223 + in1 * (FIX_1_501321110 - FIX_0_899976223)
+          + z4)
+    t1 = (in5 * (FIX_2_053119869 - FIX_2_562915447) + in3 * -FIX_2_562915447
+          + z4)
+    t2 = (in5 * -FIX_2_562915447 + in3 * (FIX_3_072711026 - FIX_2_562915447)
+          + z3)
     return (tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0, tmp13 - t0,
             tmp12 - t1, tmp11 - t2, tmp10 - t3)
 
@@ -628,23 +673,32 @@ def idct_islow_u8_ref(coefs: torch.Tensor, qtables: torch.Tensor,
                       size: Tuple[int, int]) -> torch.Tensor:
     """Plain PyTorch version of the IDCT kernel: (F, blocks_h, blocks_w, 64)
     int16 quantized coefficients in natural order and (F, 64) uint16 tables
-    -> (F, h, w) u8 planes, libjpeg's jpeg_idct_islow in int32 ops (the
-    table cast to short as libjpeg's SIMD build stores it; products of a
-    valid 8-bit JPEG's dequantized coefficients and the constants stay in
-    int32), cropped to ``size``.  Without the zero-AC shortcuts, which give
-    the same values."""
+    -> (F, h, w) u8 planes, cropped to ``size``: libjpeg-turbo's islow IDCT
+    as its x86 SIMD build (jidctint-avx2.asm, which cv2 and the host loader
+    run) computes it: dequantized by ``pmullw`` (the low 16 bits of
+    coefficient x table, the table as a short), a column pass whose outputs
+    are descaled by CONST_BITS - PASS1_BITS and saturated to 16 bits
+    (``packssdw``) -- or, when rows 1-7 of the block are all zero, the
+    dequantized first row << PASS1_BITS in 16-bit lanes -- and a row pass
+    descaled by CONST_BITS + PASS1_BITS + 3 and saturated to samples
+    (:func:`_sample`).  For the coefficients of a real 8-bit image this is
+    jidctint.c's result; where 16-bit lanes wrap or saturate, or a sum
+    passes jidctint.c's range limit (which wraps beyond +-512), it is the
+    SIMD build's."""
     f, bh, bw, _ = coefs.shape
     q = qtables.to(torch.int16).to(torch.int32).view(f, 1, 1, 8, 8)
-    x = coefs.to(torch.int32).view(f, bh, bw, 8, 8) * q  # DEQUANTIZE
+    x = coefs.to(torch.int32).view(f, bh, bw, 8, 8)
+    dq = _wrap16(x * q)  # DEQUANTIZE (pmullw)
     # pass 1: the columns (axis -2 holds the vertical frequencies)
-    cols = _idct_1d(x.unbind(-2))
-    ws = torch.stack([_descale(v, CONST_BITS - PASS1_BITS) for v in cols],
-                     dim=-2)
-    # pass 2: the rows, then the range limit
+    cols = _idct_1d(dq.unbind(-2))
+    ws = torch.stack([_descale(v, CONST_BITS - PASS1_BITS).clamp(
+        -0x8000, 0x7FFF) for v in cols], dim=-2)
+    ac_zero = (x[..., 1:, :] == 0).all(-1).all(-1)[..., None, None]
+    ws = torch.where(ac_zero, _wrap16(dq[..., :1, :] << PASS1_BITS), ws)
+    # pass 2: the rows, then the samples
     rows = _idct_1d(ws.unbind(-1))
-    out = torch.stack([_descale(v, CONST_BITS + PASS1_BITS + 3)
+    pix = torch.stack([_sample(_descale(v, CONST_BITS + PASS1_BITS + 3))
                        for v in rows], dim=-1)
-    pix = _range_limit(coefs.device)[(out & 1023).long()]
     planes = pix.permute(0, 1, 3, 2, 4).reshape(f, bh * 8, bw * 8)
     return planes[:, :size[0], :size[1]].contiguous()
 

@@ -62,16 +62,19 @@ Phases, one JSON line each; any failure exits non-zero:
    the n_embed 1024 and k 16 runs the CUDA-core route;
 9. the raw-video path (``raw_path``): ``c2_check`` first (the IDCT kernel
    against its plain version on the fixture's coefficients, bitwise and
-   timed; the fixture's GPU decode, gray and colour, bitwise the committed
+   timed, and on the card tests' seeded sweep of 24 geometries, bitwise;
+   the fixture's GPU decode, gray and colour, bitwise the committed
    host-libjpeg reference (RGB, three channels a grayscale frame) at
    source size and 256x256, and likewise its progressive (SOF2) and
    arithmetic-coded progressive (SOF10) JPEGs, ``gray_c5.jpg`` (C5: channel
-   0 with the host's own rounding) and the progressive files libjpeg
-   block-smooths (C6)), then the GPU JPEG route's kernels against their
-   plain versions (the resize at the paths' shapes, gray to RGB timed
-   against ``F.interpolate`` on three and on one channel, and on a sweep
-   of 30 seeded random sizes), its decode of the committed fixture against
-   cv2's,
+   0 with the host's own rounding), the progressive files libjpeg
+   block-smooths (C6) and the truncated files (C7)), then the GPU JPEG
+   route's kernels against their plain versions (the resize at the paths'
+   shapes, gray to RGB timed against ``F.interpolate`` on three and on one
+   channel, and on a sweep of 30 seeded random sizes; the colour kernel on
+   a 32-frame 4:2:0 360x640 chunk in one launch and on one frame, timed,
+   and on the card tests' sweep of 4:4:4, 4:2:2 and 4:2:0 chunks at odd
+   sizes, bitwise), its decode of the committed fixture against cv2's,
    the extractor in float32 on the card against the CPU; then a ped2-shaped
    raw split (12 videos of Ped2's lengths, 240x360 grayscale JPEGs from the
    fixture, 240x360 ``.flo`` flows) scored by ``run_test.main`` three times
@@ -81,7 +84,9 @@ Phases, one JSON line each; any failure exits non-zero:
    records (cuDNN deterministic); then an Avenue-shaped colour split (its
    last 4 test videos, 891 frames, 360x640 colour JPEGs from the fixture)
    scored by ``--native_loader --on_the_fly_flow``, one colour conversion a
-   frame;
+   32-frame chunk; then the host's seconds a video: the GPU decode, its
+   host entropy decode (the decoder's own clock) and that share, and the
+   same 180-frame videos through ``decode_coefs`` on the decoder's threads;
 10. the whole run's seconds, the ``kernels`` summary line, then the last
    line ``{"ok": true, "device": {...}}``.
 
@@ -1511,7 +1516,9 @@ FIXTURE_REFERENCES = (
     "progressive_256", "arithmetic_source", "arithmetic_256", "gray_c5_160",
     "gray_c5_248x103", "gray_c5_256", "smooth_partial_source", "smooth_partial_256",
     "smooth_dconly_source", "smooth_dconly_256", "smooth_al1_source",
-    "smooth_al1_256", "smooth_arith_source", "smooth_arith_256")
+    "smooth_al1_256", "smooth_arith_source", "smooth_arith_256",
+    "trunc_rst_source", "trunc_rst_256", "trunc_progressive_source",
+    "trunc_progressive_256", "trunc_arith_source", "trunc_arith_256")
 # the resize kernel against its plain version on this many seeded random
 # (sh, sw, dh, dw), 16 to 720 pixels
 RESIZE_SWEEP = 30
@@ -1596,8 +1603,13 @@ def c2_phase(torch, native) -> dict:
     libjpeg route (libjpeg_reference.npz, RGB) at source size and at
     256x256; likewise its progressive JPEG (SOF2, colour, at 256x256), its
     arithmetic-coded progressive one (SOF10, grayscale), ``gray_c5.jpg`` at
-    160x160, 248x103 and 256x256 (C5) and the four smoothing files (C6)."""
+    160x160, 248x103 and 256x256 (C5), the four smoothing files (C6) and
+    the three truncated files (C7); and the IDCT kernel on the card tests'
+    seeded sweep of geometries (``kernel_sweeps.idct_sweep``), bitwise."""
     import numpy as np
+
+    from ammcnet_aaai2021_torch.data.kernel_sweeps import (IDCT_SWEEP,
+                                                           idct_sweep)
 
     out = {}
     gray = [os.path.join(FIXTURE, f"gray_{i:02d}.jpg")
@@ -1635,12 +1647,24 @@ def c2_phase(torch, native) -> dict:
                      # 2 bytes a coefficient, the tables, a byte a pixel;
                      # about 1,312 32-bit integer operations a block (the
                      # two passes' butterflies, dequantize, descale and
-                     # range limit)
+                     # saturation)
                      **bound(blocks * 128 + f * 128 + f * size[0] * size[1],
                              blocks * 1312, "blocks*128 + F*128 + F*h*w",
                              "blocks*1312", FP32_FLOPS,
                              "32-bit operations, CUDA cores")}
         emit("c2_check", kernel="idct_islow_u8", input=name, **out[name])
+    sweep = []
+    for coefs, q, size in idct_sweep(IDCT_SWEEP, "cuda"):
+        got = native.idct_islow_u8(coefs, q, size)
+        torch.cuda.synchronize()
+        if not torch.equal(got, native.idct_islow_u8_ref(coefs, q, size)):
+            fail(f"c2_check: the IDCT kernel differs from its plain version "
+                 f"on the sweep's {tuple(coefs.shape)} cropped to {size}")
+        sweep.append([*coefs.shape[:3], *size])
+    out["idct_sweep"] = {"geometries": len(sweep), "bitwise": True,
+                         "f_bh_bw_h_w": sweep}
+    emit("c2_check", kernel="idct_islow_u8", input="sweep",
+         **out["idct_sweep"])
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
     for key in ref.files:
         kind, size_name = key.rsplit("_", 1)
@@ -1682,15 +1706,20 @@ def raw_kernel_checks(torch, native) -> dict:
     """The GPU JPEG route's kernels against their plain versions at the
     paths' shapes (the resize: a 32-frame chunk of 240x360 grayscale frames
     to 256x256 RGB, as the decode resizes a grayscale video, and a 360x640
-    colour one to 256x256 RGB; the colour conversion: a 4:2:0 360x640
-    frame), bitwise, with device times (CUDA graphs), the bound and, for
+    colour one to 256x256 RGB; the colour conversion: a 32-frame 4:2:0
+    360x640 chunk), bitwise, with device times (CUDA graphs), the bound and, for
     the resize, ``F.interpolate`` on the same frames as float32 NCHW (the
     gray chunk on three channels, as the kernel writes them, and on its one
     channel); then the resize on ``RESIZE_SWEEP`` seeded random sizes, 16 to
     720 pixels a side, up- and downscales, 1 -> 3 and 3 -> 3 channels,
-    bitwise."""
+    bitwise; the colour conversion on a 32-frame 4:2:0 360x640 chunk in one
+    launch (the decode's) and on one frame, bitwise and timed, then on the
+    card tests' sweep (``kernel_sweeps.ycc_sweep``: 4:4:4, 4:2:2 and 4:2:0
+    chunks at odd sizes), bitwise."""
     import numpy as np
     import torch.nn.functional as F
+
+    from ammcnet_aaai2021_torch.data.kernel_sweeps import ycc_sweep
 
     g = torch.Generator(device="cuda").manual_seed(5)
     out = {}
@@ -1752,27 +1781,45 @@ def raw_kernel_checks(torch, native) -> dict:
                            "n_sh_sw_sc_dh_dw": sweep}
     emit("raw_kernel_check", kernel="resize_bilinear_u8",
          input="sweep", **out["resize_sweep"])
-    h, w = 360, 640
-    y = torch.randint(0, 256, (h, w), dtype=torch.uint8, device="cuda",
-                      generator=g)
-    cb, cr = (torch.randint(0, 256, (h // 2, w // 2), dtype=torch.uint8,
+    h, w = AVENUE_SHAPE
+    ch, cw = h // 2, w // 2
+    y = torch.randint(0, 256, (DECODE_CHUNK, h, w), dtype=torch.uint8,
+                      device="cuda", generator=g)
+    cb, cr = (torch.randint(0, 256, (DECODE_CHUNK, ch, cw), dtype=torch.uint8,
                             device="cuda", generator=g) for _ in range(2))
-    got = native.ycc_to_rgb_u8(y, cb, cr)
-    torch.cuda.synchronize()
-    if not torch.equal(got, native.ycc_to_rgb_u8_ref(y, cb, cr)):
-        fail("colour kernel differs from its plain version")
-    row = {"shape": [h, w, "4:2:0"], "max_abs_err": 0,
-           **time_pair(torch, native.ycc_to_rgb_u8, native.ycc_to_rgb_u8_ref,
-                       y, cb, cr),
-           "library_ms": None,
-           # two upsampled chroma samples (10 integer operations each) and
-           # the conversion (15) per pixel
-           **bound(h * w + 2 * (h // 2) * (w // 2) + h * w * 3, h * w * 35,
-                   "h*w + 2*ch*cw + h*w*3", "h*w*35", FP32_FLOPS,
-                   "32-bit operations, CUDA cores")}
-    out["ycc"] = row
-    emit("raw_kernel_check", kernel="ycc_to_rgb_u8", input="4:2:0 360x640",
-         **row)
+    for key, frames in (("ycc", DECODE_CHUNK), ("ycc_frame", None)):
+        planes = ((y, cb, cr) if frames else
+                  tuple(p[0].contiguous() for p in (y, cb, cr)))
+        n = frames or 1
+        got = native.ycc_to_rgb_u8(*planes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, native.ycc_to_rgb_u8_ref(*planes)):
+            fail(f"colour kernel differs from its plain version ({key})")
+        row = {"shape": [n, h, w, "4:2:0"], "launches_a_call": 1,
+               "max_abs_err": 0,
+               **time_pair(torch, native.ycc_to_rgb_u8,
+                           native.ycc_to_rgb_u8_ref, *planes),
+               "library_ms": None,
+               # two upsampled chroma samples (10 integer operations each)
+               # and the conversion (15) per pixel
+               **bound(n * (h * w + 2 * ch * cw + h * w * 3), n * h * w * 35,
+                       "F*(h*w + 2*ch*cw + h*w*3)", "F*h*w*35", FP32_FLOPS,
+                       "32-bit operations, CUDA cores")}
+        out[key] = row
+        emit("raw_kernel_check", kernel="ycc_to_rgb_u8",
+             input=f"4:2:0 {h}x{w}, {n} frame{'s' * (n > 1)}", **row)
+    sweep = []
+    for factors, *planes in ycc_sweep("cuda"):
+        got = native.ycc_to_rgb_u8(*planes)
+        torch.cuda.synchronize()
+        if not torch.equal(got, native.ycc_to_rgb_u8_ref(*planes)):
+            fail(f"colour kernel differs from its plain version at "
+                 f"{tuple(planes[0].shape)}, chroma factors {factors}")
+        sweep.append([*factors, *planes[0].shape])
+    out["ycc_sweep"] = {"inputs": len(sweep), "bitwise": True,
+                        "hs_vs_shape": sweep}
+    emit("raw_kernel_check", kernel="ycc_to_rgb_u8", input="sweep",
+         **out["ycc_sweep"])
     return out
 
 
@@ -1846,7 +1893,7 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
     read just after; fails unless the records are finite, one per frame,
     the AUC line printed, every B1 launch on the tensor-core route (two a
     forward), the resize kernel launched once a 32-frame chunk, the IDCT
-    once a chunk and component, the colour kernel once a colour frame and
+    once a chunk and component, the colour kernel once a colour chunk and
     FlowNet2-SD (with ``--on_the_fly_flow``) once a 16 pairs of each
     bucket-padded video."""
     import numpy as np
@@ -1858,7 +1905,7 @@ def raw_run(torch, mk, native, run_test, root: str, name: str,
     flownet = sum(math.ceil((-(-t // BUCKET) * BUCKET - 1) / OTF_CHUNK)
                   for t in lengths) if "--on_the_fly_flow" in flags else 0
     resizes = sum(math.ceil(t / DECODE_CHUNK) for t in lengths)
-    conversions = sum(lengths) if dataset != "ped2" else 0  # colour frames
+    conversions = resizes if dataset != "ped2" else 0  # colour chunks
     idcts = resizes * (1 if dataset == "ped2" else 3)
     stdout = io.StringIO()
     torch.cuda.synchronize()
@@ -1964,19 +2011,36 @@ def raw_path_phase(torch, mk) -> dict:
             return VideoIndex(os.path.join(root, dataset, "testing", kind))
 
         def decode_seconds(frames):
-            out = []
+            """Each video's decode seconds, and its host entropy decode's
+            seconds inside it (the decoder's own clock)."""
+            out, entropy = [], []
             for name in frames.names:
+                before = native.decode_video.host_s["entropy"]
                 t0 = time.perf_counter()
                 video = native.decode_video(frames.videos[name], size,
                                             device="cuda")
                 torch.cuda.synchronize()
                 out.append(time.perf_counter() - t0)
-            return out, video
+                entropy.append(native.decode_video.host_s["entropy"] - before)
+            return out, entropy, video
 
         root = roots[("ped2", True)]
-        colour_s, _ = decode_seconds(index(roots[("avenue", False)],
-                                           "avenue", "frames"))
-        decode_s, video = decode_seconds(index(root, "ped2", "frames"))
+        colour_s, colour_entropy_s, _ = decode_seconds(
+            index(roots[("avenue", False)], "avenue", "frames"))
+        ped2 = index(root, "ped2", "frames")
+        decode_s, entropy_s, video = decode_seconds(ped2)
+        # the entropy decode alone through the "coef" host library
+        # (decode_coefs: the same decode, plus a header pass a file and
+        # numpy arrays a component) on the same 180-frame videos and the
+        # decoder's threads
+        threads = inspect.signature(native.decode_video).parameters[
+            "n_threads"].default
+        coefs_s = []
+        for name in ped2.names:
+            if len(ped2.videos[name]) == 180:
+                t0 = time.perf_counter()
+                native.decode_coefs(ped2.videos[name], n_threads=threads)
+                coefs_s.append(time.perf_counter() - t0)
         flows = index(root, "ped2", "flows")
         flo_s = []
         for name in flows.names:
@@ -1996,9 +2060,20 @@ def raw_path_phase(torch, mk) -> dict:
         emit("raw_path", cudnn_deterministic=True, image_size=IMAGE_SIZE,
              data_write_s=data_s,
              **{k: v for k, v in run.items() if k != "records"})
+    decode_180 = float(np.mean(
+        [s for s, t in zip(decode_s, PED2_TEST_LENGTHS) if t == 180]))
+    entropy_180 = float(np.mean(
+        [s for s, t in zip(entropy_s, PED2_TEST_LENGTHS) if t == 180]))
     host = {"decode_s_per_video": decode_s,
-            "decode_s_per_180_frames": float(np.mean(
-                [s for s, t in zip(decode_s, PED2_TEST_LENGTHS) if t == 180])),
+            "decode_s_per_180_frames": decode_180,
+            "entropy_decode_threads": threads,
+            "entropy_decode_s_per_video": entropy_s,
+            "entropy_decode_s_per_180_frames": entropy_180,
+            "entropy_share_of_decode": entropy_180 / decode_180,
+            "decode_coefs_s_per_180_frames": float(np.mean(coefs_s)),
+            "decode_coefs_s_each_180_frame_video": coefs_s,
+            "colour_entropy_share_of_decode": sum(colour_entropy_s)
+            / sum(colour_s),
             "colour_decode_s_per_video": colour_s,
             "colour_decode_ms_per_frame": 1e3 * sum(colour_s)
             / sum(AVENUE_TAIL_LENGTHS),
@@ -2220,10 +2295,12 @@ def main(argv=None) -> None:
         **{key: raw["c2"]["gray"][key] for key in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+        "at": "a 32-frame gray 240x360 chunk",
         "at_colour_360x640": {
             name: {key: raw["c2"][name][key] for key in (
                 "kernel_ms", "plain_ms", "bound_ms", "bound_by")}
             for name in ("color_y", "color_cb", "color_cr")},
+        "sweep_geometries_bitwise": raw["c2"]["idct_sweep"]["geometries"],
     }, {
         "name": "qconv3x3_int8",
         "route": "cuda",
@@ -2259,14 +2336,20 @@ def main(argv=None) -> None:
         "source": "ammcnet_aaai2021_torch/csrc/jpeg_decode.cu",
         "replaces": "ammcnet_aaai2021_tpu/native/ammc_loader.cpp:130",
         "launches": raw["runs"]["avenue_color"]["launches"]["ycc_to_rgb_u8"],
+        # one launch a 32-frame chunk: before, one a frame
+        "frames_converted": raw["runs"]["avenue_color"]["frames"],
         "launches_by_path": {
             name: run["launches"]["ycc_to_rgb_u8"]
             for name, run in raw["runs"].items()},
         "max_abs_err": 0,
         "ms": raw["kernels"]["ycc"]["kernel_ms"],
+        "at": "a 32-frame 4:2:0 360x640 chunk, one launch",
         **{key: raw["kernels"]["ycc"][key] for key in (
             "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
             "bound_by", "library_ms")},
+        "at_one_frame": {key: raw["kernels"]["ycc_frame"][key] for key in (
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by")},
+        "sweep_inputs_bitwise": raw["kernels"]["ycc_sweep"]["inputs"],
     }]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -34,6 +34,17 @@ own decode with it.  It writes, into ``tests/fixtures/torch_jpeg/``:
   Al = 1), grayscale in mode ``dconly`` (one DC scan: the DC is
   re-estimated too), colour in mode ``al1`` (AC 1-9 once at Al = 1), and
   grayscale in mode ``arithpartial`` (``partial``, arithmetic-coded);
+* ``trunc_rst.jpg``, ``trunc_progressive.jpg``, ``trunc_arith.jpg``:
+  truncated files (fault C7 in ``ROADMAP.md``), the first bytes of a crop
+  of ``color_00.jpg``'s decode re-encoded: by cv2 at quality 90 with a
+  restart interval of 4 MCUs, cut at 50 % (libjpeg skips the scan's rest
+  and decodes, where a decode that stops at the first restart marker it
+  does not find fails); by cv2 at quality 90, progressive, cut at 30 %
+  (libjpeg block-smooths the rows past the last good one with the
+  coefficient bits from before the cut scan); and by libjpeg
+  arithmetic-coded and progressive (mode ``sof10``), cut at 10 % (the zero
+  bytes decoded past the end drive the IDCT where libjpeg's SIMD build
+  saturates);
 * ``libjpeg_reference.npz``: the port's host route
   (``ammcnet_aaai2021_torch.data.native.decode_video(device="cpu")``,
   libjpeg, then the float resize), which the GPU route must equal bitwise,
@@ -42,7 +53,7 @@ own decode with it.  It writes, into ``tests/fixtures/torch_jpeg/``:
   ``progressive_256``; ``arithmetic_source`` (240, 360) and
   ``arithmetic_256``; ``gray_c5_160``, ``gray_c5_248x103`` and
   ``gray_c5_256``; each smoothing
-  file's ``_source`` and ``_256``.  It is a zip of ``.npy`` files as
+  file's and each truncated file's ``_source`` and ``_256``.  It is a zip of ``.npy`` files as
   ``np.savez`` writes, compressed with LZMA (``np.load`` reads it), so that
   the fixture stays under 3 MB with the grayscale frames on three channels
   (the colour progressive frame's reference is kept at 256x256 alone).
@@ -87,6 +98,11 @@ SMOOTH = (("smooth_partial", "partial", "color", (40, 96, 136, 200)),
           ("smooth_dconly", "dconly", "gray", (20, 60, 120, 172)),
           ("smooth_al1", "al1", "color", (150, 300, 104, 168)),
           ("smooth_arith", "arithpartial", "gray", (100, 150, 96, 140)))
+# the truncated fixtures: (name, writer, crop (top, left, height, width) of
+# color_00.jpg's decode, per cent of the bytes kept)
+TRUNCATED = (("trunc_rst", "rst", (40, 96, 136, 200), 50),
+             ("trunc_progressive", "progressive", (40, 96, 136, 200), 30),
+             ("trunc_arith", "sof10", (0, 0, 176, 320), 10))
 
 
 def gray_frames(rng: np.random.Generator) -> list:
@@ -157,6 +173,30 @@ def write_gray_c5(native, path: str) -> None:
     raise RuntimeError("no grayscale JPEG of the loop shows C5")
 
 
+def write_truncated(bgr, path: str, writer: str, keep: int) -> None:
+    """``bgr`` encoded by ``writer`` ("rst" and "progressive": cv2 at
+    quality 90, a restart interval of 4 MCUs or progressive; else
+    ``scripts/libjpeg_write.c``'s mode of that name), then cut to the first
+    ``keep`` per cent of its bytes."""
+    import cv2
+
+    if writer == "rst":
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_RST_INTERVAL,
+                  4]
+    elif writer == "progressive":
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_PROGRESSIVE,
+                  1]
+    if writer in ("rst", "progressive"):
+        if not cv2.imwrite(path, bgr, params):
+            raise RuntimeError(f"cv2 could not write {path}")
+    else:
+        libjpeg_write(cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB), path, writer)
+    with open(path, "rb") as fh:
+        data = fh.read()
+    with open(path, "wb") as fh:
+        fh.write(data[:len(data) * keep // 100])
+
+
 def save_lzma_npz(path: str, arrays: dict) -> None:
     """``np.savez``'s layout (one ``.npy`` a key in a zip), LZMA-compressed."""
     with zipfile.ZipFile(path, "w", zipfile.ZIP_LZMA) as z:
@@ -183,6 +223,9 @@ def write_references() -> None:
         img = (cv2.cvtColor(colour, cv2.COLOR_BGR2RGB) if kind == "color"
                else gray)[top:top + h, left:left + w]
         libjpeg_write(img, os.path.join(OUT, f"{name}.jpg"), mode)
+    for name, writer, (top, left, h, w), keep in TRUNCATED:
+        write_truncated(colour[top:top + h, left:left + w],
+                        os.path.join(OUT, f"{name}.jpg"), writer, keep)
     sys.path.insert(0, REPO)
     from ammcnet_aaai2021_torch.data import native
 
@@ -193,6 +236,8 @@ def write_references() -> None:
              ("gray_c5", 1, C5_SIZES)]
     kinds += [(name, 1, {"source": (h, w)})
               for name, _, _, (_, _, h, w) in SMOOTH]
+    kinds += [(name, 1, {"source": (h, w)})
+              for name, _, (_, _, h, w), _ in TRUNCATED]
     out = {}
     for kind, count, sizes in kinds:
         paths = ([os.path.join(OUT, f"{kind}.jpg")] if count == 1 else

@@ -10,8 +10,11 @@ The GPU JPEG route (``data/native.py``: the port's Huffman decode and
 block smoothing, then the IDCT, colour and resize kernels) is held against
 its plain versions bitwise (the resize on a sweep of random sizes too),
 against the host libjpeg route's decode of the committed fixture bitwise
-(grayscale frames as three channels, C5; smoothed progressive files, C6)
-and against cv2's within 1 LSB (``tests/fixtures/torch_jpeg``).
+(grayscale frames as three channels, C5; smoothed progressive files, C6;
+truncated files, C7) and against cv2's within 1 LSB
+(``tests/fixtures/torch_jpeg``); the IDCT on a seeded sweep of
+geometries, the colour kernel on chunks of each subsampling, and a colour
+chunk's one colour launch.
 The int8 convolution kernels are held against their plain versions
 bitwise: accumulators and epilogue; the int8 calibration reads JPEG
 training frames through the GPU route as its plain pipeline reads them.
@@ -33,6 +36,11 @@ import torch
 
 from ammcnet_aaai2021_torch.configs import LossConfig, NetConfig, OptimConfig
 from ammcnet_aaai2021_torch.data import native
+from ammcnet_aaai2021_torch.data.kernel_sweeps import (
+    IDCT_SWEEP,
+    idct_sweep,
+    ycc_sweep,
+)
 from ammcnet_aaai2021_torch.models import (
     TopKMemory,
     build_generator,
@@ -579,19 +587,22 @@ def test_resize_kernel_is_its_plain_version_across_sizes(cuda_device, seed):
 @pytest.mark.parametrize("chroma", [(1, 1), (2, 1), (2, 2)],
                          ids=["444", "422", "420"])
 def test_colour_kernel_matches_plain_version(cuda_device, chroma):
-    g = torch.Generator(device=cuda_device).manual_seed(26)
-    h, w = 61, 97  # odd: ragged chroma edges
-    hs, vs = chroma
-    ch, cw = -(-h // vs), -(-w // hs)
-    y = torch.randint(0, 256, (h, w), dtype=torch.uint8, device=cuda_device,
-                      generator=g)
-    cb, cr = (torch.randint(0, 256, (ch, cw), dtype=torch.uint8,
-                            device=cuda_device, generator=g) for _ in range(2))
-    before = native.ycc_to_rgb_u8.launches
-    out = native.ycc_to_rgb_u8(y, cb, cr)
-    torch.cuda.synchronize()
-    assert native.ycc_to_rgb_u8.launches == before + 1
-    assert torch.equal(out, native.ycc_to_rgb_u8_ref(y, cb, cr))
+    """The colour sweep's inputs of one subsampling
+    (``kernel_sweeps.ycc_sweep``, which ``chip_smoke.py`` checks too): one
+    frame, then chunks of frames in one launch each, at odd sizes (ragged
+    chroma edges, widths no multiple of 16) and at 360x640 (whole 16-pixel
+    runs), bitwise the plain version."""
+    cases = [planes for factors, *planes in ycc_sweep(cuda_device)
+             if factors == chroma]
+    assert len(cases) >= 5
+    for y, cb, cr in cases:
+        before = native.ycc_to_rgb_u8.launches
+        out = native.ycc_to_rgb_u8(y, cb, cr)
+        torch.cuda.synchronize()
+        assert native.ycc_to_rgb_u8.launches == before + 1
+        assert out.shape == (*y.shape, 3)
+        assert torch.equal(out, native.ycc_to_rgb_u8_ref(y, cb, cr)), (
+            tuple(y.shape))
 
 
 @pytest.mark.cuda
@@ -614,9 +625,9 @@ def test_gpu_decode_of_the_fixture_is_within_its_tolerance(cuda_device):
         diff = np.abs(got.cpu().numpy().astype(int) - want)
         assert diff.max() <= 1
     # one resize launch for the 16 gray frames and one for the 2 colour
-    # frames (one source size each), one colour conversion a colour frame
+    # frames (one source size each), one colour conversion a colour chunk
     assert (native.resize_bilinear_u8.launches - launches[0],
-            native.ycc_to_rgb_u8.launches - launches[1]) == (2, 2)
+            native.ycc_to_rgb_u8.launches - launches[1]) == (2, 1)
 
 
 @pytest.mark.cuda
@@ -637,9 +648,10 @@ def test_gpu_decode_of_a_mixed_video_is_rgb(cuda_device):
 def test_idct_kernel_matches_plain_version(cuda_device):
     """The IDCT kernel against its plain version, bitwise: the fixture's
     coefficients (gray 240x360, colour 4:2:0 360x640, its three
-    components), then random blocks over the whole coefficient range with
-    sparse AC terms (the zero-AC shortcuts' cases) and 16-bit tables, at a
-    ragged size."""
+    components), random blocks over the whole coefficient range with
+    sparse AC terms (the SIMD shortcut's cases) at a ragged size, then
+    ``IDCT_SWEEP`` seeded geometries (``kernel_sweeps.idct_sweep``, which
+    ``chip_smoke.py`` checks too)."""
     frames = native.decode_coefs(
         [os.path.join(FIXTURE, name) for name in ("gray_00.jpg",
                                                   "color_00.jpg")])
@@ -659,6 +671,29 @@ def test_idct_kernel_matches_plain_version(cuda_device):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), native.idct_islow_u8_ref(coefs, q, size))
     assert native.idct_islow_u8.launches == before + len(cases)
+    for coefs, q, size in idct_sweep(IDCT_SWEEP, cuda_device):
+        got = native.idct_islow_u8(coefs, q, size)
+        assert torch.equal(got, native.idct_islow_u8_ref(coefs, q, size)), (
+            tuple(coefs.shape), size)
+
+
+@pytest.mark.cuda
+def test_gpu_decode_of_a_colour_chunk_is_one_colour_launch(cuda_device):
+    """40 colour frames (the fixture's two, cycled) decode in two chunks,
+    32 and 8 frames: one colour launch and one resize launch a chunk, three
+    IDCT launches a chunk, each frame bitwise its host-libjpeg
+    reference."""
+    ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+    paths = [os.path.join(FIXTURE, f"color_{i % 2:02d}.jpg") for i in range(40)]
+    counters = (native.ycc_to_rgb_u8, native.resize_bilinear_u8,
+                native.idct_islow_u8)
+    before = [c.launches for c in counters]
+    got = native.decode_video(paths, (256, 256), device=cuda_device)
+    torch.cuda.synchronize()
+    assert [c.launches - b for c, b in zip(counters, before)] == [2, 2, 6]
+    want = ref["color_256"]
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  want[np.arange(40) % 2])
 
 
 @pytest.mark.cuda
@@ -726,6 +761,26 @@ def test_gpu_decode_of_c5_and_smoothing_fixtures_is_libjpegs(cuda_device,
         for name in ("gray_c5_160", "gray_c5_248x103"):
             want = ref[name]
             assert (want[..., 0] != want[..., 1]).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["trunc_rst", "trunc_progressive",
+                                  "trunc_arith"])
+def test_gpu_decode_of_truncated_fixtures_is_libjpegs(cuda_device, kind):
+    """Fault C7 on the card: the committed truncated files (a colour JPEG
+    with restarts cut at 50 %, a progressive one cut at 30 % whose
+    smoothing reads the second latch row, an arithmetic-coded progressive
+    one cut at 10 % whose IDCT saturates) decode bitwise as the host
+    libjpeg route decoded them, at source size and 256x256."""
+    ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
+    names = [k for k in ref.files if k.startswith(f"{kind}_")]
+    assert len(names) == 2
+    for name in names:
+        want = ref[name]
+        got = native.decode_video([os.path.join(FIXTURE, f"{kind}.jpg")],
+                                  want.shape[1:3], device=cuda_device)
+        assert got.device.type == "cuda" and got.shape == want.shape
+        np.testing.assert_array_equal(got.cpu().numpy(), want)
 
 
 @pytest.mark.cuda

@@ -398,6 +398,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "ammcnet_aaai2021_torch.data", "ammcnet_aaai2021_torch.data.datasets",
         "ammcnet_aaai2021_torch.data.flo",
         "ammcnet_aaai2021_torch.data.native",
+        "ammcnet_aaai2021_torch.data.kernel_sweeps",
         "ammcnet_aaai2021_torch.data.framepack",
         "ammcnet_aaai2021_torch.data.resident",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",

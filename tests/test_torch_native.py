@@ -26,9 +26,10 @@ JAX package's loader.
   qualities 50 to 100, odd sizes, restart intervals) and libjpeg-written
   ones (non-interleaved scans, a restart marker at the end of every MCU
   row, progressive and arithmetic-coded scripts); lossless and 12-bit
-  JPEGs raise their named errors; the plain IDCT's range limit is
-  jdmaster.c's table and libjpeg's zero-AC shortcuts give what its full
-  path gives;
+  JPEGs raise their named errors; the plain IDCT is libjpeg's x86 SIMD
+  build's arithmetic on chosen extreme coefficients (its saturation is
+  jdmaster.c's range-limit table within +-512), and the SIMD build's
+  shortcut gives what its full path gives;
 * fault C5, repaired: a grayscale JPEG's plane resized to three channels
   (``resize_bilinear_u8_ref``) is the JAX loader's RGB decode
   bitwise, channel 0 with its own rounding, on ``gray_c5.jpg`` and on
@@ -37,6 +38,12 @@ JAX package's loader.
   output (AC never refined, DC alone, AC 1-9 at Al = 1, chroma DC alone,
   arithmetic-coded; narrow and ragged sizes) decode bitwise through the
   coefficient route and ``smooth_coefs``;
+* fault C7, repaired: truncated JPEGs (eight writers, cut at 10 to 99 %
+  of their bytes) decode through the coefficient route bitwise as the
+  host libjpeg route decodes them, or raise where it raises; one of them
+  bitwise the JAX loader; a progressive cut whose smoothing reads the
+  second latch row; a wrong or missing restart marker resyncs as libjpeg
+  resyncs;
 * without cv2 the cv2 loaders raise ``ImportError`` naming
   ``--native_loader``.
 """
@@ -266,7 +273,8 @@ def _raw_planes(helper, path, tmp_path):
 def test_colour_plain_version_is_libjpegs_conversion(tmp_path, subsampling):
     """On libjpeg's own decoded planes, the colour kernel's plain version
     (fancy upsampling, fixed-point YCbCr -> RGB) gives cv2's RGB decode
-    bitwise, at an odd size (ragged chroma edges)."""
+    bitwise, at an odd size (ragged chroma edges), one frame a call and a
+    chunk of three frames a call."""
     helper = tmp_path / "raw_planes"
     src = tmp_path / "raw_planes.c"
     src.write_text(RAW_PLANES_C)
@@ -284,6 +292,19 @@ def test_colour_plain_version_is_libjpegs_conversion(tmp_path, subsampling):
     want = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
     np.testing.assert_array_equal(native.ycc_to_rgb_u8(y, cb, cr).numpy(),
                                   want)
+    # a chunk of frames in one call (the GPU route's one launch a chunk):
+    # libjpeg's planes, their mirror images and seeded noise, each frame
+    # as its own call gives it, and libjpeg's frame bitwise
+    noise = [torch.from_numpy(rng.integers(0, 256, p.shape, np.uint8))
+             for p in (y, cb, cr)]
+    chunk = [torch.stack([p, p.flip(-1), n]) for p, n in zip((y, cb, cr),
+                                                               noise)]
+    got = native.ycc_to_rgb_u8(*chunk)
+    assert got.shape == (3, *y.shape, 3)
+    for i in range(3):
+        assert torch.equal(got[i], native.ycc_to_rgb_u8_ref(
+            *(p[i].contiguous() for p in chunk)))
+    np.testing.assert_array_equal(got[0].numpy(), want)
 
 
 def test_fixture_is_its_scripts_output_and_decodes_within_1_lsb():
@@ -459,7 +480,13 @@ REFERENCE_SIZES = {"gray": ["source", "256"], "color": ["source", "256"],
                    "smooth_partial": ["source", "256"],
                    "smooth_dconly": ["source", "256"],
                    "smooth_al1": ["source", "256"],
-                   "smooth_arith": ["source", "256"]}
+                   "smooth_arith": ["source", "256"],
+                   "trunc_rst": ["source", "256"],
+                   "trunc_progressive": ["source", "256"],
+                   "trunc_arith": ["source", "256"]}
+# the kinds libjpeg block-smooths at output
+SMOOTHED = {"smooth_partial", "smooth_dconly", "smooth_al1", "smooth_arith",
+            "trunc_progressive", "trunc_arith"}
 
 
 def fixture_paths(kind):
@@ -479,8 +506,9 @@ def test_coef_route_is_the_committed_libjpeg_reference(kind, monkeypatch):
     alone), the arithmetic-coded progressive one (SOF10, grayscale),
     ``gray_c5.jpg`` (at 160x160 and 248x103 its channel 0 is off channels 1
     and 2 where
-    the JAX loader's build rounds it so: C5) and the smoothing files (C6:
-    libjpeg smooths each, and unsmoothed they would decode otherwise)."""
+    the JAX loader's build rounds it so: C5), the smoothing files (C6:
+    libjpeg smooths each, and unsmoothed they would decode otherwise) and
+    the truncated files (C7)."""
     ref = np.load(os.path.join(FIXTURE, "libjpeg_reference.npz"))
     paths = fixture_paths(kind)
     names = [k[len(kind) + 1:] for k in ref.files
@@ -500,7 +528,7 @@ def test_coef_route_is_the_committed_libjpeg_reference(kind, monkeypatch):
             assert (want[..., 0] != want[..., 1]).any()
             assert np.array_equal(want[..., 1], want[..., 2])
     comps = native.decode_coefs(paths)[0]
-    assert all(c.smooth for c in comps) == kind.startswith("smooth")
+    assert all(c.smooth for c in comps) == (kind in SMOOTHED)
     if kind.startswith("smooth"):
         unsmoothed = _unsmoothed_decode(monkeypatch, paths[0],
                                         want.shape[1:3])
@@ -715,9 +743,12 @@ def _idct_unclamped(coefs, qtables):
 
 
 def test_range_limit_is_jdmasters_table():
-    """jdmaster.c prepare_range_limit_table, built as libjpeg builds it,
+    """jdmaster.c prepare_range_limit_table, built as libjpeg builds it and
     indexed as jidctint.c indexes it (``x & RANGE_MASK`` past
-    ``CENTERJSAMPLE``)."""
+    ``CENTERJSAMPLE``), is the plain IDCT's last step (the SIMD build's
+    saturation to [-128, 127] and + CENTERJSAMPLE, ``native._sample``) for
+    every descaled value -512 <= x < 512; beyond, jidctint.c's table wraps
+    where the SIMD build, which the host's libjpeg runs, saturates."""
     table = np.zeros(5 * 256 + 128, np.int64)
     base = 256  # table + (MAXJSAMPLE + 1): sample_range_limit
     table[base:base + 256] = np.arange(256)
@@ -725,36 +756,282 @@ def test_range_limit_is_jdmasters_table():
     table[idct + 128:idct + 512] = 255
     table[idct + 512:idct + 1024 - 128] = 0
     table[idct + 1024 - 128:idct + 1024] = table[base:base + 128]
-    np.testing.assert_array_equal(
-        native._range_limit("cpu").numpy(), table[idct:idct + 1024])
+    x = np.arange(-2048, 2048)
+    got = native._sample(torch.from_numpy(x)).numpy()
+    inside = (x >= -512) & (x < 512)
+    np.testing.assert_array_equal(got[inside], table[idct + (x[inside] & 1023)])
+    np.testing.assert_array_equal(got[~inside], np.where(x[~inside] < 0, 0, 255))
+    assert (got[~inside] != table[idct + (x[~inside] & 1023)]).any()
 
 
 def test_plain_idct_zero_ac_shortcuts_give_the_full_path():
-    """jidctint.c's shortcuts (pass 1: a column of zero AC terms is its DC
-    << PASS1_BITS; pass 2: a row of zero AC terms is range_limit(DESCALE(dc,
-    PASS1_BITS + 3))) give what the full path gives, over every DC a valid
-    JPEG can hold, with AC terms elsewhere in the block."""
+    """The SIMD build's one shortcut (pass 1 of a block whose rows 1-7 are
+    all zero: the dequantized row 0 << PASS1_BITS in 16-bit lanes) gives
+    what its full pass 1 gives (descaled and saturated to 16 bits) for
+    every row-0 value a valid JPEG can hold, with AC terms in row 0; so do
+    jidctint.c's shortcuts (a column of zero AC terms is its DC <<
+    PASS1_BITS; a row of zero AC terms is range_limit(DESCALE(dc,
+    PASS1_BITS + 3))).  Where row 0 << PASS1_BITS leaves 16 bits the lanes
+    wrap, and the plain version wraps as the SIMD build does."""
     dc = torch.arange(-2048, 2048, dtype=torch.int16)
     n = dc.numel()
     coefs = torch.zeros((1, 1, n, 64), dtype=torch.int16)
     coefs[0, 0, :, 0] = dc
-    # an AC term in column 1 only: columns 0 and 2-7 take pass 1's shortcut
+    # an AC term in column 1 of row 0: the block still takes the shortcut
     coefs[0, 0, :, 1] = torch.arange(n, dtype=torch.int16) % 7 - 3
     q = torch.full((1, 64), 1, dtype=torch.uint16)
-    got = native.idct_islow_u8_ref(coefs, q, (8, 8 * n))
-    # the shortcut of pass 1 on column c != 1 and the full path's
     x = coefs.to(torch.int32).view(1, 1, n, 8, 8)
-    full = torch.stack([native._descale(v, 11) for v in
-                        native._idct_1d(x.unbind(-2))], dim=-2)
-    short = x[..., 0:1, :] * 4  # DC << PASS1_BITS on every row
-    cols = [0, 2, 3, 4, 5, 6, 7]
-    assert torch.equal(full[..., cols], short.expand_as(full)[..., cols])
-    # blocks with a DC alone: every row takes pass 2's shortcut
+    full = torch.stack([native._descale(v, 11).clamp(-32768, 32767)
+                        for v in native._idct_1d(x.unbind(-2))], dim=-2)
+    short = (x[..., 0:1, :] * 4).expand_as(full)  # DC << PASS1_BITS
+    assert torch.equal(full, short)
+    assert torch.equal(native._wrap16(short), short)
+    # blocks with a DC alone: every row takes jidctint.c's pass-2 shortcut
     flat = coefs.clone()
     flat[..., 1] = 0
-    shortcut = native._range_limit("cpu")[
-        (native._descale(dc.to(torch.int32) * 4, 5) & 1023).long()]
+    shortcut = native._sample(native._descale(dc.to(torch.int32) * 4, 5))
     plane = native.idct_islow_u8_ref(flat, q, (8, 8 * n))
     assert torch.equal(plane.view(8, n, 8),
                        shortcut.view(1, n, 1).expand(8, n, 8))
-    assert got.shape == (1, 8, 8 * n)
+    # a DC of 2047 at a quantizer of 8: 16,376 << 2 wraps to -32 in 16
+    # bits (a value of -1 after pass 2, sample 127), where saturation would
+    # give 32,767 (sample 255)
+    big = torch.zeros((1, 1, 1, 64), dtype=torch.int16)
+    big[..., 0] = 2047
+    got = native.idct_islow_u8_ref(big, torch.full((1, 64), 8,
+                                                   dtype=torch.uint16), (8, 8))
+    assert torch.equal(got, torch.full((1, 8, 8), 127, dtype=torch.uint8))
+
+
+# fault C7 (ROADMAP.md): truncated JPEGs, the scene at an odd size written
+# by cv2 at quality 90 (baseline, progressive, a restart interval of 4
+# MCUs) or by scripts/libjpeg_write.c (arithmetic-coded sequential with
+# restarts, "arithrst"; arithmetic-coded progressive, "sof10"), then cut
+TRUNCATED_CASES = ["baseline-color", "baseline-gray", "progressive-color",
+                   "progressive-gray", "rst-color", "progrst-color",
+                   "arithrst-color", "sof10-color"]
+CUTS = [10, 30, 50, 70, 90, 99]
+
+
+def _truncated(coef_images, libjpeg_writer, tmp_path, case, cut):
+    """``case``'s file cut to its first ``cut`` per cent of bytes."""
+    writer, kind = case.split("-")
+    img = _scene(coef_images, kind)
+    full = str(tmp_path / f"{case}.jpg")
+    if writer in ("arithrst", "sof10"):
+        libjpeg_writer(img, writer, full)
+    else:
+        params = [cv2.IMWRITE_JPEG_QUALITY, 90]
+        if writer.startswith("prog"):
+            params += [cv2.IMWRITE_JPEG_PROGRESSIVE, 1]
+        if writer.endswith("rst"):
+            params += [cv2.IMWRITE_JPEG_RST_INTERVAL, 4]
+        cv2.imwrite(full, img, params)
+    data = open(full, "rb").read()
+    path = str(tmp_path / f"{case}_{cut}.jpg")
+    open(path, "wb").write(data[:len(data) * cut // 100])
+    return path
+
+
+def _coef_route(paths, size):
+    """The GPU route's structure on the CPU: the coefficient decode and
+    ``smooth_coefs``, then one call of the IDCT's wrapper a component and
+    one of the colour and resize wrappers for the frames (CPU tensors take
+    the plain versions)."""
+    frames = native.decode_coefs(paths)
+    planes = [native.idct_islow_u8(
+        torch.from_numpy(np.stack([native.smooth_coefs(c) for c in comps])),
+        torch.from_numpy(np.stack([c.qtable for c in comps])), comps[0].size)
+        for comps in zip(*frames)]
+    src = (planes[0][..., None] if len(planes) == 1
+           else native.ycc_to_rgb_u8(*planes))
+    return native.resize_bilinear_u8(src.contiguous(), size).numpy()
+
+
+@pytest.mark.parametrize("cut", CUTS)
+@pytest.mark.parametrize("case", TRUNCATED_CASES)
+def test_truncated_jpeg_decodes_as_libjpeg(coef_images, libjpeg_writer,
+                                           tmp_path, case, cut):
+    """Fault C7, repaired: a file cut to its first 10 to 99 % of bytes
+    decodes through ``decode_video_ref`` and through the coefficient route
+    (:func:`_coef_route`) bitwise as the host libjpeg route decodes it, at
+    source size and at 256x256: a Huffman scan's MCUs past the end
+    skipped (zero blocks in a sequential frame, what earlier scans left in
+    a progressive one), the EOI left unread at a restart boundary (no
+    longer code 3), an arithmetic scan decoding zero bytes on, the rows
+    past the last good one block-smoothed with the coefficient bits from
+    before the cut scan, the IDCT saturating as libjpeg's SIMD build does.
+    Where libjpeg refuses a cut (a header segment cut short), both raise."""
+    path = _truncated(coef_images, libjpeg_writer, tmp_path, case, cut)
+    for size in (ODD_SHAPE, (256, 256)):
+        try:
+            want = native.decode_video([path], size)
+        except RuntimeError:
+            with pytest.raises(RuntimeError):
+                native.decode_video_ref([path], size)
+            with pytest.raises(RuntimeError):
+                _coef_route([path], size)
+            continue
+        np.testing.assert_array_equal(
+            native.decode_video_ref([path], size).numpy(), want,
+            err_msg=f"{size}")
+        np.testing.assert_array_equal(_coef_route([path], size), want,
+                                      err_msg=f"{size}")
+
+
+def test_truncated_jpeg_is_the_jax_loaders(coef_images, libjpeg_writer,
+                                           tmp_path):
+    """A colour JPEG with restarts cut at half its bytes: the host route,
+    ``decode_video_ref`` and the JAX package's loader give the same bytes
+    at source size and at 256x256 (the port raised code 3 at the first
+    restart boundary past the cut)."""
+    path = _truncated(coef_images, libjpeg_writer, tmp_path, "rst-color", 50)
+    for size in (ODD_SHAPE, (256, 256)):
+        want = jnative.decode_video([path], size)
+        np.testing.assert_array_equal(native.decode_video([path], size), want)
+        np.testing.assert_array_equal(
+            native.decode_video_ref([path], size).numpy(), want)
+
+
+def test_truncated_progressive_smooths_with_the_second_latch_row():
+    """``trunc_progressive.jpg`` (cv2's progressive script cut inside its
+    second scan, luma AC 1-5): libjpeg smooths the iMCU rows past the last
+    good one (5 of 9) with each component's coefficient bits from before
+    its last scan -- luma's DC-only bits, chroma's 0s, its last scan being
+    the frame's first -- so a decode that latches one row gets 22,747 of
+    81,600 values wrong at source size and 54,982 of 196,608 at 256x256;
+    the two-row latch gives the host route bitwise."""
+    path = os.path.join(FIXTURE, "trunc_progressive.jpg")
+    comps = native.decode_coefs([path])[0]
+    assert all(c.smooth and c.last_good_imcu == 5 and c.imcu_rows == 9
+               for c in comps)
+    assert list(comps[0].prev_coef_bits[1:]) == [-1] * 9
+    assert all(list(c.prev_coef_bits[1:]) == [0] * 9 for c in comps[1:])
+    for size, wrong in (((136, 200), 22_747), ((256, 256), 54_982)):
+        want = native.decode_video([path], size)
+        np.testing.assert_array_equal(
+            native.decode_video_ref([path], size).numpy(), want)
+        one_row = [c._replace(prev_coef_bits=c.coef_bits) for c in comps]
+        planes = [native.idct_islow_u8_ref(
+            torch.from_numpy(native.smooth_coefs(c))[None],
+            torch.from_numpy(c.qtable)[None], c.size)[0] for c in one_row]
+        got = native.resize_bilinear_u8_ref(
+            native.ycc_to_rgb_u8_ref(*planes)[None].contiguous(), size)
+        assert int((got.numpy() != want).sum()) == wrong
+
+
+# libjpeg writing chosen coefficients (jpeg_write_coefficients): a
+# grayscale JPEG of bh x bw blocks from <in.bin> (64 uint16 quantizers in
+# natural order, then the blocks' int16 coefficients in natural order), its
+# table 16-bit where a quantizer passes 255, Huffman tables optimized
+WRITE_COEFS_C = r"""
+#include <stdio.h>
+#include <stdlib.h>
+#include <jpeglib.h>
+int main(int argc, char** argv) {
+  int bh = atoi(argv[3]), bw = atoi(argv[4]);
+  FILE* f = fopen(argv[1], "rb");
+  unsigned short q[64];
+  short* co = malloc((size_t)bh * bw * 128);
+  if (fread(q, 2, 64, f) != 64 ||
+      fread(co, 2, (size_t)bh * bw * 64, f) != (size_t)bh * bw * 64) return 1;
+  fclose(f);
+  struct jpeg_compress_struct c;
+  struct jpeg_error_mgr e;
+  c.err = jpeg_std_error(&e);
+  jpeg_create_compress(&c);
+  FILE* o = fopen(argv[2], "wb");
+  jpeg_stdio_dest(&c, o);
+  c.image_width = bw * 8;
+  c.image_height = bh * 8;
+  c.input_components = 1;
+  c.in_color_space = JCS_GRAYSCALE;
+  jpeg_set_defaults(&c);
+  c.optimize_coding = TRUE;
+  unsigned int table[64];
+  for (int i = 0; i < 64; i++) table[i] = q[i];
+  jpeg_add_quant_table(&c, 0, table, 100, FALSE);
+  jvirt_barray_ptr arr = c.mem->request_virt_barray(
+      (j_common_ptr)&c, JPOOL_IMAGE, TRUE, bw, bh, 1);
+  jpeg_write_coefficients(&c, &arr);
+  for (int r = 0; r < bh; r++) {
+    JBLOCKARRAY row = c.mem->access_virt_barray((j_common_ptr)&c, arr, r, 1,
+                                                TRUE);
+    for (int b = 0; b < bw; b++)
+      for (int k = 0; k < 64; k++)
+        row[0][b][k] = co[((size_t)r * bw + b) * 64 + k];
+  }
+  jpeg_finish_compress(&c);
+  fclose(o);
+  return 0;
+}
+"""
+
+
+@pytest.mark.parametrize("qmax", [1, 255, 4095, 32767])
+def test_plain_idct_is_libjpegs_simd_idct(tmp_path, qmax):
+    """The plain IDCT against the host's libjpeg on blocks written with
+    chosen coefficients (any a baseline Huffman coder takes: DC steps
+    within 11 bits, AC within 10) and tables of quantizers up to ``qmax``:
+    bitwise, where 16-bit lanes wrap and saturate and sums pass +-512
+    (jidctint.c's range limit, which wraps there, differs on many of these
+    values), blocks with and without the SIMD build's shortcut."""
+    helper = tmp_path / "write_coefs"
+    src = tmp_path / "write_coefs.c"
+    src.write_text(WRITE_COEFS_C)
+    subprocess.run(["gcc", "-O2", str(src), "-o", str(helper), "-ljpeg"],
+                   check=True)
+    rng = np.random.default_rng(qmax)
+    bh, bw = 8, 32
+    n = bh * bw
+    q = rng.integers(1, qmax + 1, 64)
+    density = rng.uniform(0, 1, (n, 1))
+    scale = rng.choice([3, 30, 300, 1023], (n, 1))
+    c = rng.integers(-1023, 1024, (n, 64)) * scale // 1023
+    c = np.where(rng.uniform(0, 1, (n, 64)) < density, c, 0)
+    c[rng.uniform(0, 1, n) < 0.25, 8:] = 0  # rows 1-7 zero: the shortcut
+    dc = np.clip(np.cumsum(rng.integers(-1500, 1501, n)), -2047, 2047)
+    c[:, 0] = dc
+    (tmp_path / "in.bin").write_bytes(q.astype(np.uint16).tobytes()
+                                      + c.astype(np.int16).tobytes())
+    path = str(tmp_path / "c.jpg")
+    subprocess.run([str(helper), str(tmp_path / "in.bin"), path, str(bh),
+                    str(bw)], check=True)
+    shape = (8 * bh, 8 * bw)
+    want = native.decode_video([path], shape)[..., 0]
+    comps = native.decode_coefs([path])[0]
+    np.testing.assert_array_equal(comps[0].coefs.reshape(n, 64), c)
+    got = native.idct_islow_u8_ref(
+        torch.from_numpy(comps[0].coefs)[None],
+        torch.from_numpy(comps[0].qtable)[None], shape)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("change", ["next", "second_next", "prior", "far",
+                                    "dropped"])
+def test_wrong_restart_marker_resyncs_as_libjpeg(coef_images, tmp_path,
+                                                 change):
+    """A colour JPEG with restarts whose fifth RSTn is replaced by the one
+    after it, the one after that, the one before it or one four ahead, or
+    is dropped: ``jpeg_resync_to_restart``'s actions (leave the marker
+    unread and skip to it, scan past it, or swallow it) give the host
+    route's decode bitwise through ``decode_video_ref``."""
+    full = str(tmp_path / "rst.jpg")
+    cv2.imwrite(full, coef_images["scene"], [
+        cv2.IMWRITE_JPEG_QUALITY, 90, cv2.IMWRITE_JPEG_RST_INTERVAL, 4])
+    data = bytearray(open(full, "rb").read())
+    sos = data.index(b"\xff\xda")
+    at = [i for i in range(sos, len(data) - 1)
+          if data[i] == 0xFF and 0xD0 <= data[i + 1] <= 0xD7][4]
+    n = data[at + 1] - 0xD0
+    if change == "dropped":
+        del data[at:at + 2]
+    else:
+        step = {"next": 1, "second_next": 2, "prior": 7, "far": 4}[change]
+        data[at + 1] = 0xD0 + (n + step) % 8
+    path = str(tmp_path / f"{change}.jpg")
+    open(path, "wb").write(bytes(data))
+    for size in (ODD_SHAPE, (256, 256)):
+        np.testing.assert_array_equal(
+            native.decode_video_ref([path], size).numpy(),
+            native.decode_video([path], size))
