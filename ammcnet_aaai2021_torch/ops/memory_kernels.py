@@ -7,10 +7,11 @@ training variant that also returns the EMA statistics.  Each has two CUDA
 routes, chosen by one rule, :func:`lookup_route`: bf16 latents of width 64
 with k <= 4 and a codebook size the tensor-core kernels are built for go
 to ``csrc/quantize_topk_mma.cu``; the rest (float32 latents, other widths
-and codebook sizes, larger k) to the CUDA-core kernels
-``csrc/quantize_topk.cu``, which stream the codebook through shared memory
-and so take any n_embed and any k <= n_embed (past k 8 a block also stages
-its rows' n_embed distances in shared memory).  On both routes B2 is B1's kernel, then a
+and codebook sizes, larger k) to the general route ``csrc/quantize_topk.cu``
+(key ``CUDA_CORE``), which runs the distances on the bf16 tensor cores at
+float32 accuracy (a three-part bf16 split), streams the codebook through
+shared memory 64 codewords by 64 dims at a time, and so takes any width,
+any n_embed and any k <= n_embed.  On both routes B2 is B1's kernel, then a
 statistics kernel.
 Each file's header says what bounds its kernels on an H100 and what the
 design does about that.
@@ -39,8 +40,9 @@ from . import cuda_build
 
 # codebook sizes the tensor-core kernel is instantiated for
 KERNEL_N_EMBEDS = (32, 64, 128, 256, 512)
-# the routes of B1 and B2: the tensor-core kernels (mma.sync, bf16 latents)
-# and the CUDA-core kernels
+# the routes of B1 and B2: the specialised tensor-core kernels (bf16 latents
+# of width 64) and the general route (any input; its distances run on the
+# tensor cores too, the key is the name it was given first)
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 ROUTES = (TENSOR_CORE, CUDA_CORE)
 # what the tensor-core kernel is built for: latent width, largest k
@@ -50,7 +52,8 @@ MMA_DIM, MMA_MAX_K = 64, 4
 def lookup_route(dtype: torch.dtype, dim: int, n_embed: int, k: int) -> str:
     """The route of B1 and B2 for these inputs: bf16 latents of width
     ``MMA_DIM``, ``k <= MMA_MAX_K`` and ``n_embed`` in ``KERNEL_N_EMBEDS``
-    take the tensor-core kernels; everything else the CUDA-core kernels."""
+    take the tensor-core kernels; everything else the general route
+    (``CUDA_CORE``)."""
     if (dtype == torch.bfloat16 and dim == MMA_DIM and 1 <= k <= MMA_MAX_K
             and n_embed in KERNEL_N_EMBEDS):
         return TENSOR_CORE
@@ -133,8 +136,9 @@ def _check(flat: torch.Tensor, embed: torch.Tensor, k: int) -> None:
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    """The built CUDA-core kernel library (the other route of B1 and B2),
-    its C functions typed (once per process)."""
+    """The built general-route kernel library (``csrc/quantize_topk.cu``,
+    the other route of B1 and B2), its C functions typed (once per
+    process)."""
     lib = cuda_build.load("quantize_topk")
     ptr = ctypes.c_void_p
     lib.ammc_quantize_topk.argtypes = [
@@ -149,9 +153,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.POINTER(ctypes.c_int)]
     lib.ammc_quantize_topk_grid.restype = ctypes.c_int
-    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int,
-                                                  ctypes.c_int]
+    lib.ammc_quantize_topk_smem_bytes.argtypes = [ctypes.c_int] * 4
     lib.ammc_quantize_topk_smem_bytes.restype = ctypes.c_longlong
+    lib.ammc_quantize_topk_scratch_bytes.argtypes = [ctypes.c_int] * 5
+    lib.ammc_quantize_topk_scratch_bytes.restype = ctypes.c_longlong
+    lib.ammc_ema_stats_smem_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.ammc_ema_stats_smem_bytes.restype = ctypes.c_longlong
     _type_common(lib)
     return lib
 
@@ -205,24 +212,40 @@ def _check_smem(lib: ctypes.CDLL, smem: int, what: str) -> None:
 
 @functools.cache
 def _grid(device: int, bf16: bool, n: int, dim: int, n_embed: int,
-          k: int) -> int:
-    """Blocks one launch of the CUDA-core lookup kernel takes (B1, and B2's
-    lookup), after checking that the block's shared memory fits the card:
-    the width's staged rows, and for k > 8 also the rows' n_embed staged
-    distances (the codebook streams through in fixed chunks, so for k <= 8
-    n_embed sets no limit).  The C sizing call queries the device and sets
-    the kernel's shared-memory attribute, so it runs once per device and
-    sizes, not on every launch."""
+          k: int) -> Tuple[int, int]:
+    """Blocks one launch of the general-route lookup kernel takes (B1, and
+    B2's lookup) and the bytes of its scratch, after checking that the
+    block's shared memory fits the card.  Stages of 64 codewords by 64 dims
+    stream through a block, so neither the width nor n_embed sets a limit;
+    past k 16 the lanes' running lists sit in shared memory where they fit,
+    else in the scratch.  The C sizing call queries the device and sets the
+    kernels' shared-memory attributes, so it runs once per device and sizes,
+    not on every launch."""
     lib = _library()
     with torch.cuda.device(device):
-        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(dim, n_embed, k),
-                    f"the CUDA-core kernel at latent width {dim}, n_embed "
-                    f"{n_embed}, k {k}")
+        _check_smem(lib, lib.ammc_quantize_topk_smem_bytes(
+            int(bf16), dim, n_embed, k), f"the general-route kernel at "
+            f"latent width {dim}, n_embed {n_embed}, k {k}")
         grid = ctypes.c_int(0)
         _raise_on(lib, lib.ammc_quantize_topk_grid(
             int(bf16), n, dim, n_embed, k, ctypes.byref(grid)),
             "sizing the quantize_topk launch")
-    return grid.value
+        scratch = lib.ammc_quantize_topk_scratch_bytes(
+            int(bf16), dim, n_embed, k, grid.value)
+    return grid.value, scratch
+
+
+@functools.cache
+def _check_stats(device: int, bf16: bool, dim: int) -> None:
+    """Raise unless the general route's statistics kernel fits the card at
+    this width: a cluster's block keeps its warps' staged rows and partials
+    of at least one codeword's dim sums (about width 8,100 for float32
+    latents and 9,700 for bf16 on an H100)."""
+    lib = _library()
+    with torch.cuda.device(device):
+        _check_smem(lib, lib.ammc_ema_stats_smem_bytes(int(bf16), dim),
+                    f"the general-route statistics kernel at latent width "
+                    f"{dim}")
 
 
 @functools.cache
@@ -242,19 +265,19 @@ def _mma_grid(device: int, n: int, n_embed: int, k: int) -> int:
 
 def _kernel_device(flat: torch.Tensor) -> None:
     """Raise for a device no kernel runs on: anything but CUDA (the
-    CUDA-core kernel's limits are the shared-memory check of
-    :func:`_grid`)."""
+    general route's limits are the shared-memory checks of :func:`_grid`
+    and :func:`_check_stats`)."""
     if flat.device.type != "cuda":
         raise ValueError(f"no kernel for device {flat.device}")
 
 
-def _cuda_core_scratch(embed: torch.Tensor) -> torch.Tensor:
-    """The CUDA-core kernels' scratch: a codeword-major copy of the codebook
-    and its squared norms, n_embed * (dim + 1) float32, written by the
-    kernels' prologue."""
-    dim, n_embed = embed.shape
-    return torch.empty((n_embed * (dim + 1),), dtype=torch.float32,
-                       device=embed.device)
+def _cuda_core_scratch(embed: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """The general route's scratch, ``nbytes`` from :func:`_grid`: the
+    codebook's bf16 parts in the stages the kernel streams, each with its
+    codewords' squared norms and scales, a codeword-major float32 copy for
+    the gather (both written by the kernels' prologue), and for k > 16 the
+    running lists that do not fit shared memory."""
+    return torch.empty((nbytes,), dtype=torch.uint8, device=embed.device)
 
 
 def _route(flat: torch.Tensor, n_embed: int, k: int,
@@ -288,13 +311,10 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
       embed: (dim, n_embed) float32 codebook, contiguous, same device.
       k: codewords per row.
       route: the kernel for a CUDA launch, ``TENSOR_CORE`` or
-        ``CUDA_CORE``; by default :func:`lookup_route` decides.  The
-        CUDA-core kernel takes any n_embed, any k <= n_embed and any latent
-        width whose block fits shared memory: the staged rows, and for
-        k > 8 the rows' staged distances, 32 * n_embed * 4 bytes (about
-        n_embed 1,490 at width 64 on an H100); it raises ``ValueError``
-        naming the limit otherwise.  Asking for the tensor-core kernel
-        where the rule would not give it raises.
+        ``CUDA_CORE`` (the general route); by default :func:`lookup_route`
+        decides.  The general route takes any width, any n_embed and any
+        k <= n_embed.  Asking for the tensor-core kernel where the rule
+        would not give it raises.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32)``.
@@ -323,8 +343,8 @@ def quantize_topk_fused(flat: torch.Tensor, embed: torch.Tensor, k: int,
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(flat.device.index, bf16, n, dim, n_embed, k)
-        scratch = _cuda_core_scratch(embed)
+        grid, nbytes = _grid(flat.device.index, bf16, n, dim, n_embed, k)
+        scratch = _cuda_core_scratch(embed, nbytes)
         with torch.cuda.device(flat.device):
             err = lib.ammc_quantize_topk(
                 flat.data_ptr(), int(bf16), embed.data_ptr(),
@@ -350,6 +370,9 @@ def quantize_topk_train_fused(
     Args: as :func:`quantize_topk_fused`, ``route`` and its rule included.
     On either route the lookup is B1's kernel of that route, so ``q_topk``,
     ``q1`` and ``top1_idx`` are bitwise B1's on the same input and route.
+    The general route's statistics kernel raises ``ValueError`` naming
+    shared memory past a width of about 8,100 (float32 latents) on an
+    H100.
 
     Returns:
       ``(q_topk (N, k*dim) f32, q1 (N, dim) f32, top1_idx (N,) int32,
@@ -386,8 +409,9 @@ def quantize_topk_train_fused(
     else:
         lib = _library()
         bf16 = flat.dtype == torch.bfloat16
-        grid = _grid(dev.index, bf16, n, dim, n_embed, k)  # B1's lookup
-        scratch = _cuda_core_scratch(embed)
+        _check_stats(dev.index, bf16, dim)
+        grid, nbytes = _grid(dev.index, bf16, n, dim, n_embed, k)  # B1's
+        scratch = _cuda_core_scratch(embed, nbytes)
         with torch.cuda.device(dev):
             err = lib.ammc_quantize_topk_train(
                 flat.data_ptr(), int(bf16), embed.data_ptr(),

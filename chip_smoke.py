@@ -14,16 +14,20 @@ Phases, one JSON line each; any failure exits non-zero:
    IDCT, colour and resize kernels) and the int8 convolutions;
 3. kernel check: each kernel (B1, the inference memory lookup, and B2, the
    training lookup with the EMA statistics, each on its tensor-core route
-   for bf16 latents and its CUDA-core route for float32) against its plain
-   PyTorch version on the card at the paths' shapes, plus edge cases, with
-   the device time of each (CUDA graphs timed by CUDA events), the kernel's
-   back-to-back eager time (host work included), the card's bound for the
-   same work, and for the bf16 cases the CUDA-core kernel's device time on
-   the same input; B2's tensor-core lookup must be bitwise B1's; then the
-   CUDA-core route at the shapes its old kernel raised for (``c1_check``:
-   n_embed 100, 256, 512 and 1024, width 128, k 1, 2, 8, 16 and k =
-   n_embed, float32 and bf16, ragged N; B2's lookup bitwise B1's CUDA-core
-   lookup), timed at n_embed 1024 (k 2) and at k 16 (n_embed 256);
+   for bf16 latents of width 64 and its general route, key ``cuda_core``,
+   for float32: any width, codebook and k, its distances on the tensor
+   cores at float32 accuracy too) against its plain PyTorch version on the
+   card at the paths' shapes, plus edge cases, with the device time of
+   each (CUDA graphs timed by CUDA events), the kernel's back-to-back eager
+   time (host work included), the card's bound for the same work, and for
+   the bf16 cases the general-route kernel's device time on the same input;
+   for B2 also B1's lookup alone (``lookup_ms``), the statistics' rest
+   (``stats_ms``) and the most picked codeword's share of the rows
+   (``top1_max_share``); B2's lookup must be bitwise B1's; then the general
+   route at the shapes the first CUDA-core kernel raised for
+   (``c1_check``: n_embed 100, 256, 512 and 1024, width 128, k 1, 2, 8, 16
+   and k = n_embed, float32 and bf16, ragged N; B2's lookup bitwise B1's),
+   timed at n_embed 1024 (k 2) and at k 16 (n_embed 256);
 4. model check: the released generator on a small 256x256 batch, its
    memory lookups in the kernel and in plain PyTorch, in float32 and bf16:
    the lookups' indices first, then the outputs of the samples whose
@@ -420,10 +424,11 @@ def train_kernel_phase(torch, mk) -> dict:
                 row["previous_kernel_ms"] = graph_ms(
                     torch, lambda: mk.quantize_topk_train_fused(
                         flat, embed, k, route=cc))
-                # B1's kernel alone: the statistics kernel takes the rest
-                row["lookup_ms"] = graph_ms(
-                    torch, lambda: mk.quantize_topk_fused(flat, embed, k))
-                row["stats_ms"] = row["kernel_ms"] - row["lookup_ms"]
+            # B1's kernel alone on the route: the statistics take the rest
+            row["lookup_ms"] = graph_ms(
+                torch, lambda: mk.quantize_topk_fused(flat, embed, k,
+                                                      route=route))
+            row["stats_ms"] = row["kernel_ms"] - row["lookup_ms"]
             row.update(train_lookup_bound(n, dim, n_embed, k,
                                           flat.element_size()))
             out[(n, name)] = row
@@ -503,6 +508,14 @@ def c1_phase(torch, mk) -> dict:
             row = {"shape": [n, 64, n_embed, k], "route": cc,
                    **time_pair(torch, kernel, plain, flat, embed, k),
                    **bound_fn(n, 64, n_embed, k, 4)}
+            if kernel is mk.quantize_topk_train_fused:
+                # B1's lookup timed just before: the statistics take the rest
+                row["lookup_ms"] = out[("quantize_topk_fused", n, n_embed,
+                                        k)]["kernel_ms"]
+                row["stats_ms"] = row["kernel_ms"] - row["lookup_ms"]
+                idx = kernel(flat, embed, k)[2]
+                row["top1_max_share"] = float(torch.bincount(
+                    idx.long(), minlength=n_embed).max()) / n
             out[(kernel.__name__, n, n_embed, k)] = row
             emit("c1_check", kernel=kernel.__name__,
                  input=f"float32 N={n} n_embed={n_embed} k={k} timed", **row)
@@ -2161,11 +2174,13 @@ def main(argv=None) -> None:
                "lookup_ms", "stats_ms", "plain_ms", "bound_ms", "bound_by")
     cc_keys = ("kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
                "bound_by")
+    cc_b2_keys = cc_keys + ("lookup_ms", "stats_ms", "top1_max_share")
 
     def cc_times(name, k):
-        """The CUDA-core route's timed rows of one wrapper at this k."""
+        """The general route's timed rows of one wrapper at this k."""
+        keys = cc_b2_keys if name == "quantize_topk_train_fused" else cc_keys
         return {f"at_n_{n}_n_embed_{n_embed}": {
-            key: c1_times[(name, n, n_embed, kk)][key] for key in cc_keys}
+            key: c1_times[(name, n, n_embed, kk)][key] for key in keys}
             for n, n_embed, kk in C1_TIMED if kk == k}
 
     def int8_row(kind):
@@ -2253,9 +2268,10 @@ def main(argv=None) -> None:
                           **{key: b2_f32[key] for key in (
                               "kernel_ms", "kernel_eager_ms", "plain_ms",
                               "bound_ms", "bound_by", "flips",
-                              "esum_max_rel_err")},
+                              "esum_max_rel_err", "lookup_ms", "stats_ms",
+                              "top1_max_share")},
                           "at_n_196608": {key: b2_f32_big[key]
-                                          for key in cc_keys},
+                                          for key in cc_b2_keys},
                           "at_k_2": cc_times("quantize_topk_train_fused", 2),
                           "at_k_16": cc_times("quantize_topk_train_fused",
                                               16)},

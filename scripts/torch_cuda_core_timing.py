@@ -1,12 +1,21 @@
 #!/usr/bin/env python3
-"""Device time of the CUDA-core route of the memory lookups B1 and B2.
+"""Device time of the general route of the memory lookups B1 and B2.
 
 Times ``quantize_topk_fused`` (B1) and ``quantize_topk_train_fused`` (B2)
-on float32 latents (the CUDA-core route: ``csrc/quantize_topk.cu``), dim 64,
-k 2, at N = 196,608 and 4,096 rows and n_embed 256 and 1024, each as 20
-calls in one CUDA graph replayed 5 times between CUDA events (chip_smoke.py's
-``graph_ms``), beside the card's bound for the same work.  A shape the
-package's kernel does not take is reported as ``raises``.
+on the general route (``route="cuda_core"``: ``csrc/quantize_topk.cu``) at
+``chip_smoke.py``'s shapes: its ``C1_TIMED`` (float32, width 64: n_embed
+1024 at k 2 and n_embed 256 at k 16, N = 196,608 and 4,096), its
+``kernel_check`` float32 rows (n_embed 256, k 2 at both N), bf16 latents
+forced onto the route (N = 196,608, n_embed 256, k 2) and one width-128
+row (float32, N = 196,608, n_embed 256, k 2); then the tensor-core route
+(``csrc/quantize_topk_mma.cu``) at ``kernel_check``'s bf16 rows (N =
+196,608 and 4,096, n_embed 256, k 2), so that a change to the general
+route shows the other route held.  Each time is 20 calls in one CUDA
+graph replayed 5 times between CUDA events (``chip_smoke.graph_ms``),
+beside the card's bound for the same work; for B2 also the share of B1's
+lookup (B1 alone on the same input and route) and of the statistics (the
+rest).  A shape the package's kernel does not take is reported as
+``raises``.
 
 Run from the repository root on a machine with one NVIDIA GPU:
 
@@ -15,7 +24,7 @@ Run from the repository root on a machine with one NVIDIA GPU:
 ``--root`` is the checkout whose ``ammcnet_aaai2021_torch`` is timed (by
 default this one), so two commits can be compared in one call on one card,
 in the order parent, change, change, parent.  Prints the card's name and
-power limit, then one JSON line per shape.
+power limit, then one JSON line per shape and wrapper.
 """
 
 from __future__ import annotations
@@ -28,7 +37,17 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SHAPES = ((196_608, 256), (4_096, 256), (196_608, 1024), (4_096, 1024))
+# (N, width, n_embed, k, latent type, route)
+SHAPES = ((196_608, 64, 1024, 2, "float32", "cuda_core"),
+          (4_096, 64, 1024, 2, "float32", "cuda_core"),
+          (4_096, 64, 256, 16, "float32", "cuda_core"),
+          (196_608, 64, 256, 16, "float32", "cuda_core"),
+          (196_608, 64, 256, 2, "float32", "cuda_core"),
+          (4_096, 64, 256, 2, "float32", "cuda_core"),
+          (196_608, 64, 256, 2, "bfloat16", "cuda_core"),
+          (196_608, 128, 256, 2, "float32", "cuda_core"),
+          (196_608, 64, 256, 2, "bfloat16", "tensor_core"),
+          (4_096, 64, 256, 2, "bfloat16", "tensor_core"))
 
 
 def main(argv=None) -> None:
@@ -56,29 +75,40 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
     print(card, flush=True)
-    cc = mk.CUDA_CORE
-    for n, n_embed in SHAPES:
+    for n, dim, n_embed, k, dtype, route in SHAPES:
         g = torch.Generator(device="cuda").manual_seed(n_embed)
-        embed = torch.randn(64, n_embed, device="cuda", generator=g)
-        flat = torch.randn(n, 64, device="cuda", generator=g) * 0.5
+        embed = torch.randn(dim, n_embed, device="cuda", generator=g)
+        flat = (torch.randn(n, dim, device="cuda", generator=g) * 0.5).to(
+            getattr(torch, dtype))
+        in_bytes = flat.element_size()
+        lookup_ms = None
         for name, fn, bound in (
                 ("quantize_topk_fused", mk.quantize_topk_fused,
                  smoke.lookup_bound),
                 ("quantize_topk_train_fused", mk.quantize_topk_train_fused,
                  smoke.train_lookup_bound)):
             row = {"label": args.label, "card": card, "kernel": name,
-                   "route": cc, "dtype": "float32", "shape": [n, 64, n_embed, 2]}
+                   "route": route, "dtype": dtype,
+                   "shape": [n, dim, n_embed, k]}
             try:
-                fn(flat, embed, 2, route=cc)
+                out = fn(flat, embed, k, route=route)
             except ValueError as exc:  # the shape this kernel does not take
                 print(json.dumps({**row, "raises": str(exc)}), flush=True)
                 continue
-            call = lambda: fn(flat, embed, 2, route=cc)  # noqa: E731
+            call = lambda: fn(flat, embed, k, route=route)  # noqa: E731
             row["kernel_ms"] = smoke.graph_ms(torch, call)
             row["kernel_eager_ms"] = smoke.time_ms(torch, call)
-            b = bound(n, 64, n_embed, 2, 4)
+            b = bound(n, dim, n_embed, k, in_bytes)
             row.update(bound_ms=b["bound_ms"], bound_by=b["bound_by"])
+            if name == "quantize_topk_fused":
+                lookup_ms = row["kernel_ms"]
+            elif lookup_ms is not None:
+                row["lookup_ms"] = lookup_ms
+                row["stats_ms"] = row["kernel_ms"] - lookup_ms
+                row["top1_max_share"] = float(torch.bincount(
+                    out[2].long(), minlength=n_embed).max()) / n
             print(json.dumps(row), flush=True)
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

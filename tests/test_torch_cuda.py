@@ -248,20 +248,22 @@ def test_cuda_core_route_lowest_index_wins_ties_across_chunks(cuda_device):
 
 @pytest.mark.cuda
 def test_cuda_core_route_names_its_limits(cuda_device):
-    """Shared memory is the limit: past k 8 a block stages 32 rows of
-    n_embed distances (n_embed 1,600 does not fit at width 64, and k 9
-    raises there where k 8 runs), and any k needs the width's staged
-    rows."""
+    """The general route streams the codebook and the rows 64 dims at a
+    time, and past shared memory keeps k > 8's running lists in device
+    memory: the lookup has no limit of width, n_embed or k (k = n_embed =
+    1,600 runs, every distance a tie, so the indices come in order).  Shared
+    memory limits B2's statistics kernel, whose blocks keep their warps'
+    staged rows and partials of a codeword's dim sums: width 16,384 raises
+    there, where B1 runs."""
     flat = torch.zeros(8, DIM, device=cuda_device)
     embed = torch.zeros(DIM, 1600, device=cuda_device)
-    quantize_topk_fused(flat, embed, 8)
-    with pytest.raises(ValueError, match="n_embed 1600, k 9 .*shared memory"):
-        quantize_topk_fused(flat, embed, 9)
-    with pytest.raises(ValueError, match="n_embed 1600, k 9 .*shared memory"):
-        quantize_topk_train_fused(flat, embed, 9)
-    wide = torch.zeros(8, 4096, device=cuda_device)
-    with pytest.raises(ValueError, match="shared memory"):
-        quantize_topk_fused(wide, torch.zeros(4096, 64, device=cuda_device), K)
+    assert not bool(quantize_topk_fused(flat, embed, 1600)[2].any())
+    assert not bool(quantize_topk_train_fused(flat, embed, 1600)[2].any())
+    wide = torch.zeros(8, 16384, device=cuda_device)
+    wide_embed = torch.zeros(16384, 64, device=cuda_device)
+    with pytest.raises(ValueError, match="width 16384 .*shared memory"):
+        quantize_topk_train_fused(wide, wide_embed, K)
+    assert not bool(quantize_topk_fused(wide, wide_embed, K)[2].any())
 
 
 @pytest.mark.cuda
@@ -314,6 +316,89 @@ def test_generator_kernel_route_matches_plain_route(cuda_device):
 
     for a, b in zip(leaves(fused), leaves(plain)):
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_core_route_takes_a_streamed_codebook_of_4096(cuda_device):
+    """n_embed 4,096 at k 2: 64 stages of the codebook stream through each
+    block; B1 and B2 against their plain versions, float32 and bf16."""
+    g = torch.Generator(device=cuda_device).manual_seed(40)
+    embed = torch.randn(DIM, 4096, device=cuda_device, generator=g)
+    z = torch.randn(4099, DIM, device=cuda_device, generator=g)
+    for flat in (z, z.to(torch.bfloat16)):
+        b1 = quantize_topk_fused(flat, embed, K, route=CUDA_CORE)
+        _assert_lookup(flat, embed, K, b1)
+        out = _train_launch(flat, embed, K, CUDA_CORE)
+        _assert_train_outputs(flat, embed, K, out)
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], b1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [15, 17, 63, 65, 127, 129])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_core_route_takes_widths_off_the_k_step(cuda_device, dtype, dim):
+    """Widths 16m +- 1: the last k-step is zero-padded in shared memory, and
+    rows that are not 16-byte aligned are staged element by element; B1 and
+    B2 against their plain versions."""
+    g = torch.Generator(device=cuda_device).manual_seed(41)
+    flat = torch.randn(1037, dim, device=cuda_device, generator=g).to(dtype)
+    embed = torch.randn(dim, 300, device=cuda_device, generator=g)
+    b1 = quantize_topk_fused(flat, embed, 3, route=CUDA_CORE)
+    _assert_lookup(flat, embed, 3, b1)
+    out = _train_launch(flat, embed, 3, CUDA_CORE)
+    _assert_train_outputs(flat, embed, 3, out)
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], b1))
+
+
+@pytest.mark.cuda
+def test_cuda_core_route_takes_extreme_magnitudes(cuda_device):
+    """float32 latents and codewords whose entries span 1e-30 to 1e30: rows
+    scaled by 1e-15 to 1e30 and codewords by 1e-15 to 1e5, the entries of
+    each spread over 15 more decades below its largest (so the lo part of
+    the smallest, 2^-16 of the entry, underflows bf16), zero entries, a zero
+    row and codeword, and ten codewords of entries near 1e-37.  The
+    products stay finite and the distances inside float32's normal range
+    (in its subnormals the plain version's own distances keep too few bits
+    for the near-tie rule).  B1 and B2 against their plain versions under
+    the near-tie rule, the gathered codewords bitwise the f32 codebook's."""
+    rng = np.random.default_rng(42)
+    n, n_embed = 4096, 256
+    z = (rng.normal(size=(n, DIM)) * 10.0 ** rng.integers(-15, 31, size=(n, 1))
+         * 10.0 ** rng.uniform(-15, 0, size=(n, DIM)))
+    e = (rng.normal(size=(DIM, n_embed))
+         * 10.0 ** rng.integers(-15, 6, size=(1, n_embed))
+         * 10.0 ** rng.uniform(-15, 0, size=(DIM, n_embed)))
+    z[:, ::7] = 0.0
+    z[5] = 0.0
+    e[::5] = 0.0
+    e[:, 3] = 0.0
+    e[:, 10:20] = rng.uniform(1.0, 2.0, size=(DIM, 10)) * 1e-37
+    flat = torch.from_numpy(z.astype(np.float32)).to(cuda_device)
+    embed = torch.from_numpy(e.astype(np.float32)).to(cuda_device)
+    assert float(flat.abs().max()) > 1e29 and float(embed.abs().max()) > 1e4
+    assert bool(torch.isfinite(flat @ embed).all())
+    b1 = quantize_topk_fused(flat, embed, K)
+    _assert_lookup(flat, embed, K, b1)
+    out = _train_launch(flat, embed, K, CUDA_CORE)
+    _assert_train_outputs(flat, embed, K, out)
+    assert all(torch.equal(a, b) for a, b in zip(out[:3], b1))
+
+
+@pytest.mark.cuda
+def test_cuda_core_statistics_spread_a_hot_codeword(cuda_device):
+    """float32 B2 where one codeword (the shortest) is the top-1 of at least
+    half of 196,608 rows: its rows are summed by the 8 blocks of one
+    cluster.  Counts exact, embed_sum within ESUM_REL of the summed
+    magnitude, and two calls bitwise equal."""
+    g = torch.Generator(device=cuda_device).manual_seed(43)
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    embed[:, 7] *= 0.05
+    flat = torch.randn(196_608, DIM, device=cuda_device, generator=g) * 0.1
+    out = _train_launch(flat, embed, K, CUDA_CORE)
+    assert int(out[3].max()) >= flat.shape[0] // 2
+    _assert_train_outputs(flat, embed, K, out)
+    again = quantize_topk_train_fused(flat, embed, K)
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
 
 
 def _train_launch(flat, embed, k, route=None):

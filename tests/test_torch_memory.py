@@ -243,6 +243,41 @@ def test_split_products_pick_the_plain_versions_indices():
     assert bool((gap < NEAR_TIE_REL).all())
 
 
+@pytest.mark.parametrize("dim,n_embed", [(64, 256), (100, 1024), (17, 300)])
+def test_six_split_products_pick_the_plain_versions_indices(dim, n_embed):
+    """The general route's arithmetic for float32 latents: latents and
+    codebook both split into three bf16 parts, six of the nine cross
+    products kept (lo.hi, hi.lo, mid.mid, mid.hi, hi.mid, hi.hi, smallest
+    first), each exact in f32: the dropped three are below 2^-24 of |z||E|,
+    so the sum ranks the codewords as the plain version's f32 product does,
+    up to near-ties in float64."""
+    rng = np.random.default_rng(13)
+    n, k = 2048, 2
+    flat = torch.from_numpy((rng.normal(size=(n, dim)) * 0.5)
+                            .astype(np.float32))
+    embed = torch.from_numpy(rng.normal(size=(dim, n_embed))
+                             .astype(np.float32))
+    zh, zm, zl = (p.double() for p in split_bf16x3(flat))
+    eh, em, el = (p.double() for p in split_bf16x3(embed))
+    # float64 sums of exact products: only the dropped terms differ from z.E
+    cross = (zl @ eh + zh @ el + zm @ em + zm @ eh + zh @ em + zh @ eh)
+    assert float((cross - flat.double() @ embed.double()).abs().max()) <= (
+        2.0 ** -24 * float((flat.double().abs() @ embed.double().abs()).max()))
+    dist = (-2.0 * cross.float()) + (embed * embed).sum(0, keepdim=True)
+    idx = topk_smallest(dist, k)
+    _, _, ridx = quantize_topk_fused_ref(flat, embed, k)
+    ref_idx = topk_smallest(-2.0 * (flat @ embed)
+                            + (embed * embed).sum(0, keepdim=True), k)
+    assert torch.equal(ref_idx[:, 0].to(torch.int32), ridx)
+    agree = (idx == ref_idx).all(1)
+    assert int((~agree).sum()) <= 2  # near-ties only, at this size
+    z64, e64 = flat[~agree].double(), embed.t().double()
+    d_split = (z64[:, None] - e64[idx[~agree]]).square().sum(-1)
+    d_ref = (z64[:, None] - e64[ref_idx[~agree]]).square().sum(-1)
+    gap = (d_split - d_ref).abs() / torch.maximum(d_split, d_ref)
+    assert bool((gap < NEAR_TIE_REL).all())
+
+
 ROUTE_CASES = [
     (torch.bfloat16, 64, 256, 2, TENSOR_CORE),  # the released configuration
     (torch.bfloat16, 64, 256, 1, TENSOR_CORE),  # TopKMemory's default k
