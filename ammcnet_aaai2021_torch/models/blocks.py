@@ -18,13 +18,81 @@ Module and parameter names follow the reference torch modules, so a
 reference state dict loads with ``load_state_dict`` as it is:
 ``inc.conv.conv.0.weight``, ``down1.mpconv.1.conv.3.weight``,
 ``up1.up.weight`` (see ``tools/weights.py``).
+
+The training forward writes state: BatchNorm's running statistics here and
+the memory's EMA codebook (``memory_module.TopKMemory``).  Both go through
+:func:`write_buffers`, which a remat step (``train/steps.py``) steers:
+inside :func:`deferred_buffer_updates` the first forward's new values are
+recorded instead of written, the forward that the backward pass reruns
+(inside :func:`recomputing`) drops its own, and the recorded values are
+written once, after the backward.
 """
 
 from __future__ import annotations
 
+import contextlib
+from typing import Iterator, List, Optional, Sequence, Tuple
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+
+class _BufferUpdates:
+    """Where training forwards put their buffer updates: ``recorded`` a list
+    while a remat step defers them, ``recomputing`` while the backward pass
+    reruns the forward."""
+
+    recorded: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+    recomputing: bool = False
+
+
+_UPDATES = _BufferUpdates()
+
+
+def is_recomputing() -> bool:
+    """Whether the forward running now is a remat step's rerun."""
+    return _UPDATES.recomputing
+
+
+@torch.no_grad()
+def write_buffers(pairs: Sequence[Tuple[torch.Tensor, torch.Tensor]]) -> None:
+    """``buf.copy_(value)`` for each pair, or record the pairs (deferred), or
+    drop them (a rerun forward)."""
+    if _UPDATES.recomputing:
+        return
+    if _UPDATES.recorded is not None:
+        _UPDATES.recorded.extend(pairs)
+        return
+    for buf, value in pairs:
+        buf.copy_(value)
+
+
+@contextlib.contextmanager
+def deferred_buffer_updates() -> Iterator[List]:
+    """Record the buffer updates of the training forwards inside; yields the
+    list of ``(buffer, new value)``, which :func:`write_buffers` then
+    writes."""
+    if _UPDATES.recorded is not None:
+        raise RuntimeError("deferred_buffer_updates does not nest")
+    _UPDATES.recorded = recorded = []
+    try:
+        yield recorded
+    finally:
+        _UPDATES.recorded = None
+
+
+@contextlib.contextmanager
+def recomputing() -> Iterator[None]:
+    """The forward inside is a rerun (``torch.utils.checkpoint``'s
+    recompute): its buffer updates are dropped, and the memory's lookup
+    reads the codebook as the first forward did."""
+    saved = _UPDATES.recomputing
+    _UPDATES.recomputing = True
+    try:
+        yield
+    finally:
+        _UPDATES.recomputing = saved
 
 
 class Conv2d(nn.Conv2d):
@@ -59,13 +127,18 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, training=True,
                          eps=self.eps)
+        if is_recomputing():
+            return y
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
                                        unbiased=False)
             keep = 1.0 - self.momentum  # flax's momentum, 0.9
-            self.running_mean.mul_(keep).add_(mean, alpha=1.0 - keep)
-            self.running_var.mul_(keep).add_(var, alpha=1.0 - keep)
-            self.num_batches_tracked.add_(1)
+            write_buffers((
+                (self.running_mean,
+                 self.running_mean.mul(keep).add_(mean, alpha=1.0 - keep)),
+                (self.running_var,
+                 self.running_var.mul(keep).add_(var, alpha=1.0 - keep)),
+                (self.num_batches_tracked, self.num_batches_tracked + 1)))
         return y
 
 

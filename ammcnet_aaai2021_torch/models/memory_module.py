@@ -8,7 +8,10 @@ and a 1x1 conv expands ``k * embed_dim`` back, optionally with a residual
 connection around the whole block.  The codebook (``embed``,
 ``cluster_size``, ``embed_avg``) is a set of float32 buffers, as in the
 reference; in training mode each forward applies the EMA update to them in
-place (the JAX package threads them through its step as mutable state).
+place (the JAX package threads them through its step as mutable state),
+through ``blocks.write_buffers``, which a remat step defers until after its
+backward pass (its rerun forward takes the inference lookup and writes
+nothing).
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.memory import Codebook, quantize_topk
-from .blocks import Conv2d
+from .blocks import Conv2d, is_recomputing, write_buffers
 
 
 class TopKMemory(nn.Module):
@@ -44,15 +47,17 @@ class TopKMemory(nn.Module):
     def forward(self, z: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         cb = Codebook(self.embed, self.cluster_size, self.embed_avg)
+        # a remat step's rerun needs the lookup only, not the EMA statistics:
+        # the inference lookup (B1), whose indices are B2's
+        update = self.training and not is_recomputing()
         q_topk, diff, q_st, new_cb = quantize_topk(
-            z.permute(0, 2, 3, 1), cb, self.k, train=self.training,
+            z.permute(0, 2, 3, 1), cb, self.k, train=update,
             decay=self.decay, eps=self.eps, use_kernel=self.use_kernel,
             per_sample=self.per_sample_diff)
-        if self.training:
-            with torch.no_grad():
-                self.embed.copy_(new_cb.embed)
-                self.cluster_size.copy_(new_cb.cluster_size)
-                self.embed_avg.copy_(new_cb.embed_avg)
+        if update:
+            write_buffers(((self.embed, new_cb.embed),
+                           (self.cluster_size, new_cb.cluster_size),
+                           (self.embed_avg, new_cb.embed_avg)))
         return (q_topk.permute(0, 3, 1, 2).contiguous(), diff,
                 q_st.permute(0, 3, 1, 2))
 

@@ -4,6 +4,9 @@ Mirrors ``ammcnet_aaai2021_tpu/runners/run_test.py`` (reference
 ``Code/main/run_test.py``): build the generator, load its checkpoint, score
 every test sub-video, pickle the per-frame records in the golden schema,
 fuse + AUC, and print the reference's output format ("the optimal auc =").
+A checkpoint (``--ckptfile``, or ``--exp_tag``'s latest step) may be the
+JAX package's too: a flax ``.msgpack``, or an orbax step dir where
+tensorstore is installed (``tools/weights.load_generator_checkpoint``).
 
 Usage:
   python -m ammcnet_aaai2021_torch.runners.run_test \
@@ -27,9 +30,10 @@ def parser_args(argv=None):
                    help="dataset root: <data_dir>/<dataset>/testing/{frames,flows}")
     p.add_argument("--ckptfile", default="",
                    help="torch .pth state dict of the generator (the "
-                        "reference's, or one tools/weights.py wrote), or a "
-                        "step dir of a port training run; random init if "
-                        "omitted (smoke)")
+                        "reference's, or one tools/weights.py wrote), a "
+                        "step dir of a port training run, or the JAX "
+                        "package's .msgpack or orbax step dir (the latter "
+                        "needs tensorstore); random init if omitted (smoke)")
     p.add_argument("--exp_tag", default="",
                    help="resolve run dir + train-time config from the "
                         "registry; scores the run's latest checkpoint unless "

@@ -14,9 +14,12 @@ the PatchGAN discriminator, from one of three data backends: ``normal``
 (the frame tree, decoded on host threads), ``device`` (the whole split in
 GPU memory, one gather a batch) and ``framepack`` (``frames.fpk`` /
 ``flows.fpk`` beside the tree; stage 2 only, see :func:`_check_args`).
-``--fetch_every_periods``, ``--async_checkpoints`` and the JAX package's
-msgpack / orbax checkpoints raise ``NotImplementedError`` naming their
-slice.
+``--pretrain`` and ``--resume`` also take the JAX package's checkpoints: a
+stage-1 branch as a flax ``.msgpack`` or an orbax step dir, a JAX run dir
+to continue (its orbax full train state is converted on the way in; an
+orbax dir needs tensorstore, else ``tools/jax_checkpoint.py`` converts it on
+a host that has it).  ``--fetch_every_periods`` and ``--async_checkpoints``
+are the JAX loop's (``train/loop.py``).
 
 Usage:
   python -m ammcnet_aaai2021_torch.runners.run_train \\
@@ -58,8 +61,9 @@ def parser_args(argv=None):
     p.add_argument("--pretrain", action="store_true",
                    help="graft stage-1 branch checkpoints (stage 2)")
     p.add_argument("--rgb_model_path", default="",
-                   help="stage-1 rgb branch: a torch .pth state dict or a "
-                        "step dir of a port training run")
+                   help="stage-1 rgb branch: a torch .pth state dict, a step "
+                        "dir of a port training run, or the JAX package's "
+                        ".msgpack or orbax step dir")
     p.add_argument("--op_model_path", default="")
     p.add_argument("--flownet_ckpt", default="",
                    help="FlowNet2-SD torch .pth (random init + warning if "
@@ -76,11 +80,12 @@ def parser_args(argv=None):
     p.add_argument("--step_summary", type=int, default=100)
     p.add_argument("--step_save", type=int, default=1000)
     p.add_argument("--fetch_every_periods", type=int, default=1,
-                   help="batch K log periods of scalars into one fetch "
-                        "(not ported yet)")
+                   help="batch K log periods of scalars into one "
+                        "device-to-host fetch (values still recorded per "
+                        "step_log, written K periods late)")
     p.add_argument("--async_checkpoints", action="store_true",
-                   help="write checkpoints on a writer thread (not ported "
-                        "yet)")
+                   help="write checkpoints on a writer thread, from a "
+                        "device copy of the state taken at the step")
     p.add_argument("--keep_ckpts", type=int, default=0,
                    help="retention: keep only the newest N full-state "
                         "checkpoints (0 = keep all, reference behavior)")
@@ -101,7 +106,8 @@ def parser_args(argv=None):
     p.add_argument("--resume", default="",
                    help="run dir (or exp_tag via registry) to resume from: "
                         "restores the full training state incl. optimizer "
-                        "moments and EMA codebook")
+                        "moments and EMA codebook (a JAX run's orbax state "
+                        "is converted)")
     for lam in ("lam_adv", "lam_lp", "lam_gdl", "lam_flow", "lam_latent",
                 "lam_lp_op"):
         p.add_argument(f"--{lam}", type=float, default=None)
@@ -129,8 +135,8 @@ TWO_STREAM_TAGS = ("unet_vq_twostream", "twostream_concat_dire",
 
 
 def _check_args(args) -> None:
-    """Raise for what the port does not run: the flags of later slices, a
-    generator that does not fit the stage, and stage 1 on framepack."""
+    """Raise for what the port does not run: a generator that does not fit
+    the stage, and stage 1 on framepack."""
     two_stream = args.data_type == "rgb_op"
     if two_stream != (args.net_tag in TWO_STREAM_TAGS):
         raise ValueError(
@@ -148,19 +154,12 @@ def _check_args(args) -> None:
     if args.pretrain and not two_stream:
         raise ValueError("--pretrain grafts stage-1 branches into stage 2 "
                          "(--data_type rgb_op)")
-    if args.fetch_every_periods != 1:
-        raise NotImplementedError(
-            "--fetch_every_periods is not ported yet; it comes with the "
-            "export-and-tools slice")
-    if args.async_checkpoints:
-        raise NotImplementedError(
-            "--async_checkpoints is not ported yet; it comes with the "
-            "export-and-tools slice")
 
 
 def _load_branch(path: str, stream: str) -> Dict[str, torch.Tensor]:
     """A stage-1 branch's state dict: a torch ``.pth`` of a single-stream
-    generator, or a step dir of a port training run.  Keys under
+    generator, a step dir of a port training run, or a JAX ``.msgpack`` or
+    orbax step dir (``load_generator_checkpoint``).  Keys under
     ``<stream>.`` (a two-stream checkpoint) are taken from that stream."""
     from ..tools.weights import load_generator_checkpoint
 
@@ -314,6 +313,8 @@ def main(argv=None) -> Tuple[str, TrainState]:
                        step_log=args.step_log,
                        step_summary=args.step_summary,
                        step_save=args.step_save,
+                       fetch_every_periods=args.fetch_every_periods,
+                       async_checkpoints=args.async_checkpoints,
                        keep_ckpts=args.keep_ckpts or None,
                        keep_every=args.keep_every or None)
     logger.info("training done at step %d", state.step)

@@ -8,6 +8,12 @@ teacher (the latter the inverse of the JAX package's
 ``<mod>.0.*``, ``params/net/{predict_flowX,upsampled_flowX_to_Y}`` ->
 ``<mod>.*``).
 
+:func:`load_generator_checkpoint` reads every generator checkpoint the
+two packages write: a torch ``.pth``, a step directory of the port's
+training loop, and the JAX package's flax ``.msgpack`` files and orbax step
+directories (through :mod:`.jax_checkpoint`, which needs no JAX; an orbax
+directory needs tensorstore).
+
 :func:`state_dict_from_jax` inverts the JAX package's
 ``tools/torch_convert.convert_twostream``: it takes the flax
 ``{'params', 'batch_stats', 'codebook'}`` tree of the two-stream generator
@@ -164,20 +170,22 @@ def flownet_state_from_jax(variables: Mapping) -> StateDict:
 def load_generator_checkpoint(path: str) -> StateDict:
     """The generator's state dict from a checkpoint path: a torch ``.pth``
     (the reference's own, or one this bridge wrote; a ``{'state_dict': ...}``
-    wrapper is unwrapped), or a step directory the port's training loop
-    wrote (``<run>/training/checkpoints/<step>``)."""
-    if path.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{path}: the JAX package's msgpack checkpoints are not read by "
-            "the port yet; they come with the export-and-tools slice")
-    if os.path.isdir(path):
-        from ..train.checkpoint import STATE_FILE, load_state_file
+    wrapper is unwrapped), a step directory the port's training loop wrote
+    (``<run>/training/checkpoints/<step>``), a flax ``.msgpack`` of the JAX
+    package, or an orbax step directory of the JAX package (generator
+    variables or a full train state; needs tensorstore, else
+    ``ImportError`` naming the converter)."""
+    from ..train.checkpoint import STATE_FILE, load_state_file
 
-        if not os.path.exists(os.path.join(path, STATE_FILE)):
-            raise NotImplementedError(
-                f"{path} holds no {STATE_FILE}: the JAX package's orbax "
-                "checkpoints are not read by the port yet; they come with the "
-                "export-and-tools slice")
+    if path.endswith(".msgpack") or (
+            os.path.isdir(path) and not os.path.exists(
+                os.path.join(path, STATE_FILE))):
+        from .jax_checkpoint import (generator_state_dict,
+                                     generator_variables, read_jax_checkpoint)
+
+        return generator_state_dict(generator_variables(
+            read_jax_checkpoint(path)))
+    if os.path.isdir(path):
         return dict(load_state_file(path)["generator"])
     raw = torch.load(path, map_location="cpu", weights_only=True)
     if isinstance(raw, dict) and "state_dict" in raw:

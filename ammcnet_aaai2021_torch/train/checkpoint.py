@@ -8,12 +8,18 @@ moments on resume.  Layout is the JAX package's,
 ``<ckpt_dir>/<step:06d>/``, here holding one ``torch.save`` file
 (:data:`STATE_FILE`); a step directory is written under a temporary name and
 renamed when complete, so the digits-only :func:`latest_step` never sees a
-partial one.  The JAX package's orbax and msgpack checkpoints are not read
-here (no flax or orbax on the card's machine).
+partial one.  :func:`restore_checkpoint` also takes a step directory the
+JAX package's training loop wrote (an orbax full train state, read by
+``tools/jax_checkpoint.py`` where tensorstore is installed).
+
+:func:`snapshot` copies a state's payload (on its device) so a writer
+thread can save step N while the loop goes on stepping; the file it writes
+is byte for byte the one :func:`save_checkpoint` writes at step N.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import shutil
 from typing import Dict, List, Optional
@@ -25,12 +31,9 @@ from .state import TrainState
 STATE_FILE = "state.pt"
 
 
-def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
-    """Save the full state under ``<ckpt_dir>/<step:06d>``; returns the path."""
-    path = os.path.join(os.path.abspath(ckpt_dir), f"{state.step:06d}")
-    tmp = f"{path}.tmp-{os.getpid()}"
-    os.makedirs(tmp, exist_ok=True)
-    torch.save({
+def checkpoint_payload(state: TrainState) -> Dict:
+    """What a checkpoint file holds: the live state dicts (no copies)."""
+    return {
         "step": state.step,
         "generator": state.generator.state_dict(),
         "discriminator": state.discriminator.state_dict(),
@@ -38,11 +41,33 @@ def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
         "d_opt": state.d_opt.state_dict(),
         "g_sched": state.g_sched.state_dict(),
         "d_sched": state.d_sched.state_dict(),
-    }, os.path.join(tmp, STATE_FILE))
+    }
+
+
+def snapshot(state: TrainState) -> Dict:
+    """A copy of :func:`checkpoint_payload` that the next steps leave as it
+    is: every tensor's storage is copied on its device (in stream order, so
+    the copy holds this step's values), containers keep their types and
+    state dicts their ``_metadata``; ``torch.save`` of it writes the same
+    bytes as of the live payload."""
+    return copy.deepcopy(checkpoint_payload(state))
+
+
+def write_checkpoint(ckpt_dir: str, payload: Dict) -> str:
+    """Write ``payload`` under ``<ckpt_dir>/<step:06d>``; returns the path."""
+    path = os.path.join(os.path.abspath(ckpt_dir), f"{payload['step']:06d}")
+    tmp = f"{path}.tmp-{os.getpid()}"
+    os.makedirs(tmp, exist_ok=True)
+    torch.save(payload, os.path.join(tmp, STATE_FILE))
     if os.path.isdir(path):
         shutil.rmtree(path)
     os.replace(tmp, path)
     return path
+
+
+def save_checkpoint(ckpt_dir: str, state: TrainState) -> str:
+    """Save the full state under ``<ckpt_dir>/<step:06d>``; returns the path."""
+    return write_checkpoint(ckpt_dir, checkpoint_payload(state))
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -90,12 +115,19 @@ def restore_checkpoint(ckpt_dir: str, state: TrainState,
     optimizers, schedulers and step.  The file is read to the CPU and each
     ``load_state_dict`` puts its tensors where the module or optimizer keeps
     them (Adam's moments beside their parameters, its step counts on the
-    CPU, as a fresh optimizer has them)."""
+    CPU, as a fresh optimizer has them).  A step directory of the JAX
+    package (orbax, no :data:`STATE_FILE`) is converted into the fresh
+    ``state`` (``tools/jax_checkpoint.restore_jax_train_state``)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {ckpt_dir!r}")
-    raw = load_state_file(os.path.join(ckpt_dir, f"{step:06d}"))
+    step_dir = os.path.join(ckpt_dir, f"{step:06d}")
+    if not os.path.exists(os.path.join(step_dir, STATE_FILE)):
+        from ..tools.jax_checkpoint import read_orbax, restore_jax_train_state
+
+        return restore_jax_train_state(read_orbax(step_dir), state)
+    raw = load_state_file(step_dir)
     state.generator.load_state_dict(raw["generator"])
     state.discriminator.load_state_dict(raw["discriminator"])
     state.g_opt.load_state_dict(raw["g_opt"])

@@ -8,9 +8,12 @@ optional retention, and a host thread that assembles the next batches while
 the device steps.
 
 Scalars go to a CSV (``<run_dir>/summary/scalars.csv``) and the logger.  At
-each log step the metrics are stacked on the device and fetched with one
-device-to-host copy.  TensorBoard scalars and image grids are not ported
-(the card's machine has no tensorboard).
+each log step the metrics are stacked on the device; ``fetch_every_periods``
+such stacks are fetched with one device-to-host copy (JAX
+``train_loop(fetch_every_periods=)``).  ``async_checkpoints`` writes the
+checkpoints and prunes on a writer thread, from a device copy of the state
+taken at the step (:func:`~.checkpoint.snapshot`).  TensorBoard scalars and
+image grids are not ported (the card's machine has no tensorboard).
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ import numpy as np
 import torch
 
 from ..configs import STEP_LOG, STEP_SAVE_CKPT, STEP_SUMMARY
-from .checkpoint import prune_checkpoints, save_checkpoint
+from .checkpoint import (checkpoint_payload, prune_checkpoints, snapshot,
+                         write_checkpoint)
 from .state import TrainState
 
 
@@ -97,12 +101,73 @@ def prefetch(batch_iter: Iterator, depth: int = 2) -> Iterator:
         thread.join(timeout=60)
 
 
+class CheckpointWriter:
+    """Checkpoint saving and pruning, on the calling thread or (``async_``)
+    on a writer thread behind a one-deep queue, as the JAX loop's
+    ``async_checkpoints``: :meth:`put` blocks only while an earlier save is
+    still queued.  The writer's exception is raised in the caller at the
+    next :meth:`put` or at :meth:`close`."""
+
+    def __init__(self, ckpt_dir: str, keep_ckpts: Optional[int] = None,
+                 keep_every: Optional[int] = None, logger=None,
+                 async_: bool = False):
+        self.ckpt_dir, self.logger = ckpt_dir, logger
+        self.keep = (keep_ckpts, keep_every)
+        self.failure: list = []
+        self.queue: Optional["queue.Queue"] = None
+        if async_:
+            self.queue = queue.Queue(maxsize=1)
+            self.thread = threading.Thread(target=self._work, daemon=True)
+            self.thread.start()
+
+    def _write(self, payload: Dict) -> None:
+        write_checkpoint(self.ckpt_dir, payload)
+        deleted = prune_checkpoints(self.ckpt_dir, *self.keep)
+        if self.logger:
+            self.logger.info("checkpoint saved at step %d%s", payload["step"],
+                             f" (pruned {len(deleted)})" if deleted else "")
+
+    def _work(self) -> None:
+        while True:
+            payload = self.queue.get()
+            if payload is None:
+                return
+            if self.failure:
+                continue  # drain: the loop raises at its next put or close
+            try:
+                self._write(payload)
+            except BaseException as exc:  # handed to the loop's thread
+                self.failure.append(exc)
+
+    def _raise(self) -> None:
+        if self.failure:
+            raise RuntimeError("the checkpoint writer thread failed"
+                               ) from self.failure[0]
+
+    def put(self, state: TrainState) -> None:
+        """Save ``state`` at its step."""
+        if self.queue is None:
+            self._write(checkpoint_payload(state))
+            return
+        self._raise()
+        self.queue.put(snapshot(state))
+
+    def close(self) -> None:
+        """Wait for the queued saves; raise the writer's exception."""
+        if self.queue is not None:
+            self.queue.put(None)
+            self.thread.join()
+        self._raise()
+
+
 def train_loop(state: TrainState, train_step: Callable,
                batch_iter: Iterator, flownet: Optional[torch.nn.Module],
                iterations: int, run_dir: str, logger=None,
                psnr_fn: Optional[Callable] = None,
                step_log: int = STEP_LOG, step_summary: int = STEP_SUMMARY,
                step_save: int = STEP_SAVE_CKPT,
+               fetch_every_periods: int = 1,
+               async_checkpoints: bool = False,
                keep_ckpts: Optional[int] = None,
                keep_every: Optional[int] = None) -> TrainState:
     """Step ``state`` until ``state.step == iterations``.
@@ -115,14 +180,60 @@ def train_loop(state: TrainState, train_step: Callable,
     ``step_log`` (train_helper.py:347-386).  Summary scalars are written at
     log steps that are multiples of ``step_summary``; the first step's wall
     seconds (it loads kernels and picks convolution algorithms) are written
-    as ``first_step_s``.  Returns ``state``."""
+    as ``first_step_s``.
+
+    ``fetch_every_periods=K`` keeps K log periods' scalar stacks on the
+    device and fetches them with one copy; each period's row is still
+    written, K periods late.  Where a fetch brings more than one period the
+    logged rate is the rate over the whole span since the last fetch (the
+    per-period times before it only measure how fast the host enqueued).
+    Pending rows are fetched before every checkpoint and at the end.
+    ``async_checkpoints`` saves on a writer thread (:class:`CheckpointWriter`)
+    from a snapshot taken at the step.  Returns ``state``."""
     writer = ScalarWriter(os.path.join(run_dir, "summary"))
-    ckpt_dir = os.path.join(run_dir, "training", "checkpoints")
+    saver = CheckpointWriter(os.path.join(run_dir, "training", "checkpoints"),
+                             keep_ckpts, keep_every, logger,
+                             async_=async_checkpoints)
     if logger:
         logger.info("training steps %d to %d", state.step + 1, iterations)
     data_times = []
     period_steps = 0
     t_period = t_data0 = time.perf_counter()
+    # (step, keys, values on the device, period start, steps, data seconds)
+    # of each log period not yet fetched; a period ends where the next
+    # begins, the last at the fetch
+    pending: list = []
+    fetched = [state.step, t_period]  # step and time of the last fetch
+
+    def flush() -> None:
+        nonlocal t_period
+        if not pending:
+            return
+        rows = torch.stack([p[2] for p in pending]).cpu().tolist()  # one copy
+        now = time.perf_counter()
+        span_rate = (pending[-1][0] - fetched[0]) / max(now - fetched[1], 1e-9)
+        fetched[:] = [pending[-1][0], now]
+        ends = [p[3] for p in pending[1:]] + [now if period_steps == 0
+                                              else t_period]
+        for (pstep, keys, _, t0, steps, data_s), t1, row in zip(
+                pending, ends, rows):
+            period = max(t1 - t0, 1e-9)
+            rate = span_rate if len(pending) > 1 else steps / period
+            data_frac = data_s / period
+            vals = dict(zip(keys, row))
+            if logger:
+                logger.info("step %d | %s | %.2f steps/s data_stall=%.0f%%",
+                            pstep, ", ".join(f"{k}={v:.4f}"
+                                             for k, v in vals.items()),
+                            rate, 100 * data_frac)
+            if pstep % step_summary == 0:
+                writer.scalars(pstep, vals)
+                writer.scalars(pstep, {"steps_per_sec": rate,
+                                       "data_stall_frac": data_frac})
+        pending.clear()
+        if period_steps == 0:  # the next period starts after the fetch
+            t_period = now
+
     batches = prefetch(batch_iter)
     try:
         for batch in batches:
@@ -144,33 +255,23 @@ def train_loop(state: TrainState, train_step: Callable,
                 if psnr_fn is not None:
                     keys.append("train_psnr")
                     values.append(psnr_fn(state, batch))
-                # one device-to-host copy for the period's scalars
-                row = torch.stack([v.float() for v in values]).cpu().tolist()
-                now = time.perf_counter()
-                period = max(now - t_period, 1e-9)
-                rate = period_steps / period
-                data_frac = float(np.sum(data_times[-period_steps:])) / period
-                t_period, period_steps = now, 0
-                vals = dict(zip(keys, row))
-                if logger:
-                    logger.info("step %d | %s | %.2f steps/s data_stall=%.0f%%",
-                                step, ", ".join(f"{k}={v:.4f}"
-                                                for k, v in vals.items()),
-                                rate, 100 * data_frac)
-                if step % step_summary == 0:
-                    writer.scalars(step, vals)
-                    writer.scalars(step, {"steps_per_sec": rate,
-                                          "data_stall_frac": data_frac})
+                pending.append((step, keys,
+                                torch.stack([v.float() for v in values]),
+                                t_period, period_steps,
+                                float(np.sum(data_times[-period_steps:]))))
+                period_steps = 0
+                t_period = time.perf_counter()
+                if len(pending) >= max(1, fetch_every_periods):
+                    flush()
             if step % step_save == 0:
-                save_checkpoint(ckpt_dir, state)
-                deleted = prune_checkpoints(ckpt_dir, keep_ckpts, keep_every)
-                if logger:
-                    logger.info("checkpoint saved at step %d%s", step,
-                                f" (pruned {len(deleted)})" if deleted else "")
+                flush()
+                saver.put(state)
             t_data0 = time.perf_counter()
             if step >= iterations:
                 break
+        flush()
     finally:
         batches.close()
         writer.close()
+        saver.close()
     return state

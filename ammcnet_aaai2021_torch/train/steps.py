@@ -20,22 +20,35 @@ in ``ammcnet_aaai2021_tpu/train/steps.py`` (reference
 * then both optimizers step and both schedulers advance.
 
 ``freeze_codebook=True`` puts the three codebook buffers back as they were
-before the step (the JAX step discards the codebook update).  ``remat``
-(recomputing the forward in the backward pass) is not ported: a rerun
-forward would apply the BatchNorm-statistic and EMA updates twice.
+before the step (the JAX step discards the codebook update).
+
+``remat=True`` (JAX ``jax.checkpoint(gen_apply)``) wraps the generator
+forward in ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: its
+activations are not kept, and the backward pass reruns the forward.  The
+forward writes state (BatchNorm running statistics, the EMA codebooks), so
+the step defers those writes (``models.blocks.deferred_buffer_updates``):
+the first forward records its new values, the rerun (inside
+``models.blocks.recomputing``) drops its own and looks the codebook up as
+it was before the step, through the inference lookup (kernel B1, whose
+indices are B2's), and the recorded values are written once, after the
+backward.  A remat step so launches B2 once and B1 once per memory block.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable, Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.utils.checkpoint
 
 from ..configs import CHANNEL, LossConfig
 from ..losses.primitives import discriminate_loss
 from ..losses.zoo import LOSS_TAGS
 from ..models import TopKMemory
+from ..models.blocks import (deferred_buffer_updates, recomputing,
+                             write_buffers)
 from .state import TrainState
 
 CODEBOOK_BUFFERS = ("embed", "cluster_size", "embed_avg")
@@ -95,15 +108,17 @@ class _FrozenCodebook:
 
 
 def _update(state: TrainState, g_loss: torch.Tensor,
-            d_loss: torch.Tensor) -> None:
+            d_loss: torch.Tensor, after_backward: Callable = lambda: None
+            ) -> None:
     """G's gradient from the G loss w.r.t. G's parameters only, D's from
     the D loss w.r.t. D's (the JAX steps differentiate each loss with
-    respect to its own parameters); then both optimizers and schedulers
-    step and the step count advances."""
+    respect to its own parameters); ``after_backward()``; then both
+    optimizers and schedulers step and the step count advances."""
     g_params = list(state.generator.parameters())
     d_params = list(state.discriminator.parameters())
     g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
     d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
+    after_backward()
     for params, grads in ((g_params, g_grads), (d_params, d_grads)):
         for p, g in zip(params, grads):
             p.grad = torch.zeros_like(p) if g is None else g
@@ -121,12 +136,15 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
     in place on ``state``; ``batch`` holds ``rgb`` and ``op`` clips (target
     last) on the state's device; ``metrics`` maps ``g_loss``, ``d_loss`` and
     the loss components to 0-dim float32 tensors on that device."""
-    if remat:
-        raise NotImplementedError(
-            "remat: recomputing the generator forward in the backward pass "
-            "would apply the BatchNorm-statistic and EMA codebook updates "
-            "twice; it waits for a later slice of the port")
     g_loss_fn = LOSS_TAGS[loss_cfg.loss_tag]
+
+    def gen_apply(gen: nn.Module, rgb_input: torch.Tensor,
+                  op_input: torch.Tensor):
+        if not remat:
+            return gen(rgb_input, op_input)
+        return torch.utils.checkpoint.checkpoint(
+            gen, rgb_input, op_input, use_reentrant=False,
+            context_fn=lambda: (contextlib.nullcontext(), recomputing()))
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    flownet: nn.Module) -> Dict[str, torch.Tensor]:
@@ -138,7 +156,9 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
 
         frozen = _FrozenCodebook(gen, freeze_codebook)
         gen.train()
-        rgb_pred, op_pred, diffs, _ = gen(rgb_input, op_input)
+        with (deferred_buffer_updates() if remat
+              else contextlib.nullcontext()) as recorded:
+            rgb_pred, op_pred, diffs, _ = gen_apply(gen, rgb_input, op_input)
         frozen.restore()
 
         with torch.no_grad():
@@ -152,7 +172,13 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
             "latent_diff": diffs,
         }, loss_cfg)
         d_loss = discriminate_loss(disc(rgb_target), disc(rgb_pred.detach()))
-        _update(state, g_loss, d_loss)
+
+        def after_backward():
+            if recorded is not None:  # remat: the forward's buffer updates
+                write_buffers(recorded)
+                frozen.restore()
+
+        _update(state, g_loss, d_loss, after_backward)
         return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
                 **{k: v.detach() for k, v in comps.items()}}
 

@@ -47,14 +47,29 @@ Phases, one JSON line each; any failure exits non-zero:
    real inputs beside its bound, cuDNN's bf16 convolution of the shape
    and ``torch._int_mm`` of its product (the 3x3 conv's im2col'd, the
    im2col outside the timed window);
+   then ``ckpt_path``: the released generator, seeded, written as the
+   JAX package's flax ``.msgpack`` (a writer here, byte for byte flax's)
+   and as a ``.pth``, each scored by ``run_test --ckptfile`` on a 3-video
+   ped2-shaped split, records bitwise equal and B1 twice a forward on its
+   tensor-core route; an orbax step dir of the same variables raises
+   ``ImportError`` naming tensorstore and the converter (or, where
+   tensorstore is installed, scores the same records);
 6. train check: one float32 training step of the released generator at
-   256x256, batch 4, through the kernels and through plain PyTorch;
+   256x256, batch 4, through the kernels and through plain PyTorch; then
+   ``remat_check``: one bf16 step at full width with ``remat=False`` and
+   ``remat=True`` from one state and batch (g_loss, parameters, buffers
+   bitwise; B2 and B1 launches a step), then 10 steps of each timed, with
+   the peak memory allocated;
 7. training path: ``runners.run_train.main`` trains the released
    configuration (bf16, batch 4, 256x256) for 30 steps on a numpy training
    tree, then resumes from its step-30 checkpoint to step 40; checks the
    scalars, the codebook, the checkpoint and the kernels' launches (B2 twice
    per step, B1 twice per train-PSNR forward, all on the tensor-core
-   route);
+   route); then 30 steps with ``--fetch_every_periods 2
+   --async_checkpoints --step_save 20`` (steps 10 and 20 fetched in one
+   copy, the step-20 checkpoint written on the writer thread), resumed
+   from it to step 40 with the same flags: every log row in the scalars,
+   the writer thread's step-40 checkpoint restoring bit-exactly;
 8. the stage-1 path: ``runners.run_train.main`` runs the released recipe
    from stage 1 at full width (bf16, batch 4, 256x256): stage 1 rgb and op
    on the device-resident backend, 20 steps each, then stage 2
@@ -108,6 +123,7 @@ import math
 import os
 import pickle
 import shutil
+import struct
 import subprocess
 import sys
 import tempfile
@@ -1261,17 +1277,46 @@ def read_scalars(run_dir: str) -> dict:
     return out
 
 
+def check_restore(torch, ckpt_dir: str, state, what: str) -> None:
+    """Restore the latest step under ``ckpt_dir`` into a fresh state and
+    fail unless it is ``state`` bit for bit: weights, buffers, both Adams'
+    moments and counts, the step and the schedule."""
+    from ammcnet_aaai2021_torch.configs import NetConfig, OptimConfig
+    from ammcnet_aaai2021_torch.models import build_model
+    from ammcnet_aaai2021_torch.train.checkpoint import (
+        latest_step, restore_checkpoint)
+    from ammcnet_aaai2021_torch.train.state import create_train_state
+
+    if latest_step(ckpt_dir) != state.step:
+        fail(f"{what}: no step-{state.step} checkpoint under {ckpt_dir}")
+    model = build_model(NetConfig(), mode="training")
+    fresh = create_train_state(model.generator, model.discriminator,
+                               OptimConfig(), 1, device="cuda")
+    restore_checkpoint(ckpt_dir, fresh, step=state.step)
+    pairs = [(state.generator.state_dict(), fresh.generator.state_dict()),
+             (state.discriminator.state_dict(),
+              fresh.discriminator.state_dict())]
+    for opt_a, opt_b in ((state.g_opt, fresh.g_opt),
+                         (state.d_opt, fresh.d_opt)):
+        sa, sb = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
+        pairs.append(({f"{i}.{n}": t for i, s in sa.items()
+                       for n, t in s.items()},
+                      {f"{i}.{n}": t for i, s in sb.items()
+                       for n, t in s.items()}))
+    for want, got in pairs:
+        if set(want) != set(got) or not all(
+                torch.equal(want[k], got[k]) for k in want):
+            fail(f"{what} does not restore bit-exactly")
+    if fresh.step != state.step or fresh.g_sched.last_epoch != state.step:
+        fail(f"{what}: the step or schedule did not restore")
+
+
 def train_path_phase(torch, mk) -> dict:
     """``run_train.main`` with the released defaults (bf16, batch 4,
     256x256) for ``TRAIN_STEPS`` steps, then ``--resume`` to
     ``RESUME_STEPS``.  The kernels' counts are set to 0 just before and read
     just after."""
     from ammcnet_aaai2021_torch.runners import run_train
-    from ammcnet_aaai2021_torch.train.checkpoint import (
-        latest_step, restore_checkpoint)
-    from ammcnet_aaai2021_torch.train.state import create_train_state
-    from ammcnet_aaai2021_torch.models import build_model
-    from ammcnet_aaai2021_torch.configs import NetConfig, OptimConfig
 
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
@@ -1329,29 +1374,59 @@ def train_path_phase(torch, mk) -> dict:
             fail(f"the resumed run did not start at step {TRAIN_STEPS + 1}")
 
         # the step-30 checkpoint restores the first run's final state exactly
-        ckpt_dir = os.path.join(run1, "training", "checkpoints")
-        if latest_step(ckpt_dir) != TRAIN_STEPS:
-            fail(f"no step-{TRAIN_STEPS} checkpoint under {ckpt_dir}")
-        model = build_model(NetConfig(), mode="training")
-        fresh = create_train_state(model.generator, model.discriminator,
-                                   OptimConfig(), 1, device="cuda")
-        restore_checkpoint(ckpt_dir, fresh, step=TRAIN_STEPS)
-        pairs = [(state1.generator.state_dict(), fresh.generator.state_dict()),
-                 (state1.discriminator.state_dict(),
-                  fresh.discriminator.state_dict())]
-        for opt_a, opt_b in ((state1.g_opt, fresh.g_opt),
-                             (state1.d_opt, fresh.d_opt)):
-            sa, sb = opt_a.state_dict()["state"], opt_b.state_dict()["state"]
-            pairs.append(({f"{i}.{n}": t for i, s in sa.items()
-                           for n, t in s.items()},
-                          {f"{i}.{n}": t for i, s in sb.items()
-                           for n, t in s.items()}))
-        for want, got in pairs:
-            if set(want) != set(got) or not all(
-                    torch.equal(want[k], got[k]) for k in want):
-                fail("the step-30 checkpoint does not restore bit-exactly")
-        if fresh.step != TRAIN_STEPS or fresh.g_sched.last_epoch != TRAIN_STEPS:
-            fail("the checkpoint's step or schedule did not restore")
+        check_restore(torch, os.path.join(run1, "training", "checkpoints"),
+                      state1, "the step-30 checkpoint")
+
+        # the long-run loop flags: scalars fetched two periods at a time
+        # (steps 10 and 20 in one copy), a checkpoint written on a writer
+        # thread mid-run (step 20); then resumed from it to step 40 with
+        # the same flags, its step-40 checkpoint also the writer thread's
+        flagged = argv + ["--fetch_every_periods", "2", "--async_checkpoints",
+                          "--step_save", "20"]
+        time.sleep(1.0)
+        torch.cuda.synchronize()
+        reset_launches(mk)
+        t0 = time.perf_counter()
+        run3, state3 = run_train.main(flagged + ["--iterations",
+                                                 str(TRAIN_STEPS)])
+        torch.cuda.synchronize()
+        wall3 = time.perf_counter() - t0
+        time.sleep(1.0)
+        run4, state4 = run_train.main(flagged + ["--iterations",
+                                                 str(RESUME_STEPS),
+                                                 "--resume", run3])
+        torch.cuda.synchronize()
+        flagged_counts = launch_counts(mk)
+        steps_run = TRAIN_STEPS + RESUME_STEPS - 20
+        for kernel, n in (("b2", 2 * steps_run), ("b1", 2 * steps_run // 10)):
+            if flagged_counts[kernel] != {r: n * (r == mk.TENSOR_CORE)
+                                          for r in mk.ROUTES}:
+                fail(f"flagged training path: {kernel} launched "
+                     f"{flagged_counts[kernel]}, want {n} on "
+                     f"{mk.TENSOR_CORE!r}")
+        flagged_scalars = [read_scalars(run3), read_scalars(run4)]
+        for sc, steps in zip(flagged_scalars,
+                             (range(10, TRAIN_STEPS + 1, 10),
+                              range(30, RESUME_STEPS + 1, 10))):
+            for tag in ("g_loss", "d_loss", "train_psnr", "steps_per_sec"):
+                if sorted(sc.get(tag, {})) != list(steps):
+                    fail(f"flagged training path: {tag} rows at steps "
+                         f"{sorted(sc.get(tag, {}))}, want {list(steps)}")
+            for tag, vals in sc.items():
+                if not all(math.isfinite(v) for v in vals.values()):
+                    fail(f"flagged training path: scalar {tag} not finite")
+        flagged_rates = flagged_scalars[0]["steps_per_sec"]
+        if flagged_rates[10] != flagged_rates[20]:
+            fail("flagged training path: the periods of steps 10 and 20 "
+                 "were not fetched together (their rates differ)")
+        saved = sorted(int(d) for d in os.listdir(
+            os.path.join(run3, "training", "checkpoints")) if d.isdigit())
+        if saved != [20]:
+            fail(f"flagged training path: checkpoints at {saved}, want [20]")
+        if state4.step != RESUME_STEPS:
+            fail(f"the flagged run's resume ended at step {state4.step}")
+        check_restore(torch, os.path.join(run4, "training", "checkpoints"),
+                      state4, "the writer thread's step-40 checkpoint")
 
     rates = scalars[0]["steps_per_sec"]
     steady = [rates[s] for s in sorted(rates) if s > 10]
@@ -1370,8 +1445,429 @@ def train_path_phase(torch, mk) -> dict:
            "quantize_topk_launches_by_route": b1_by_route,
            "g_loss_by_step": scalars[0]["g_loss"],
            "train_psnr_by_step": scalars[0]["train_psnr"],
-           "restored_bit_exact": True}
+           "restored_bit_exact": True,
+           # steps 10 and 20 share one rate (the span since the start, the
+           # first step's set-up included); step 30's period holds the
+           # writer thread's step-20 save
+           "flagged": {"flags": "--fetch_every_periods 2 --async_checkpoints "
+                                "--step_save 20",
+                       "steps_per_s_by_period": flagged_rates,
+                       "plain_steps_per_s_by_period": rates,
+                       "first_run_wall_s": wall3,
+                       "plain_first_run_wall_s": wall1,
+                       "resumed_steps_per_s":
+                           flagged_scalars[1]["steps_per_sec"],
+                       "launches_by_route": flagged_counts,
+                       "async_checkpoint_restored_bit_exact": True}}
     emit("train_path", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ckpt_path: the JAX package's checkpoint formats, written here by hand (the
+# card's machine has no msgpack, flax or orbax)
+
+
+def _mp_sized(n: int, fix: int, fix_max: int, codes) -> bytes:
+    """A msgpack header for a length ``n``: ``fix | n`` below ``fix_max``,
+    else the first of ``codes`` (8-, 16-, 32-bit lengths) that holds it."""
+    if fix is not None and n < fix_max:
+        return bytes([fix | n])
+    for code, fmt in zip(codes, (">B", ">H", ">I")):
+        if code is not None and n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: length {n} too large")
+
+
+def _mp_uint(n: int) -> bytes:
+    if n < 128:
+        return bytes([n])
+    for code, fmt in ((0xCC, ">B"), (0xCD, ">H"), (0xCE, ">I"), (0xCF, ">Q")):
+        if n < 1 << (8 * struct.calcsize(fmt)):
+            return bytes([code]) + struct.pack(fmt, n)
+    raise ValueError(f"msgpack: {n} too large")
+
+
+def _mp_str(s: str) -> bytes:
+    data = s.encode()
+    return _mp_sized(len(data), 0xA0, 32, (0xD9, 0xDA, 0xDB)) + data
+
+
+def _mp_ndarray(arr) -> bytes:
+    """flax's ext type 1: the msgpack triple (shape, dtype name, C bytes)."""
+    data = arr.tobytes("C")
+    payload = (_mp_sized(3, 0x90, 16, (None, 0xDC, 0xDD))
+               + _mp_sized(arr.ndim, 0x90, 16, (None, 0xDC, 0xDD))
+               + b"".join(_mp_uint(int(d)) for d in arr.shape)
+               + _mp_str(arr.dtype.name)
+               + _mp_sized(len(data), None, 0, (0xC4, 0xC5, 0xC6)) + data)
+    fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+    n = len(payload)
+    head = (bytes([fixext[n]]) if n in fixext
+            else _mp_sized(n, None, 0, (0xC7, 0xC8, 0xC9)))
+    return head + struct.pack(">b", 1) + payload
+
+
+def msgpack_bytes(tree) -> bytes:
+    """What ``flax.serialization.to_bytes`` writes for a nested dict of
+    numpy arrays under 1 GiB each (no chunked leaves): maps of str keys,
+    arrays as flax's ndarray ext type."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return (_mp_sized(len(tree), 0x80, 16, (None, 0xDE, 0xDF))
+                + b"".join(_mp_str(k) + msgpack_bytes(v)
+                           for k, v in tree.items()))
+    if isinstance(tree, np.ndarray) and tree.nbytes <= 1 << 30:
+        return _mp_ndarray(tree)
+    raise TypeError(f"msgpack_bytes: {type(tree).__name__} leaf")
+
+
+def flax_variables(sd) -> dict:
+    """The JAX two-stream generator's variables ``{'params',
+    'batch_stats', 'codebook'}`` (numpy) holding a port state dict's
+    weights: the inverse of ``tools/weights.state_dict_from_jax`` (kernels
+    back with ``transpose(2, 3, 1, 0)``), as the JAX package's
+    ``convert_twostream`` writes them."""
+    import numpy as np
+
+    def a(key):
+        return np.ascontiguousarray(sd[key].detach().cpu().numpy())
+
+    def kernel(key):
+        return np.ascontiguousarray(a(key).transpose(2, 3, 1, 0))
+
+    def conv(p):
+        return {"kernel": kernel(f"{p}.weight"), "bias": a(f"{p}.bias")}
+
+    def double_conv(p):
+        params, stats = {}, {}
+        for conv_name, bn, ci, bi in (("conv0", "bn0", 0, 1),
+                                      ("conv1", "bn1", 3, 4)):
+            params[conv_name] = {"kernel": kernel(f"{p}.conv.{ci}.weight")}
+            params[bn] = {"scale": a(f"{p}.conv.{bi}.weight"),
+                          "bias": a(f"{p}.conv.{bi}.bias")}
+            stats[bn] = {"mean": a(f"{p}.conv.{bi}.running_mean"),
+                         "var": a(f"{p}.conv.{bi}.running_var")}
+        return params, stats
+
+    def stream(s):
+        params, stats = {}, {}
+        params["inc"], stats["inc"] = double_conv(f"{s}.inc.conv")
+        for d in ("down1", "down2", "down3"):
+            p, st = double_conv(f"{s}.{d}.mpconv.1")
+            params[d], stats[d] = {"conv": p}, {"conv": st}
+        params["vq_down3"] = {"quan": {
+            "enc": conv(f"{s}.vq_down3.quan.enc"),
+            "dec": conv(f"{s}.vq_down3.quan.dec")}}
+        codebook = {"vq_down3": {"quan": {"quantize": {
+            leaf: a(f"{s}.vq_down3.quan.quantize.{leaf}")
+            for leaf in ("embed", "cluster_size", "embed_avg")}}}}
+        for u in ("up1", "up2", "up3"):
+            p, st = double_conv(f"{s}.{u}.conv")
+            params[u] = {"up": conv(f"{s}.{u}.up"), "conv": p}
+            stats[u] = {"conv": st}
+        params["outc"] = conv(f"{s}.outc")
+        return params, stats, codebook
+
+    out = {"params": {}, "batch_stats": {}, "codebook": {}}
+    for s in ("rgb", "op"):
+        (out["params"][s], out["batch_stats"][s],
+         out["codebook"][s]) = stream(s)
+    out["params"]["bridge"], out["batch_stats"]["bridge"] = {}, {}
+    for flax_name, torch_name in (("O2F", "O2F"), ("F2O", "F20")):
+        (out["params"]["bridge"][flax_name],
+         out["batch_stats"]["bridge"][flax_name]) = double_conv(
+            f"bridge.{torch_name}")
+    return out
+
+
+def _leaves(tree, keys=()):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, keys + (k,))
+    else:
+        yield keys, tree
+
+
+def write_orbax(step_dir: str, tree, ts=None) -> None:
+    """An orbax ``StandardCheckpointer`` step directory of ``tree`` (nested
+    dicts of numpy arrays): ``_METADATA``'s tree, and with tensorstore
+    (``ts``) each leaf in an OCDBT zarr store, as orbax lays them out."""
+    os.makedirs(step_dir)
+    leaves = list(_leaves(tree))
+    meta = {"tree_metadata": {str(keys): {
+        "key_metadata": [{"key": k, "key_type": 2} for k in keys],
+        "value_metadata": {"value_type": "jax.Array",
+                           "skip_deserialize": False,
+                           "write_shape": list(arr.shape)}}
+        for keys, arr in leaves},
+        "use_ocdbt": True, "use_zarr3": False}
+    with open(os.path.join(step_dir, "_METADATA"), "w") as fh:
+        json.dump(meta, fh)
+    if ts is None:
+        return
+    context = ts.Context()
+    base = f"file://{os.path.abspath(step_dir)}"
+    for keys, arr in leaves:
+        store = ts.open({"driver": "zarr", "path": ".".join(keys),
+                         "kvstore": {"driver": "ocdbt", "base": base}},
+                        create=True, dtype=arr.dtype.name, shape=arr.shape,
+                        context=context).result()
+        store.write(arr).result()
+
+
+CKPT_LENGTHS = PED2_TEST_LENGTHS[:3]
+
+
+def score_records(torch, mk, run_test, argv, forwards: int) -> dict:
+    """``run_test.main(argv)`` with the counts set to 0 just before and read
+    just after: its records, printed AUC line, B1's launches (2 a forward,
+    all on the tensor-core route) and wall seconds."""
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        res = run_test.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    by_route = dict(mk.quantize_topk_fused.launches_by_route)
+    if by_route != {r: 2 * forwards * (r == mk.TENSOR_CORE)
+                    for r in mk.ROUTES}:
+        fail(f"{argv[-1]}: B1 launched {by_route}, want {2 * forwards} all "
+             f"on {mk.TENSOR_CORE!r}")
+    with open(res["pickle"], "rb") as fh:
+        records = pickle.load(fh)
+    auc = [line for line in stdout.getvalue().splitlines()
+           if line.startswith("the optimal auc")]
+    if len(auc) != 1:
+        fail(f"{argv[-1]}: run_test printed no 'the optimal auc =' line")
+    return {"records": records, "auc_line": auc[0], "wall_s": wall,
+            "launches_by_route": by_route}
+
+
+def ckpt_path_phase(torch, mk) -> dict:
+    """The released generator (``NetConfig()``: two-stream, bf16, full
+    widths), seeded, written as the JAX package's flax ``.msgpack``
+    (:func:`msgpack_bytes` of :func:`flax_variables`) and as a torch
+    ``.pth``; ``run_test --ckptfile`` scores a 3-video ped2-shaped split at
+    256x256 from each, and the records must be bitwise equal.  An orbax
+    step dir of the same variables raises ``ImportError`` naming
+    tensorstore and the converter where tensorstore is missing, and scores
+    the same records where it is there."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.configs import NetConfig
+    from ammcnet_aaai2021_torch.models import build_model, init_weights
+    from ammcnet_aaai2021_torch.runners import run_test
+    from ammcnet_aaai2021_torch.tools.weights import load_generator_checkpoint
+
+    sd = init_weights(build_model(NetConfig()).generator,
+                      torch.Generator().manual_seed(14)).state_dict()
+    variables = flax_variables(sd)
+    forwards = sum(math.ceil((t - 4) / min(192, t - 4)) for t in CKPT_LENGTHS)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_ped2_tree(tmp, CKPT_LENGTHS)
+        os.rename(os.path.join(tmp, "ped2"), os.path.join(tmp, "toydata"))
+        with open(os.path.join(tmp, "toydata", "toydata.json"), "w") as fh:
+            json.dump({f"{vi:02d}": {"length": t, "gt": [[s - 1, e - 1]]}
+                       for vi, (t, (s, e)) in enumerate(
+                           zip(CKPT_LENGTHS, PED2_EVENTS), start=1)}, fh)
+        paths = {"msgpack": os.path.join(tmp, "generator.msgpack"),
+                 "pth": os.path.join(tmp, "generator.pth")}
+        with open(paths["msgpack"], "wb") as fh:
+            fh.write(msgpack_bytes(variables))
+        torch.save(sd, paths["pth"])
+        got = load_generator_checkpoint(paths["msgpack"])
+        if set(got) != set(sd) or not all(torch.equal(got[k], sd[k])
+                                          for k in sd):
+            fail("the .msgpack does not load bitwise the generator's weights")
+        try:
+            import tensorstore as ts
+        except ImportError:
+            ts = None
+        orbax_dir = os.path.join(tmp, "orbax", "000000")
+        write_orbax(orbax_dir, variables, ts)
+        if ts is None:
+            try:
+                load_generator_checkpoint(orbax_dir)
+            except ImportError as exc:
+                if ("tensorstore" not in str(exc)
+                        or "tools.jax_checkpoint" not in str(exc)):
+                    fail(f"the orbax dir raised without naming tensorstore "
+                         f"and the converter: {exc}")
+                orbax = f"ImportError: {exc}"
+            else:
+                fail("an orbax dir loaded without tensorstore")
+        else:
+            paths["orbax"] = orbax_dir
+            orbax = "scored"
+        size = os.path.getsize(paths["msgpack"])
+        runs = {name: score_records(torch, mk, run_test, [
+            "--dataset_name", "toydata", "--data_dir", tmp, "--save_dir",
+            os.path.join(tmp, f"eval_{name}"), "--ckptfile", path], forwards)
+            for name, path in paths.items()}
+    want = runs["pth"]
+    for name, run in runs.items():
+        for key in ("rgb_img_pred_records", "rgb_fea_comm_records",
+                    "op_img_pred_records", "op_fea_comm_records"):
+            a, b = run["records"][key], want["records"][key]
+            if len(a) != len(b) or not all(np.array_equal(x, y)
+                                           for x, y in zip(a, b)):
+                fail(f"ckpt_path: {name} records {key} differ from the "
+                     ".pth run's")
+        if run["auc_line"] != want["auc_line"]:
+            fail(f"ckpt_path: {name} printed {run['auc_line']!r}")
+    out = {"videos": len(CKPT_LENGTHS), "frames": sum(CKPT_LENGTHS),
+           "image_size": IMAGE_SIZE, "dtype": "bfloat16",
+           "msgpack_bytes": size,
+           "records_bitwise": sorted(runs), "auc_line": want["auc_line"],
+           "orbax": orbax,
+           "wall_s": {name: run["wall_s"] for name, run in runs.items()},
+           "quantize_topk_launches": sum(
+               run["launches_by_route"][mk.TENSOR_CORE]
+               for run in runs.values()),
+           "quantize_topk_launches_by_run": {
+               name: run["launches_by_route"] for name, run in runs.items()}}
+    emit("ckpt_path", **out)
+    return out
+
+
+# remat_check: a remat step against the plain step, from one state and batch
+REMAT_PARAM_TOL = 1e-6  # JAX tests/test_train_step.py's, after one Adam step
+REMAT_TIMED_STEPS = 10
+
+
+def remat_check_phase(torch, mk) -> dict:
+    """One bf16 stage-2 step of the released configuration (full width,
+    batch 4, 256x256) from one state and batch with ``remat=False`` and
+    ``remat=True`` (TF32 off, cuDNN deterministic, as the caller sets):
+    ``g_loss`` within ``TRAIN_LOSS_REL``, every generator parameter within
+    ``REMAT_PARAM_TOL``, BatchNorm statistics and codebooks bitwise; B2 and
+    B1 launches of each step by route; then ``REMAT_TIMED_STEPS`` more steps
+    of each, timed by CUDA events, with the peak memory allocated; then the
+    memory one training-mode generator forward of each leaves allocated
+    for its backward."""
+    import copy
+
+    from ammcnet_aaai2021_torch.configs import LossConfig, NetConfig, OptimConfig
+    from ammcnet_aaai2021_torch.models import build_model, init_flownet_weights
+    from ammcnet_aaai2021_torch.train.state import create_train_state
+    from ammcnet_aaai2021_torch.train.steps import make_twostream_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    batch = {"rgb": torch.randint(0, 256, (4, 5, IMAGE_SIZE, IMAGE_SIZE, 3),
+                                  device="cuda", generator=g,
+                                  dtype=torch.uint8),
+             "op": torch.randn(4, 4, IMAGE_SIZE, IMAGE_SIZE, 2, device="cuda",
+                               generator=g) * 0.5}
+    model = build_model(NetConfig(), mode="training")
+    state = create_train_state(model.generator, model.discriminator,
+                               OptimConfig(), 20200525, device="cuda")
+    flownet = init_flownet_weights(model.flow_network,
+                                   torch.Generator().manual_seed(7))
+    flownet.to("cuda").eval()
+    init = copy.deepcopy({"g": state.generator.state_dict(),
+                          "d": state.discriminator.state_dict(),
+                          "g_opt": state.g_opt.state_dict(),
+                          "d_opt": state.d_opt.state_dict(),
+                          "g_sched": state.g_sched.state_dict(),
+                          "d_sched": state.d_sched.state_dict()})
+    runs = {}
+    for remat in (False, True):
+        state.generator.load_state_dict(init["g"])
+        state.discriminator.load_state_dict(init["d"])
+        for name in ("g_opt", "d_opt", "g_sched", "d_sched"):
+            getattr(state, name).load_state_dict(copy.deepcopy(init[name]))
+        state.step = 0
+        step = make_twostream_train_step(LossConfig(), remat=remat)
+        torch.cuda.synchronize()
+        reset_launches(mk)
+        metrics = step(state, batch, flownet)
+        torch.cuda.synchronize()
+        launches = launch_counts(mk)
+        after = {k: v.clone() for k, v in state.generator.state_dict().items()}
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(REMAT_TIMED_STEPS):
+            step(state, batch, flownet)
+        end.record()
+        torch.cuda.synchronize()
+        runs[remat] = {"g_loss": float(metrics["g_loss"]), "state": after,
+                       "launches_by_route": launches,
+                       "ms_per_step": start.elapsed_time(end)
+                       / REMAT_TIMED_STEPS,
+                       "peak_mem_gib": torch.cuda.max_memory_allocated()
+                       / 2 ** 30,
+                       # the peak over what was allocated before the steps
+                       # (the state, and what earlier phases left)
+                       "step_peak_gib": (torch.cuda.max_memory_allocated()
+                                         - resident) / 2 ** 30}
+    # what each step keeps between the generator's forward and its
+    # backward: the memory a training-mode forward leaves allocated (its
+    # buffer updates recorded, not written)
+    import torch.utils.checkpoint
+
+    from ammcnet_aaai2021_torch.models.blocks import (
+        deferred_buffer_updates, recomputing)
+    from ammcnet_aaai2021_torch.train.steps import _to_model_range
+
+    rgb = _to_model_range(batch["rgb"])[:, :-3]
+    op = _to_model_range(batch["op"])[:, :-2]
+    for remat_on, run in runs.items():
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with deferred_buffer_updates():
+            if remat_on:
+                out = torch.utils.checkpoint.checkpoint(
+                    state.generator, rgb, op, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(), recomputing()))
+            else:
+                out = state.generator(rgb, op)
+        torch.cuda.synchronize()
+        run["held_after_forward_gib"] = (torch.cuda.memory_allocated()
+                                         - base) / 2 ** 30
+        del out
+    plain, remat = runs[False], runs[True]
+    loss_err = abs(remat["g_loss"] - plain["g_loss"]) / abs(plain["g_loss"])
+    params = {n for n, _ in state.generator.named_parameters()}
+    param_err = max(float((remat["state"][k].float()
+                           - plain["state"][k].float()).abs().max())
+                    for k in params)
+    buffers_equal = all(torch.equal(remat["state"][k], plain["state"][k])
+                        for k in plain["state"] if k not in params)
+    if loss_err > TRAIN_LOSS_REL:
+        fail(f"remat step: g_loss differs from the plain step's by "
+             f"{loss_err:.3g} relative (> {TRAIN_LOSS_REL})")
+    if param_err > REMAT_PARAM_TOL:
+        fail(f"remat step: parameters differ from the plain step's by "
+             f"{param_err:.3g} (> {REMAT_PARAM_TOL})")
+    if not buffers_equal:
+        fail("remat step: BatchNorm statistics or codebooks differ from the "
+             "plain step's")
+    want = {False: {"b1": 0, "b2": 2}, True: {"b1": 2, "b2": 2}}
+    for r, run in runs.items():
+        for kernel, n in want[r].items():
+            if run["launches_by_route"][kernel] != {
+                    route: n * (route == mk.TENSOR_CORE)
+                    for route in mk.ROUTES}:
+                fail(f"remat={r} step: {kernel} launched "
+                     f"{run['launches_by_route'][kernel]}, want {n} on "
+                     f"{mk.TENSOR_CORE!r}")
+    out = {"batch": 4, "image_size": IMAGE_SIZE, "dtype": "bfloat16",
+           "g_loss": plain["g_loss"], "g_loss_rel_err": loss_err,
+           "g_loss_tol": TRAIN_LOSS_REL, "param_max_abs_err": param_err,
+           "param_tol": REMAT_PARAM_TOL, "buffers_bitwise": buffers_equal,
+           "timed_steps": REMAT_TIMED_STEPS,
+           **{f"{name}_{key}": run[key] for name, run in
+              (("plain", plain), ("remat", remat))
+              for key in ("ms_per_step", "peak_mem_gib", "step_peak_gib",
+                          "held_after_forward_gib", "launches_by_route")}}
+    emit("remat_check", **out)
     return out
 
 
@@ -2151,12 +2647,14 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         main_run = main_path_phase(torch, mk, args.videos, tmp)
         int8 = int8_path_phase(torch, mk, tmp, main_run)
+    ckpt = ckpt_path_phase(torch, mk)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     train_check_phase(torch, mk)
+    remat = remat_check_phase(torch, mk)
     torch.backends.cudnn.deterministic = deterministic
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     train_run = train_path_phase(torch, mk)
@@ -2214,7 +2712,12 @@ def main(argv=None) -> None:
         "launches": main_run["quantize_topk_launches"],
         "launches_by_route": main_run["quantize_topk_launches_by_route"],
         "launches_by_path": {"score": main_run["quantize_topk_launches"],
+                             "ckpt": ckpt["quantize_topk_launches_by_run"],
                              "train": train_run["quantize_topk_launches"],
+                             "train_flagged": train_run["flagged"][
+                                 "launches_by_route"]["b1"],
+                             "remat_step": remat["remat_launches_by_route"][
+                                 "b1"],
                              **stage1_launches("b1")},
         "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
         "flips": bf16["flips"],
@@ -2251,6 +2754,12 @@ def main(argv=None) -> None:
         "launches_by_route": train_run[
             "quantize_topk_train_launches_by_route"],
         "launches_by_path": {"train": train_run["quantize_topk_train_launches"],
+                             "train_flagged": train_run["flagged"][
+                                 "launches_by_route"]["b2"],
+                             "remat_step": remat["remat_launches_by_route"][
+                                 "b2"],
+                             "plain_step": remat["plain_launches_by_route"][
+                                 "b2"],
                              **stage1_launches("b2")},
         "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"]),
         "esum_max_rel_err": max(b2["esum_max_rel_err"],

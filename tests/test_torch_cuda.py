@@ -15,6 +15,8 @@ truncated files, C7) and against cv2's within 1 LSB
 (``tests/fixtures/torch_jpeg``); the IDCT on a seeded sweep of
 geometries, the colour kernel on chunks of each subsampling, and a colour
 chunk's one colour launch.
+A remat stage-2 step at full width is held against the plain step, and
+a JAX-format ``.msgpack`` generator against its weights through B1.
 The int8 convolution kernels are held against their plain versions
 bitwise: accumulators and epilogue; the int8 calibration reads JPEG
 training frames through the GPU route as its plain pipeline reads them.
@@ -619,6 +621,88 @@ def test_train_step_kernel_route_matches_plain_route(cuda_device):
         torch.testing.assert_close(mk[k], mp[k], rtol=1e-6, atol=0)
     for k in cp:
         torch.testing.assert_close(ck[k], cp[k], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_remat_step_matches_plain_step_at_full_width(cuda_device):
+    """One bf16 stage-2 step of the released configuration at 256x256
+    (batch 2, cuDNN deterministic) with ``remat=True`` and without, from
+    one state and batch: g_loss within 1e-6 relative, parameters within
+    1e-6, BatchNorm statistics and codebooks bitwise; the rerun forward
+    takes B1, so B2 runs twice a step either way and B1 twice more under
+    remat, all on the tensor-core route."""
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device=cuda_device).manual_seed(12)
+    batch = {"rgb": torch.randint(0, 256, (2, 5, 256, 256, 3),
+                                  device=cuda_device, generator=g,
+                                  dtype=torch.uint8),
+             "op": torch.randn(2, 4, 256, 256, 2, device=cuda_device,
+                               generator=g)}
+    runs = []
+    for remat in (False, True):
+        model = build_model(NetConfig(), "training")
+        state = create_train_state(model.generator, model.discriminator,
+                                   OptimConfig(), 5, device=cuda_device)
+        flownet = init_flownet_weights(model.flow_network,
+                                       torch.Generator().manual_seed(6))
+        b1, b2 = quantize_topk_fused.launches, quantize_topk_train_fused.launches
+        b1_tc = quantize_topk_fused.launches_by_route[TENSOR_CORE]
+        metrics = make_twostream_train_step(LossConfig(), remat=remat)(
+            state, batch, flownet.to(cuda_device).eval())
+        torch.cuda.synchronize()
+        assert quantize_topk_train_fused.launches - b2 == 2
+        assert quantize_topk_fused.launches - b1 == (2 if remat else 0)
+        assert (quantize_topk_fused.launches_by_route[TENSOR_CORE] - b1_tc
+                == quantize_topk_fused.launches - b1)
+        runs.append((metrics, state.generator.state_dict(),
+                     {n for n, _ in state.generator.named_parameters()}))
+    (mp, sp, params), (mr, sr, _) = runs
+    torch.testing.assert_close(mr["g_loss"], mp["g_loss"], rtol=1e-6, atol=0)
+    for k in sp:
+        if k in params:
+            torch.testing.assert_close(sr[k], sp[k], rtol=0, atol=1e-6)
+        else:
+            assert torch.equal(sr[k], sp[k]), k
+
+
+@pytest.mark.cuda
+def test_msgpack_checkpoint_scores_as_its_weights(cuda_device, tmp_path):
+    """The released generator written as the JAX package's flax
+    ``.msgpack`` (``chip_smoke.py``'s writer) loads bitwise its weights,
+    and its bf16 forward on the card through B1 is bitwise the forward of
+    the weights as given."""
+    import importlib.util
+
+    from ammcnet_aaai2021_torch.tools.weights import load_generator_checkpoint
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    nets = [init_weights(build_generator(NetConfig(), per_sample_diff=True),
+                         torch.Generator().manual_seed(3))]
+    path = str(tmp_path / "generator.msgpack")
+    with open(path, "wb") as fh:
+        fh.write(smoke.msgpack_bytes(smoke.flax_variables(
+            nets[0].state_dict())))
+    sd = load_generator_checkpoint(path)
+    for k, v in nets[0].state_dict().items():
+        assert torch.equal(sd[k], v), k
+    nets.append(build_generator(NetConfig(), per_sample_diff=True))
+    nets[1].load_state_dict(sd)
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    rgb = torch.rand(4, 12, 256, 256, device=cuda_device, generator=g) * 2 - 1
+    op = torch.randn(4, 6, 256, 256, device=cuda_device, generator=g)
+    outs = []
+    with torch.inference_mode():
+        for net in nets:
+            before = quantize_topk_fused.launches
+            out = net.to(cuda_device).eval()(rgb, op)
+            assert quantize_topk_fused.launches == before + 2
+            outs.append([out[0], out[1], *out[2], *out[3]])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures",

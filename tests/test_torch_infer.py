@@ -392,7 +392,21 @@ def test_run_test_cli_matches_the_jax_cli(jpeg_toydata, tmp_path, capsys,
                                        err_msg=key)
 
 
-def test_port_and_chip_smoke_import_no_jax():
+def test_port_and_chip_smoke_import_no_jax(tmp_path):
+    """The port's modules and chip_smoke.py import none of JAX, flax,
+    ml_dtypes, orbax, msgpack or the JAX package, and neither does reading
+    a JAX ``.msgpack`` and an orbax step dir (tensorstore, which reads the
+    latter, loads ml_dtypes itself: that alone is allowed, after it)."""
+    from ammcnet_aaai2021_tpu.train.checkpoint import (save_checkpoint,
+                                                       save_msgpack)
+
+    gen = init_weights(build_generator(NetConfig(n_embed=16)),
+                       torch.Generator().manual_seed(1))
+    variables = convert_twostream({k: v.numpy()
+                                   for k, v in gen.state_dict().items()})
+    msgpack_path = str(tmp_path / "g.msgpack")
+    save_msgpack(msgpack_path, variables)
+    orbax_dir = save_checkpoint(str(tmp_path / "ckpt"), 0, variables)
     modules = [
         "ammcnet_aaai2021_torch", "ammcnet_aaai2021_torch.configs",
         "ammcnet_aaai2021_torch.data", "ammcnet_aaai2021_torch.data.datasets",
@@ -411,6 +425,7 @@ def test_port_and_chip_smoke_import_no_jax():
         "ammcnet_aaai2021_torch.ops.metrics",
         "ammcnet_aaai2021_torch.runners.run_test",
         "ammcnet_aaai2021_torch.runners.run_train",
+        "ammcnet_aaai2021_torch.tools.jax_checkpoint",
         "ammcnet_aaai2021_torch.tools.weights",
         "ammcnet_aaai2021_torch.train.checkpoint",
         "ammcnet_aaai2021_torch.train.loop",
@@ -426,12 +441,25 @@ def test_port_and_chip_smoke_import_no_jax():
         "spec = importlib.util.spec_from_file_location('chip_smoke', "
         f"{os.path.join(REPO, 'chip_smoke.py')!r})\n"
         "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'ml_dtypes', 'ammcnet_aaai2021_tpu'))\n"
-        "print(bad)\n")
+        "from ammcnet_aaai2021_torch.tools import jax_checkpoint\n"
+        "from ammcnet_aaai2021_torch.tools.weights import "
+        "load_generator_checkpoint as load\n"
+        "banned = ('jax', 'jaxlib', 'flax', 'ml_dtypes', 'orbax', 'msgpack', "
+        "'ammcnet_aaai2021_tpu')\n"
+        "def bad(): return sorted(m for m in sys.modules "
+        "if m.split('.')[0] in banned)\n"
+        f"sd = load({msgpack_path!r})\n"
+        "print(bad(), len(sd))\n"
+        f"orbax = load({orbax_dir!r})\n"
+        f"jax_checkpoint.main([{orbax_dir!r}, {str(tmp_path / 'g.pth')!r}])\n"
+        "print([m for m in bad() if m.split('.')[0] != 'ml_dtypes'], "
+        "'tensorstore' in sys.modules, "
+        "all((orbax[k] == v).all() for k, v in sd.items()))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, check=True)
-    assert out.stdout.strip() == "[]", out.stdout
+    lines = out.stdout.strip().splitlines()
+    assert lines[0] == f"[] {len(gen.state_dict())}", out.stdout
+    assert lines[-1] == "[] True True", out.stdout
 
 
 def test_chip_smoke_fails_without_a_gpu():

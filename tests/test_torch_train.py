@@ -23,6 +23,13 @@ Tolerances and their reasons:
   shapes, and the difference grows with depth from the loss (1e-6 at the
   output convolution).  Post-Adam parameters are not compared: Adam's first
   step is about lr * sign(g) and would amplify those differences.
+* the remat step against the plain step: parameters 1e-6 absolute after
+  the Adam update and g_loss 1e-6 relative (JAX tests/test_train_step.py's
+  remat tolerances), buffers bitwise; against the JAX remat step, the
+  one-step tolerances above;
+* ``--fetch_every_periods`` and ``--async_checkpoints`` change when rows
+  are fetched and where checkpoints are written, not what: rows equal,
+  checkpoint files byte for byte;
 * Adam against optax: 1.5e-6 absolute after five updates of at most
   lr = 1e-2 each.  optax takes the bias corrections ``1 - b^t`` in float32,
   where 0.999 rounds so that ``1 - b2`` is off by 1.3e-5 relative, and torch
@@ -72,8 +79,10 @@ from ammcnet_aaai2021_torch.models import (
     DoubleConv,
     FlowNet2SD,
     PixelDiscriminator,
+    TopKMemory,
     build_model,
 )
+from ammcnet_aaai2021_torch.models.blocks import is_recomputing
 from ammcnet_aaai2021_torch.ops import memory
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
     CUDA_CORE,
@@ -565,8 +574,112 @@ def test_freeze_codebook_keeps_buffers_and_gradients(step_pair):
         assert torch.equal(v, before[k]), k
     bn = frozen.generator.rgb.inc.conv.conv[1]
     assert not torch.equal(bn.running_mean, init["rgb.inc.conv.conv.1.running_mean"])
-    with pytest.raises(NotImplementedError, match="twice"):
-        make_twostream_train_step(LossConfig(), remat=True)
+
+
+def _step_from(init, disc_state, batch, flownet, **kw):
+    """A fresh port state holding ``init`` (and the given discriminator)
+    after one stage-2 step; returns (state, metrics)."""
+    model, state = _port_train_setup()
+    state.generator.load_state_dict(init)
+    state.discriminator.load_state_dict(disc_state)
+    metrics = make_twostream_train_step(LossConfig(), **kw)(
+        state, {k: torch.from_numpy(v) for k, v in batch.items()}, flownet)
+    return state, metrics
+
+
+@pytest.mark.parametrize("freeze_codebook", [False, True])
+def test_remat_step_matches_plain_step(step_pair, freeze_codebook):
+    """``remat=True`` changes what the backward pass keeps, not the step
+    (JAX tests/test_train_step.py:103): parameters within 1e-6 after the
+    Adam update, g_loss within 1e-6 relative, BatchNorm statistics and
+    codebooks bitwise; the rerun forward writes nothing, and
+    ``freeze_codebook`` still pins the codebook."""
+    *_, init, batch, flownet = step_pair
+    disc = _port_train_setup()[1].discriminator.state_dict()
+    plain, pm = _step_from(init, disc, batch, flownet,
+                           freeze_codebook=freeze_codebook)
+    calls = []
+    forward = TopKMemory.forward
+
+    def counted(self, z):
+        calls.append(is_recomputing())
+        return forward(self, z)
+
+    TopKMemory.forward = counted
+    try:
+        remat, rm = _step_from(init, disc, batch, flownet, remat=True,
+                               freeze_codebook=freeze_codebook)
+    finally:
+        TopKMemory.forward = forward
+    assert calls == [False, False, True, True]  # the backward reran both
+    assert rm["g_loss"].item() == pytest.approx(pm["g_loss"].item(), rel=1e-6)
+    sd_p, sd_r = plain.generator.state_dict(), remat.generator.state_dict()
+    params = {n for n, _ in plain.generator.named_parameters()}
+    for k in sd_p:
+        if k in params:
+            np.testing.assert_allclose(sd_r[k].numpy(), sd_p[k].numpy(),
+                                       rtol=0, atol=1e-6, err_msg=k)
+        else:
+            assert torch.equal(sd_r[k], sd_p[k]), k
+    assert torch.equal(sd_r["rgb.vq_down3.quan.quantize.embed"],
+                       init["rgb.vq_down3.quan.quantize.embed"]) == freeze_codebook
+    assert not torch.equal(sd_r["rgb.inc.conv.conv.1.running_mean"],
+                           init["rgb.inc.conv.conv.1.running_mean"])
+
+
+@pytest.fixture(scope="module")
+def remat_pair(step_pair, flownet_pair):
+    """One remat step of the JAX package (``jax.checkpoint`` around the
+    generator forward) and one of the port, from step_pair's state and
+    batch: (jax new state, jax metrics, port state, port metrics)."""
+    jf, flow_vars, flownet = flownet_pair
+    *_, init, batch, _ = step_pair
+    jd = JDisc(dtype=jnp.float32)
+    d_params = jd.init({"params": jax.random.PRNGKey(4)},
+                       jnp.zeros((1, SIZE, SIZE, 3)))["params"]
+    jv = jax.tree.map(jnp.asarray, convert_twostream(
+        {k: v.numpy() for k, v in init.items()}))
+    tx = _grad_catcher()
+    jstate = AMMCTrainState(
+        step=jnp.zeros((), jnp.int32), g_params=jv["params"],
+        g_state={"batch_stats": jv["batch_stats"], "codebook": jv["codebook"]},
+        g_opt_state=tx.init(jv["params"]), d_params=d_params,
+        d_opt_state=tx.init(d_params))
+    jgen = j_build_generator(JNetConfig(dtype="float32", n_embed=N_EMBED,
+                                        use_pallas_memory=True))
+    jstep = jax.jit(j_make_step(jgen, jd, jf, JLossConfig(), tx, tx,
+                                remat=True))
+    jnew, jmetrics = jstep(jstate, {k: jnp.asarray(v) for k, v in batch.items()},
+                           flow_vars)
+    state, metrics = _step_from(init, discriminator_state_from_jax(d_params),
+                                batch, flownet, remat=True)
+    return jnew, jmetrics, state, metrics
+
+
+def test_remat_step_matches_the_jax_remat_step(remat_pair):
+    """The stage-2 step parity (losses, gradients, BatchNorm statistics and
+    codebooks, at this file's tolerances) for the two remat steps."""
+    jnew, jmetrics, state, metrics = remat_pair
+    for k in jmetrics:
+        np.testing.assert_allclose(metrics[k].item(), float(jmetrics[k]),
+                                   rtol=1e-5, err_msg=k)
+    grads = {n: p.grad.numpy() for n, p in state.generator.named_parameters()}
+    tg = jax.tree_util.tree_leaves_with_path(convert_twostream(grads)["params"])
+    jg = jax.tree_util.tree_leaves_with_path(jnew.g_opt_state)
+    assert [p for p, _ in tg] == [p for p, _ in jg]
+    for (path, a), (_, b) in zip(tg, jg):
+        assert _rel(a, b) < 2e-2, jax.tree_util.keystr(path)
+    flat = lambda leaves: np.concatenate([np.ravel(x) for _, x in leaves])
+    assert _rel(flat(tg), flat(jg)) < 5e-3
+    want = convert_twostream({k: v.numpy()
+                              for k, v in state.generator.state_dict().items()})
+    for col in ("batch_stats", "codebook"):
+        got = jax.tree_util.tree_leaves_with_path(want[col])
+        ref = jax.tree_util.tree_leaves_with_path(jnew.g_state[col])
+        for (path, a), (_, b) in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5,
+                                       err_msg=jax.tree_util.keystr(path))
 
 
 def test_fix_branches_trains_only_the_bridge(step_pair):
@@ -791,12 +904,131 @@ def test_run_train_cuda_without_gpu_raises(train_tree, tmp_path):
         run_train.main(argv)
 
 
-@pytest.mark.parametrize("extra,match", [
-    (["--fetch_every_periods", "2"], "export-and-tools"),
-    (["--async_checkpoints"], "export-and-tools"),
-    (["--pretrain", "--rgb_model_path", "a.msgpack", "--op_model_path",
-      "b.msgpack"], "msgpack"),
-])
-def test_run_train_flags_of_later_slices_raise(train_tree, tmp_path, extra, match):
-    with pytest.raises(NotImplementedError, match=match):
-        run_train.main(_cli(train_tree, str(tmp_path), "--iterations", "1", *extra))
+def _csv_rows(run_dir, skip=("first_step_s", "steps_per_sec",
+                               "data_stall_frac")):
+    """The run's scalar rows without the timing tags, as (step, tag, value)."""
+    with open(os.path.join(run_dir, "summary", "scalars.csv")) as fh:
+        rows = [r.split(",") for r in fh.read().splitlines()[1:]]
+    return [(int(st), tag, float(v)) for st, tag, v in rows if tag not in skip]
+
+
+def _state_bytes(run_dir, step):
+    with open(os.path.join(run_dir, "training", "checkpoints", f"{step:06d}",
+                           "state.pt"), "rb") as fh:
+        return fh.read()
+
+
+@pytest.fixture(scope="module")
+def per_step_run(train_tree, tmp_path_factory):
+    """``run_train`` on the CPU for 2 steps logging every step, scalars
+    fetched a period at a time and checkpoints saved synchronously."""
+    tmp = str(tmp_path_factory.mktemp("torch_k1"))
+    run_dir, _ = run_train.main(_cli(train_tree, tmp, "--iterations", "2",
+                                     "--step_log", "1", "--step_summary", "1",
+                                     "--exp_tag", "k1"))
+    return run_dir
+
+
+@pytest.fixture(scope="module")
+def flagged_run(train_tree, tmp_path_factory):
+    """The same run with ``--fetch_every_periods 2 --async_checkpoints``
+    (JAX tests/test_pipeline_e2e.py:186-219), then ``--resume`` from it to
+    step 4 with the same flags."""
+    tmp = str(tmp_path_factory.mktemp("torch_k2"))
+    flags = ["--step_log", "1", "--step_summary", "1",
+             "--fetch_every_periods", "2", "--async_checkpoints"]
+    run_dir, _ = run_train.main(_cli(train_tree, tmp, "--iterations", "2",
+                                     *flags, "--exp_tag", "k2"))
+    run2, state2 = run_train.main(_cli(train_tree, tmp, "--iterations", "4",
+                                       *flags, "--resume", run_dir,
+                                       "--exp_tag", "k2-resumed"))
+    return run_dir, run2, state2
+
+
+def test_fetch_batching_and_async_checkpoints_match_the_plain_run(
+        per_step_run, flagged_run):
+    """Every step_log row reaches the CSV with the values of the run that
+    fetches each period; the writer thread's step-2 checkpoint is the
+    synchronous one byte for byte; the resume reaches its step."""
+    run_dir, run2, state2 = flagged_run
+    want = _csv_rows(per_step_run)
+    assert {st for st, _, _ in want} == {1, 2}
+    assert _csv_rows(run_dir) == want
+    # both periods came in one fetch: each row logs the span's rate
+    rates = [v for st, tag, v in _csv_rows(run_dir, skip=())
+             if tag == "steps_per_sec"]
+    assert len(rates) == 2 and rates[0] == rates[1]
+    assert _state_bytes(run_dir, 2) == _state_bytes(per_step_run, 2)
+    assert state2.step == 4 and state2.g_sched.last_epoch == 4
+    assert latest_step(os.path.join(run2, "training", "checkpoints")) == 4
+    assert {st for st, _, _ in _csv_rows(run2)} == {3, 4}
+
+
+@pytest.mark.parametrize("where", ["put", "close"])
+def test_writer_thread_failure_surfaces_in_the_loop(monkeypatch, tmp_path,
+                                                    where):
+    """An exception on the writer thread is raised in the loop's thread: at
+    the next save, or at the end."""
+    import time
+
+    from ammcnet_aaai2021_torch.train import loop
+
+    model, state = _port_train_setup()
+
+    def broken(ckpt_dir, payload):
+        raise OSError("disk full")
+
+    monkeypatch.setattr(loop, "write_checkpoint", broken)
+    writer = loop.CheckpointWriter(str(tmp_path), async_=True)
+    writer.put(state)
+    if where == "put":
+        while not writer.failure:  # the first save fails on the thread
+            time.sleep(0.01)
+        with pytest.raises(RuntimeError, match="writer thread") as err:
+            writer.put(state)
+        assert isinstance(err.value.__cause__, OSError)
+    with pytest.raises(RuntimeError, match="writer thread") as err:
+        writer.close()
+    assert isinstance(err.value.__cause__, OSError)
+    assert not writer.thread.is_alive()
+
+
+@pytest.mark.parametrize("case", ["fetch_every_periods", "async_checkpoints",
+                                  "msgpack_graft"])
+def test_run_train_flags_of_later_slices_raise(train_tree, tmp_path,
+                                               per_step_run, case):
+    """The flags and checkpoints that raised ``NotImplementedError`` before
+    the port ran them: each alone against the run that fetches each period
+    and saves synchronously, and a ``--pretrain`` graft of the JAX
+    package's stage-1 ``.msgpack`` files."""
+    from ammcnet_aaai2021_tpu.tools.torch_convert import convert_unetmem_stream
+    from ammcnet_aaai2021_tpu.train.checkpoint import save_msgpack
+
+    flags = {"fetch_every_periods": ["--fetch_every_periods", "2"],
+             "async_checkpoints": ["--async_checkpoints"]}.get(case, [])
+    if case != "msgpack_graft":
+        run_dir, state = run_train.main(_cli(
+            train_tree, str(tmp_path), "--iterations", "2", "--step_log", "1",
+            "--step_summary", "1", *flags))
+        assert _csv_rows(run_dir) == _csv_rows(per_step_run)
+        assert _state_bytes(run_dir, 2) == _state_bytes(per_step_run, 2)
+        return
+    sd = load_generator_checkpoint(os.path.join(
+        per_step_run, "training", "checkpoints", "000002"))
+    paths = {}
+    for stream in ("rgb", "op"):
+        branch = {k[len(stream) + 1:]: v.numpy() for k, v in sd.items()
+                  if k.startswith(stream + ".")}
+        params, stats, codebook = convert_unetmem_stream(branch)
+        paths[stream] = str(tmp_path / f"{stream}.msgpack")
+        save_msgpack(paths[stream], {"params": params, "batch_stats": stats,
+                                     "codebook": codebook})
+    _, state = run_train.main(_cli(
+        train_tree, str(tmp_path), "--iterations", "1", "--pretrain",
+        "--rgb_model_path", paths["rgb"], "--op_model_path", paths["op"],
+        "--fix_branches", "--freeze_codebook"))
+    after = state.generator.state_dict()
+    for key, val in sd.items():
+        if not key.startswith(("rgb.", "op.")) or "num_batches" in key:
+            continue
+        assert torch.equal(after[key], val) != ("running_" in key), key
