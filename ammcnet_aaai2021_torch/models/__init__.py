@@ -1,15 +1,31 @@
 """Model factory: net_tag string -> generator module.
 
-Port of ``ammcnet_aaai2021_tpu/models/__init__.py``.
-``unet_vq_twostream`` and its as-shipped alias ``twostream_concat_dire``
-(the reference wires the same additive AMFT bridge into both,
-unet.py:1043) build :class:`TwoStreamUNetMem`; ``unet_vq_topk_res`` builds
-the stage-1 single-stream :class:`UNetMemStream` for ``cfg.data_type``
-(rgb: 4x3 channels in, 3 out; op: 3x2 in, 2 out).  The four tags that
-dispatch to non-runnable reference classes raise ``ValueError`` as in the
-JAX package; the other runnable tags come with the model-family slice.
-``build_model(cfg, "training")`` also returns the PatchGAN discriminator
-(on the c-channel prediction) and the FlowNet2-SD teacher
+Port of ``ammcnet_aaai2021_tpu/models/__init__.py``: every runnable tag of
+the reference's net_map builds, as in the JAX package.
+
+====================  =========================================================
+net_tag               module
+====================  =========================================================
+unet                  plain UNet (:class:`~.blocks.UNet`)
+unet_vq_topk_res      :class:`UNetMemStream` (UNetMem_v7, the stage-1 net)
+unet_vq_twostream     :class:`TwoStreamUNetMem` (the released generator)
+twostream_concat_dire as shipped, the same net: the reference wires the
+                      additive AMFT bridge into both (unet.py:1043)
+vqvae                 :class:`~.vqvae.VQVAE`
+vqvae_topk            :class:`~.vqvae.VQVAETopK`
+vqvae_topk_res        :class:`~.vqvae.VQVAETopKRes`
+vqvae_twostream       :class:`~.vqvae.VQVAETopKTwoStream`
+====================  =========================================================
+
+A single-stream net takes the (rgb, op) entry of ``in_channel`` and
+``out_channel`` that matches ``cfg.data_type`` (rgb, or rgb_op: 4x3
+channels in, 3 out; op: 3x2 in, 2 out); a two-stream net takes both.  The
+four tags that dispatch to non-runnable reference classes raise
+``ValueError`` as in the JAX package.  :class:`UNetMemV4` and the
+concat/add bridges (``TwoStreamUNetMem(bridge_kind=...)``) are built by
+hand, as there.  ``build_model(cfg, "training")`` also returns the PatchGAN
+discriminator (on the two-stream net's RGB prediction, or on a
+single-stream net's own channels) and the FlowNet2-SD teacher
 (models/__init__.py:140-152).
 """
 
@@ -30,19 +46,38 @@ from .blocks import (
     DoubleConv,
     Down,
     InConv,
+    UNet,
     Up,
 )
 from .discriminator import PixelDiscriminator
 from .flownet_sd import FlowNet2SD, FlowNetSD
 from .memory_module import EncQuanDecResTopK, EncQuanDecTopK, TopKMemory
-from .unet_mem import AMFTBridge, TwoStreamUNetMem, UNetMemStream
+from .unet_mem import (
+    AddBridge,
+    AMFTBridge,
+    ConcatBridge,
+    TwoStreamUNetMem,
+    UNetMemStream,
+    UNetMemV4,
+)
+from .vqvae import (
+    VQVAE,
+    VQMemory,
+    VQVAETopK,
+    VQVAETopKRes,
+    VQVAETopKTwoStream,
+    bridge_only_mask,
+)
 
 __all__ = [
     "BatchNorm2d", "Conv2d", "ConvTranspose2d", "DoubleConv", "InConv",
-    "Down", "Up", "TopKMemory", "EncQuanDecTopK", "EncQuanDecResTopK",
-    "UNetMemStream", "AMFTBridge", "TwoStreamUNetMem", "PixelDiscriminator",
-    "FlowNetSD", "FlowNet2SD", "build_generator", "build_model",
-    "init_weights", "init_flownet_weights", "Model", "NET_TAGS",
+    "Down", "Up", "UNet", "TopKMemory", "EncQuanDecTopK",
+    "EncQuanDecResTopK", "UNetMemStream", "UNetMemV4", "AMFTBridge",
+    "ConcatBridge", "AddBridge", "TwoStreamUNetMem", "VQMemory", "VQVAE",
+    "VQVAETopK", "VQVAETopKRes", "VQVAETopKTwoStream", "bridge_only_mask",
+    "PixelDiscriminator", "FlowNetSD", "FlowNet2SD", "build_generator",
+    "build_model", "init_weights", "init_flownet_weights", "Model",
+    "NET_TAGS", "TWO_STREAM_TAGS",
 ]
 
 # runnable reference tags (the reference's net_map minus its four entries
@@ -52,6 +87,9 @@ NET_TAGS = (
     "twostream_concat_dire",
     "vqvae", "vqvae_topk", "vqvae_topk_res", "vqvae_twostream",
 )
+# the tags whose generator takes an rgb and an op clip
+TWO_STREAM_TAGS = ("unet_vq_twostream", "twostream_concat_dire",
+                   "vqvae_twostream")
 
 
 def _single(cfg: NetConfig, channels: Tuple[int, int]) -> int:
@@ -64,15 +102,20 @@ def build_generator(cfg: NetConfig, per_sample_diff: bool = False
                     ) -> nn.Module:
     """net_tag -> constructed generator (reference net_map dispatch).
 
-    ``per_sample_diff=True`` makes the memory blocks emit per-frame commit
-    distances (for the scorer) instead of batch-mean scalars.
+    ``per_sample_diff=True`` makes the UNet family's memory blocks emit
+    per-frame commit distances (for the scorer) instead of batch-mean
+    scalars; the VQ-VAE nets have none, as in the JAX package.
     """
     tag = cfg.net_tag
+    dtype = getattr(torch, cfg.dtype)
+    in_ch, out_ch = _single(cfg, cfg.in_channel), _single(cfg, cfg.out_channel)
+    vq = dict(embed_dim=cfg.embed_dim, n_embed=cfg.n_embed, k=cfg.k,
+              use_kernel=cfg.use_memory_kernel, dtype=dtype)
+    if tag == "unet":
+        return UNet(in_ch, out_ch, dtype=dtype)
     if tag == "unet_vq_topk_res":
-        return UNetMemStream(
-            _single(cfg, cfg.in_channel), _single(cfg, cfg.out_channel),
-            cfg.embed_dim, cfg.n_embed, cfg.k, cfg.use_memory_kernel,
-            per_sample_diff, dtype=getattr(torch, cfg.dtype))
+        return UNetMemStream(in_ch, out_ch, per_sample_diff=per_sample_diff,
+                             **vq)
     if tag in ("unet_vq", "unet_vq_res", "unet_vq_topk",
                "twostream_add_dire"):
         # UNetMem_v1/v2/v3 and twostream_add_dire are non-runnable in the
@@ -80,17 +123,20 @@ def build_generator(cfg: NetConfig, per_sample_diff: bool = False
         # unet.py:1125) — fail loudly rather than guess semantics
         raise ValueError(
             f"net_tag {tag!r} maps to a non-runnable reference class; "
-            "use unet_vq_topk_res / unet_vq_twostream")
+            "use unet_vq_topk_res / unet_vq_twostream (or UNetMemV4 / the "
+            "bridge_kind ablations programmatically)")
+    two = dict(rgb_in=cfg.in_channel[0], op_in=cfg.in_channel[1],
+               rgb_out=cfg.out_channel[0], op_out=cfg.out_channel[1], **vq)
     if tag in ("unet_vq_twostream", "twostream_concat_dire"):
-        return TwoStreamUNetMem(
-            rgb_in=cfg.in_channel[0], op_in=cfg.in_channel[1],
-            rgb_out=cfg.out_channel[0], op_out=cfg.out_channel[1],
-            embed_dim=cfg.embed_dim, n_embed=cfg.n_embed, k=cfg.k,
-            dtype=getattr(torch, cfg.dtype), use_kernel=cfg.use_memory_kernel,
-            per_sample_diff=per_sample_diff)
-    if tag in NET_TAGS:
-        raise NotImplementedError(
-            f"net_tag {tag!r} comes with the model-family slice of the port")
+        return TwoStreamUNetMem(per_sample_diff=per_sample_diff, **two)
+    if tag == "vqvae":
+        return VQVAE(in_ch, out_ch, **vq)
+    if tag == "vqvae_topk":
+        return VQVAETopK(in_ch, out_ch, **vq)
+    if tag == "vqvae_topk_res":
+        return VQVAETopKRes(in_ch, out_ch, **vq)
+    if tag == "vqvae_twostream":
+        return VQVAETopKTwoStream(**two)
     raise ValueError(f"unknown net_tag {tag!r}")
 
 
@@ -144,17 +190,16 @@ class Model:
 def build_model(cfg: NetConfig, mode: str = "testing",
                 per_sample_diff: bool = False, with_flow: bool = True
                 ) -> Model:
-    """The generator, and in training mode the discriminator (on the RGB
-    prediction, or on a single-stream net's own c channels) and, with
-    ``with_flow`` (the loss tags with a flow term), the FlowNet2-SD
-    teacher."""
+    """The generator, and in training mode the discriminator (on the
+    two-stream net's RGB prediction, or on a single-stream net's own
+    channels) and, with ``with_flow`` (the loss tags with a flow term), the
+    FlowNet2-SD teacher."""
     gen = build_generator(cfg, per_sample_diff)
     if mode != "training":
         return Model(generator=gen)
     dtype = getattr(torch, cfg.dtype)
-    d_in = 3
-    if cfg.net_tag == "unet_vq_topk_res":
-        d_in = _single(cfg, cfg.out_channel)
+    d_in = (cfg.out_channel[0] if cfg.net_tag in TWO_STREAM_TAGS
+            else _single(cfg, cfg.out_channel))
     return Model(generator=gen,
                  discriminator=PixelDiscriminator(DISC_FILTERS, d_in,
                                                   dtype=dtype),

@@ -1,9 +1,9 @@
 """UNet building blocks (NCHW).
 
 Port of ``ammcnet_aaai2021_tpu/models/blocks.py`` (reference
-``Code/models/unet.py:8-59``: double_conv / inconv / down / up).  Parameters
-stay float32; the convolutions run in the dtype of their input, as the JAX
-modules run in their ``dtype`` with float32 params.  BatchNorm (eps 1e-5)
+``Code/models/unet.py:8-84``: double_conv / inconv / down / up / UNet).
+Parameters stay float32; the convolutions run in the dtype of their input,
+as the JAX modules run in their ``dtype`` with float32 params.  BatchNorm (eps 1e-5)
 keeps its statistics in float32.
 
 BatchNorm in training mode follows flax, not ``torch.nn.BatchNorm2d``
@@ -201,3 +201,33 @@ class Up(nn.Module):
         if dh or dw:
             x1 = F.pad(x1, (dw // 2, dw - dw // 2, dh // 2, dh - dh // 2))
         return self.conv(torch.cat([x2, x1], dim=1))
+
+
+class UNet(nn.Module):
+    """Plain 4-level UNet with a tanh output (reference UNet, unet.py:61-84;
+    the ``unet`` tag).  Its forward casts the input to ``dtype`` (when
+    given) and returns the float32 tanh frame."""
+
+    def __init__(self, in_channels: int, out_channels: int = 3,
+                 dtype: Optional[torch.dtype] = None):
+        super().__init__()
+        self.dtype = dtype
+        self.inc = InConv(in_channels, 64)
+        self.down1 = Down(64, 128)
+        self.down2 = Down(128, 256)
+        self.down3 = Down(256, 512)
+        self.up1 = Up(512, 256)
+        self.up2 = Up(256, 128)
+        self.up3 = Up(128, 64)
+        self.outc = Conv2d(64, out_channels, 3, padding=1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.dtype is not None:
+            x = x.to(self.dtype)
+        x1 = self.inc(x)
+        x2 = self.down1(x1)
+        x3 = self.down2(x2)
+        y = self.up1(self.down3(x3), x3)
+        y = self.up2(y, x2)
+        y = self.up3(y, x1)
+        return torch.tanh(self.outc(y).float())

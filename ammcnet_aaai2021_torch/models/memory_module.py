@@ -26,19 +26,23 @@ from .blocks import Conv2d, is_recomputing, write_buffers
 
 
 class TopKMemory(nn.Module):
-    """The quantizer (reference Quantize_topk, unet.py:267-313).  Takes and
-    returns NCHW; the op itself runs channel-last.  In training mode the
-    lookup reads the codebook as it was before the forward, and the EMA
-    update is then written into the buffers under ``no_grad``."""
+    """The quantizer (reference Quantize_topk, unet.py:267-313; with
+    ``st_mode="topk"`` the VQ-VAE family's, vqvae.py:283-319, see
+    :func:`~..ops.memory.quantize_topk`).  Takes and returns NCHW; the op
+    itself runs channel-last.  In training mode the lookup reads the
+    codebook as it was before the forward, and the EMA update is then
+    written into the buffers under ``no_grad``."""
 
     def __init__(self, embed_dim: int, n_embed: int, k: int = 1,
                  use_kernel: bool = False, per_sample_diff: bool = False,
-                 decay: float = 0.99, eps: float = 1e-5):
+                 decay: float = 0.99, eps: float = 1e-5,
+                 st_mode: str = "top1"):
         super().__init__()
         self.embed_dim, self.n_embed, self.k = embed_dim, n_embed, k
         self.decay, self.eps = decay, eps
         self.use_kernel = use_kernel
         self.per_sample_diff = per_sample_diff
+        self.st_mode = st_mode
         embed = torch.randn(embed_dim, n_embed)
         self.register_buffer("embed", embed)
         self.register_buffer("cluster_size", torch.zeros(n_embed))
@@ -53,7 +57,7 @@ class TopKMemory(nn.Module):
         q_topk, diff, q_st, new_cb = quantize_topk(
             z.permute(0, 2, 3, 1), cb, self.k, train=update,
             decay=self.decay, eps=self.eps, use_kernel=self.use_kernel,
-            per_sample=self.per_sample_diff)
+            st_mode=self.st_mode, per_sample=self.per_sample_diff)
         if update:
             write_buffers(((self.embed, new_cb.embed),
                            (self.cluster_size, new_cb.cluster_size),

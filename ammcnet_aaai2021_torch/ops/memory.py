@@ -11,8 +11,11 @@ the commit distance ``mean((sg[q] - z)^2)``.  Layout is the JAX package's:
 The lookup carries no gradient (indices are integers, the codebook is a
 buffer); the encoder's only gradient from this op is the commit distance's.
 The EMA statistics of a training lookup come from kernel B2
-(:func:`~.memory_kernels.quantize_topk_train_fused`) where the JAX package
-takes its Pallas training kernel, else from :func:`ema_update`.
+(:func:`~.memory_kernels.quantize_topk_train_fused`) in either
+straight-through mode, else from :func:`ema_update`.  The JAX package takes
+its Pallas training kernel in ``"top1"`` mode only, because ``pallas_call``
+has no VJP; in ``"topk"`` mode every use of the lookup's output is detached
+too, so the function is the same and no gradient reaches the kernel.
 """
 
 from __future__ import annotations
@@ -108,11 +111,10 @@ def quantize_topk(
       train: also return the EMA-updated codebook (reference gates on
         ``self.training``); the lookup reads the codebook as given.
       decay, eps: the EMA decay and the Laplace smoothing.
-      use_kernel: fuse the lookup into a CUDA kernel where the JAX package
-        takes its Pallas kernel: B2
+      use_kernel: fuse the lookup into a CUDA kernel: B2
         (:func:`~.memory_kernels.quantize_topk_train_fused`, which also
-        returns the EMA statistics) when ``train and st_mode == "top1"``, B1
-        (:func:`~.memory_kernels.quantize_topk_fused`) when not ``train``.
+        returns the EMA statistics) when ``train``, B1
+        (:func:`~.memory_kernels.quantize_topk_fused`) when not.
       st_mode: ``"top1"`` (``Code/models/unet.py:282-313``): the gather is a
         pure lookup and the commit distance is against the top-1 codeword.
         ``"topk"`` (``Code/models/vqvae.py:283-319``): the input is tiled k
@@ -138,7 +140,7 @@ def quantize_topk(
     flat_ng = flat.detach()
 
     ema_stats = None
-    if use_kernel and train and st_mode == "top1":
+    if use_kernel and train:
         q_topk_flat, q1_flat, top1_idx, counts, embed_sum = (
             quantize_topk_train_fused(flat_ng.contiguous(), codebook.embed, k))
         ema_stats = (counts, embed_sum)

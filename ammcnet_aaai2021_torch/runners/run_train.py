@@ -128,15 +128,24 @@ def parser_args(argv=None):
     return p.parse_args(argv)
 
 
-# the reference's two-stream generators (the last comes with the
-# model-family slice of the port)
-TWO_STREAM_TAGS = ("unet_vq_twostream", "twostream_concat_dire",
-                   "vqvae_twostream")
+# the two-stream generators stage 2 trains
+TWO_STREAM_TAGS = ("unet_vq_twostream", "twostream_concat_dire")
+# the generators a train step takes: the JAX package's steps unpack the
+# released generators' outputs (its train/steps.py:123 and :195)
+TRAINABLE_TAGS = ("unet_vq_topk_res",) + TWO_STREAM_TAGS
 
 
 def _check_args(args) -> None:
-    """Raise for what the port does not run: a generator that does not fit
-    the stage, and stage 1 on framepack."""
+    """Raise for what the port does not run: a generator no train step
+    takes, a generator that does not fit the stage, and stage 1 on
+    framepack."""
+    if args.net_tag not in TRAINABLE_TAGS:
+        raise ValueError(
+            f"--net_tag {args.net_tag}: no training path. The train steps "
+            "unpack the released generators' outputs (the JAX package's "
+            "train/steps.py:123 and :195), which only "
+            f"{', '.join(TRAINABLE_TAGS)} give; the JAX package trains no "
+            "other tag either")
     two_stream = args.data_type == "rgb_op"
     if two_stream != (args.net_tag in TWO_STREAM_TAGS):
         raise ValueError(

@@ -282,18 +282,22 @@ def generator_variables(tree: Dict) -> Dict:
 
 
 def generator_state_dict(variables: Dict) -> Dict[str, torch.Tensor]:
-    """Generator variables -> the port's state dict: the two-stream
-    generator's (``rgb``/``op``/``bridge``) or the stage-1 stream's
-    (``inc``/``down1``/...), told apart by the top-level params."""
-    from .weights import single_stream_state_from_jax, state_dict_from_jax
+    """Generator variables -> the port's state dict: a two-stream
+    generator's (``rgb``/``op``), a single-stream UNet's
+    (``inc``/``down1``/...) or a VQ-VAE net's (``enc_b``, or ``enc_b_1``
+    for the two-stream one), told apart by the top-level params."""
+    from .weights import (single_stream_state_from_jax, state_dict_from_jax,
+                          vqvae_state_from_jax)
 
     top = set(variables["params"])
-    if {"rgb", "op", "bridge"} <= top:
+    if {"rgb", "op"} <= top:
         return state_dict_from_jax(variables)
-    if {"inc", "vq_down3", "outc"} <= top:
+    if {"inc", "outc"} <= top:
         return single_stream_state_from_jax(variables)
+    if "enc_b" in top or "enc_b_1" in top:
+        return vqvae_state_from_jax(variables)
     raise ValueError(f"generator params with top-level keys {sorted(top)}: "
-                     "neither the two-stream nor the stage-1 generator")
+                     "no generator of the port")
 
 
 def net_config_of(variables: Dict):

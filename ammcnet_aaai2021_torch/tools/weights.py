@@ -18,11 +18,17 @@ directory needs tensorstore).
 ``tools/torch_convert.convert_twostream``: it takes the flax
 ``{'params', 'batch_stats', 'codebook'}`` tree of the two-stream generator
 (numpy arrays) and returns a state dict with the reference torch names,
-which :class:`~..models.TwoStreamUNetMem` loads with ``load_state_dict``;
-:func:`single_stream_state_from_jax` inverts ``convert_unetmem_stream`` for
-the stage-1 generator (the same stream's names without the ``rgb.`` /
-``op.`` prefix).  A stage-1 ``.pth`` in those names loads as it is
-(:func:`load_generator_checkpoint`), and ``run_train --pretrain`` grafts it.
+which :class:`~..models.TwoStreamUNetMem` loads with ``load_state_dict``,
+for each ``bridge_kind`` (``bridge.dec`` of the concat bridge, no entry for
+the add bridge); :func:`single_stream_state_from_jax` inverts
+``convert_unetmem_stream`` for the stage-1 generator (the same stream's
+names without the ``rgb.`` / ``op.`` prefix), and takes the other nets of
+that trunk too: the plain ``UNet`` (no memory), ``UNetMemV4`` (``vq_down2``
+and ``vq_down3``) and ``UNetMemStream(residual_memory=False)`` (the block's
+``enc`` / ``quantize`` / ``dec`` without ``quan``).  A stage-1 ``.pth`` in
+those names loads as it is (:func:`load_generator_checkpoint`), and
+``run_train --pretrain`` grafts it.  :func:`vqvae_state_from_jax` carries
+the VQ-VAE nets across, whose port keeps the flax module names.
 
 ==============================================  ================================
 flax path                                       torch key
@@ -97,24 +103,30 @@ def up_state(prefix: str, params: Mapping, stats: Mapping) -> StateDict:
 
 
 def memory_state(prefix: str, params: Mapping, codebook: Mapping) -> StateDict:
-    """A flax EncQuanDecResTopK (``quan/{enc,quantize,dec}``)."""
-    quan = params["quan"]
-    cb = codebook["quan"]["quantize"]
-    out = {**conv_state(f"{prefix}.quan.enc", quan["enc"]),
-           **conv_state(f"{prefix}.quan.dec", quan["dec"])}
+    """A flax EncQuanDecResTopK (``quan/{enc,quantize,dec}``), or an
+    EncQuanDecTopK (``{enc,quantize,dec}``, no ``quan``)."""
+    if "quan" in params:
+        return memory_state(f"{prefix}.quan", params["quan"],
+                            codebook["quan"])
+    cb = codebook["quantize"]
+    out = {**conv_state(f"{prefix}.enc", params["enc"]),
+           **conv_state(f"{prefix}.dec", params["dec"])}
     for leaf in ("embed", "cluster_size", "embed_avg"):
-        out[f"{prefix}.quan.quantize.{leaf}"] = _t(cb[leaf])
+        out[f"{prefix}.quantize.{leaf}"] = _t(cb[leaf])
     return out
 
 
 def stream_state(prefix: str, params: Mapping, stats: Mapping,
                  codebook: Mapping) -> StateDict:
-    """A flax UNetMemStream -> ``<prefix>.{inc,down*,vq_down3,up*,outc}.*``."""
+    """A flax UNetMemStream, UNetMemV4 or UNet ->
+    ``<prefix>.{inc,down*,vq_down*,up*,outc}.*``."""
     out = double_conv_state(f"{prefix}.inc.conv", params["inc"], stats["inc"])
     for name in ("down1", "down2", "down3"):
         out.update(down_state(f"{prefix}.{name}", params[name], stats[name]))
-    out.update(memory_state(f"{prefix}.vq_down3", params["vq_down3"],
-                            codebook["vq_down3"]))
+    for name in ("vq_down2", "vq_down3"):
+        if name in params:
+            out.update(memory_state(f"{prefix}.{name}", params[name],
+                                    codebook[name]))
     for name in ("up1", "up2", "up3"):
         out.update(up_state(f"{prefix}.{name}", params[name], stats[name]))
     out.update(conv_state(f"{prefix}.outc", params["outc"]))
@@ -122,27 +134,62 @@ def stream_state(prefix: str, params: Mapping, stats: Mapping,
 
 
 def state_dict_from_jax(variables: Mapping) -> StateDict:
-    """The JAX two-stream generator's variables -> the port's state dict."""
+    """The JAX two-stream generator's variables -> the port's state dict
+    (its bridge told apart by its params: AMFT's ``O2F``/``F2O``, the
+    concat bridge's ``dec``, none for the add bridge)."""
     params, stats = variables["params"], variables["batch_stats"]
     codebook = variables["codebook"]
     out: StateDict = {}
     for s in ("rgb", "op"):
         out.update(stream_state(s, params[s], stats[s], codebook[s]))
-    for flax_name, torch_name in (("O2F", "O2F"), ("F2O", "F20")):
-        out.update(double_conv_state(f"bridge.{torch_name}",
-                                     params["bridge"][flax_name],
-                                     stats["bridge"][flax_name]))
+    bridge = params.get("bridge", {})
+    if "dec" in bridge:
+        out.update(conv_state("bridge.dec", bridge["dec"]))
+    elif bridge:
+        for flax_name, torch_name in (("O2F", "O2F"), ("F2O", "F20")):
+            out.update(double_conv_state(f"bridge.{torch_name}",
+                                         bridge[flax_name],
+                                         stats["bridge"][flax_name]))
     return out
 
 
 def single_stream_state_from_jax(variables: Mapping) -> StateDict:
     """The JAX stage-1 generator's variables (``UNetMemStream``, tag
-    ``unet_vq_topk_res``) -> the port's :class:`~..models.UNetMemStream`
-    state dict: one stream's entries without a prefix, the inverse of the
-    JAX package's ``convert_unetmem_stream``."""
+    ``unet_vq_topk_res``; or ``UNetMemV4``, or the plain ``UNet``, tag
+    ``unet``) -> the port's module's state dict: one stream's entries
+    without a prefix, the inverse of the JAX package's
+    ``convert_unetmem_stream``."""
     sd = stream_state("s", variables["params"], variables["batch_stats"],
-                      variables["codebook"])
+                      variables.get("codebook", {}))
     return {k[len("s."):]: v for k, v in sd.items()}
+
+
+def _leaves(tree: Mapping, path=()):
+    for key, val in tree.items():
+        if isinstance(val, Mapping):
+            yield from _leaves(val, path + (key,))
+        else:
+            yield path + (key,), val
+
+
+def vqvae_state_from_jax(variables: Mapping) -> StateDict:
+    """The JAX VQ-VAE nets' variables (tags ``vqvae``, ``vqvae_topk``,
+    ``vqvae_topk_res``, ``vqvae_twostream``) -> the port's state dict.  The
+    port keeps the flax names, so ``params/<path>/{kernel,bias}`` becomes
+    ``<path>.{weight,bias}`` (kernels transposed, [T] above) and a memory's
+    ``codebook/<path>/<leaf>`` becomes ``<path>.quantize.<leaf>``.  Applied
+    to a gradient tree (``{"params": grads}``) it names the gradients as
+    the port's parameters."""
+    out: StateDict = {}
+    for path, leaf in _leaves(variables["params"]):
+        name = ".".join(path[:-1])
+        if path[-1] == "kernel":
+            out[f"{name}.weight"] = _kernel(leaf)
+        else:
+            out[f"{name}.{path[-1]}"] = _t(leaf)
+    for path, leaf in _leaves(variables.get("codebook", {})):
+        out[".".join(path[:-1] + ("quantize", path[-1]))] = _t(leaf)
+    return out
 
 
 def discriminator_state_from_jax(params: Mapping) -> StateDict:

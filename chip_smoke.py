@@ -59,7 +59,19 @@ Phases, one JSON line each; any failure exits non-zero:
    ``remat_check``: one bf16 step at full width with ``remat=False`` and
    ``remat=True`` from one state and batch (g_loss, parameters, buffers
    bitwise; B2 and B1 launches a step), then 10 steps of each timed, with
-   the peak memory allocated;
+   the peak memory allocated; then ``family_path``: the model family at
+   full width (NetConfig's widths, batch 8, 256x256, seeded weights): the
+   tags ``unet``, ``vqvae``, ``vqvae_topk``, ``vqvae_topk_res`` and
+   ``vqvae_twostream``, ``UNetMemV4`` and the two-stream generator with
+   the concat and add bridges, each in a bf16 eval forward through the
+   kernels and through plain PyTorch (indices under the near-tie rule,
+   then the outputs of the samples without a flip), a float32 train-mode
+   forward and backward through B2's CUDA-core route and through plain
+   PyTorch (loss, every gradient, every buffer within ``MODEL_TOL``) and
+   a bf16 one counted (B2 once a memory, tensor-core route); then
+   ``tools.summarize`` for every tag (totals pinned by the CPU tests),
+   and B1 and B2 at the VQ-VAE nets' lookup sizes (N = 8,192 and 32,768,
+   bf16, k 1 and 2) against their plain versions, timed;
 7. training path: ``runners.run_train.main`` trains the released
    configuration (bf16, batch 4, 256x256) for 30 steps on a numpy training
    tree, then resumes from its step-30 checkpoint to step 40; checks the
@@ -622,12 +634,15 @@ def kernel_phase(torch, mk) -> dict:
     return out
 
 
-def generator_lookups(torch, net, rgb, op):
+def generator_lookups(torch, net, *inputs):
     """One inference forward of the generator, and for each memory (in
     forward order) its latents (N, dim), its output codewords' indices
-    (N, k) and its codebook.  A memory outputs its chosen codewords cast to
-    the latents' type, so each index is the codeword that output equals
-    exactly."""
+    (N, k) and its codebook.  A ``"top1"`` memory outputs its chosen
+    codewords cast to the latents' type, so each index is the codeword
+    that output equals exactly; a ``"topk"`` memory (the VQ-VAE nets')
+    outputs ``z + (q - z)`` in float32 cast to that type, so each output
+    block lies within two of the type's epsilons (relative) of its
+    codeword."""
     from ammcnet_aaai2021_torch.models import TopKMemory
 
     seen = []
@@ -636,7 +651,7 @@ def generator_lookups(torch, net, rgb, op):
         for m in net.modules() if isinstance(m, TopKMemory)]
     try:
         with torch.inference_mode():
-            outs = net(rgb, op)
+            outs = net(*inputs)
     finally:
         for h in hooks:
             h.remove()
@@ -646,14 +661,17 @@ def generator_lookups(torch, net, rgb, op):
         zf = z.permute(0, 2, 3, 1).reshape(-1, dim)
         qf = q.permute(0, 2, 3, 1).reshape(-1, k * dim).double()
         words = mod.embed.t().to(z.dtype).double()
+        slack = 0.0 if mod.st_mode == "top1" else 2 * torch.finfo(z.dtype).eps
         idx = []
         for j in range(k):
+            block = qf[:, j * dim:(j + 1) * dim]
             # differences, not the expanded quadratic form: exactly 0 at a
             # match
-            dist = torch.cdist(qf[:, j * dim:(j + 1) * dim], words,
+            dist = torch.cdist(block, words,
                                compute_mode="donot_use_mm_for_euclid_dist")
-            gap, i = dist.min(dim=1)
-            if bool((gap != 0).any()):
+            i = dist.argmin(dim=1)
+            if bool(((block - words[i]).abs()
+                     > slack * words[i].abs()).any()):
                 fail("a memory output that is not one of its codewords")
             idx.append(i)
         lookups.append({"z": zf, "idx": torch.stack(idx, 1),
@@ -662,13 +680,63 @@ def generator_lookups(torch, net, rgb, op):
     return outs, lookups
 
 
+def output_tensors(out) -> list:
+    """A generator's outputs (a tensor or nested tuples), flattened."""
+    if not isinstance(out, (tuple, list)):
+        return [out]
+    return [t for item in out for t in output_tensors(item)]
+
+
+def compare_lookup_runs(torch, what: str, runs, batch: int) -> dict:
+    """Two runs ``(outputs, lookups)`` of one generator on one input, the
+    first through the kernels and the second through plain PyTorch.  The
+    lookups' indices first: a flip fails unless it is a near-tie.  The
+    samples whose indices all agree feed the same codewords to the same
+    convolutions, so their outputs agree to ``MODEL_TOL`` (a batch-mean
+    output only when no sample flipped)."""
+    (outs_k, look_k), (outs_p, look_p) = runs
+    flipped, flips, worst_gap, z_diff = set(), [], 0.0, 0.0
+    for lk, lp in zip(look_k, look_p):
+        z_diff = max(z_diff, float((lk["z"].float()
+                                    - lp["z"].float()).abs().max()))
+        rows = (lk["idx"] != lp["idx"]).any(1)
+        flips.append(int(rows.sum()))
+        if not rows.any():
+            continue
+        z64 = lk["z"][rows].double()
+        e64 = lk["embed"].double().t()
+        dk = (z64[:, None] - e64[lk["idx"][rows]]).square().sum(-1)
+        dp = (z64[:, None] - e64[lp["idx"][rows]]).square().sum(-1)
+        rel = (dk - dp).abs() / torch.maximum(dk, dp).clamp_min(1e-300)
+        worst_gap = max(worst_gap, float(rel.max()))
+        if worst_gap >= NEAR_TIE_REL:
+            fail(f"{what}: the kernel and plain lookups pick codewords "
+                 f"whose float64 distances differ by {worst_gap:.3g} "
+                 f"relative (>= {NEAR_TIE_REL})")
+        flipped |= set((rows.nonzero()[:, 0] // lk["rows_per_sample"])
+                       .tolist())
+    same = [b for b in range(batch) if b not in flipped]
+    pairs = [(a, b) for a, b in zip(output_tensors(outs_k),
+                                    output_tensors(outs_p))
+             if a.ndim > 0 or not flipped]
+    err = max((float((a[same].float() - b[same].float()).abs().max())
+               if a.ndim > 0 else float((a.float() - b.float()).abs())
+               for a, b in pairs), default=0.0)
+    if err > MODEL_TOL:
+        fail(f"{what}: kernel route and plain route differ by {err} "
+             f"(> {MODEL_TOL}) on samples without a flipped index")
+    return {"flips_per_memory": flips, "flip_max_rel_gap": worst_gap,
+            "samples_compared": len(same), "latents_max_abs_diff": z_diff,
+            "codewords_used_per_memory": [
+                int(lk["idx"][:, 0].unique().numel()) for lk in look_k],
+            "max_abs_err": err, "tol": MODEL_TOL}
+
+
 def model_phase(torch, mk) -> None:
     """The released generator on a small input at 256x256, its memory
     lookups in the kernel and in plain PyTorch (``use_memory_kernel=False``),
-    in float32 (TF32 off) and in the main path's bfloat16.  The lookups'
-    indices are compared first: a flip fails unless it is a near-tie.  The
-    samples whose indices all agree feed the same codewords to the same
-    convolutions, so their outputs agree to ``MODEL_TOL``."""
+    in float32 (TF32 off) and in the main path's bfloat16, held by
+    :func:`compare_lookup_runs`."""
     import dataclasses
 
     from ammcnet_aaai2021_torch.configs import NetConfig
@@ -690,45 +758,16 @@ def model_phase(torch, mk) -> None:
                                torch.Generator().manual_seed(20200525))
             net = net.to("cuda").eval()
             before = mk.quantize_topk_fused.launches_by_route[route]
-            (rgb_pred, op_pred, diffs, codes), lookups = generator_lookups(
-                torch, net, rgb, op)
+            outs, lookups = generator_lookups(torch, net, rgb, op)
             torch.cuda.synchronize()
             launched = mk.quantize_topk_fused.launches_by_route[route] - before
             if launched != (2 if use_kernel else 0):
                 fail(f"{dtype} generator (use_memory_kernel={use_kernel}) "
                      f"launched B1's {route} route {launched} times")
-            runs.append(([rgb_pred, op_pred, *diffs, *codes], lookups))
-        (outs_k, look_k), (outs_p, look_p) = runs
-        flipped, flips, worst_gap, z_diff = set(), [], 0.0, 0.0
-        for lk, lp in zip(look_k, look_p):
-            z_diff = max(z_diff, float((lk["z"].float()
-                                        - lp["z"].float()).abs().max()))
-            rows = (lk["idx"] != lp["idx"]).any(1)
-            flips.append(int(rows.sum()))
-            if not rows.any():
-                continue
-            z64 = lk["z"][rows].double()
-            e64 = lk["embed"].double().t()
-            dk = (z64[:, None] - e64[lk["idx"][rows]]).square().sum(-1)
-            dp = (z64[:, None] - e64[lp["idx"][rows]]).square().sum(-1)
-            rel = (dk - dp).abs() / torch.maximum(dk, dp).clamp_min(1e-300)
-            worst_gap = max(worst_gap, float(rel.max()))
-            if worst_gap >= NEAR_TIE_REL:
-                fail(f"{dtype} generator: the kernel and plain lookups pick "
-                     f"codewords whose float64 distances differ by "
-                     f"{worst_gap:.3g} relative (>= {NEAR_TIE_REL})")
-            flipped |= set((rows.nonzero()[:, 0] // lk["rows_per_sample"])
-                           .tolist())
-        same = [b for b in range(batch) if b not in flipped]
-        err = max((float((a[same].float() - b[same].float()).abs().max())
-                   for a, b in zip(outs_k, outs_p)), default=0.0)
-        if err > MODEL_TOL:
-            fail(f"{dtype} generator: kernel route and plain route differ by "
-                 f"{err} (> {MODEL_TOL}) on samples without a flipped index")
+            runs.append((outs, lookups))
+        res = compare_lookup_runs(torch, f"{dtype} generator", runs, batch)
         emit("model_check", dtype=dtype, route=route, batch=batch,
-             image_size=IMAGE_SIZE, flips_per_memory=flips,
-             flip_max_rel_gap=worst_gap, samples_compared=len(same),
-             latents_max_abs_diff=z_diff, max_abs_err=err, tol=MODEL_TOL)
+             image_size=IMAGE_SIZE, **res)
 
 
 def write_ped2_tree(root: str, lengths) -> None:
@@ -1871,6 +1910,285 @@ def remat_check_phase(torch, mk) -> dict:
     return out
 
 
+# the family path: the tags it builds with build_generator (the rest of
+# its models are UNetMemV4 and the two ablation bridges), its batch, and
+# the VQ-VAE nets' lookup sizes, timed: the top level's 8 * 32 * 32 rows
+# and the bottom level's 8 * 64 * 64
+FAMILY_TAGS = ("unet", "vqvae", "vqvae_topk", "vqvae_topk_res",
+               "vqvae_twostream")
+FAMILY_BATCH = 8
+FAMILY_LOOKUP_ROWS = (FAMILY_BATCH * 32 * 32, FAMILY_BATCH * 64 * 64)
+# tools.summarize's parameter total for each tag (64x64, NetConfig's
+# widths), pinned against the JAX package by tests/test_torch_family.py
+SUMMARIZE_TOTALS = {
+    "unet": 7_707_011, "unet_vq_topk_res": 7_805_891,
+    "unet_vq_twostream": 25_049_029, "twostream_concat_dire": 25_049_029,
+    "vqvae": 1_398_083, "vqvae_topk": 1_414_595,
+    "vqvae_topk_res": 1_435_203, "vqvae_twostream": 3_019_397,
+}
+
+
+def family_models(torch, dtype: str, use_kernel: bool):
+    """``(name, seeded generator on the card, two_stream)`` for each model
+    of the family path, at full width (NetConfig's: embed 64, n_embed 256,
+    k 2), each built anew from the same seed."""
+    import dataclasses
+
+    from ammcnet_aaai2021_torch.configs import NetConfig
+    from ammcnet_aaai2021_torch.models import (
+        TwoStreamUNetMem, UNetMemV4, build_generator, init_weights)
+
+    cfg = NetConfig(dtype=dtype, use_memory_kernel=use_kernel)
+    dt = getattr(torch, dtype)
+    nets = [(tag, lambda tag=tag: build_generator(
+        dataclasses.replace(cfg, net_tag=tag))) for tag in FAMILY_TAGS]
+    nets.append(("UNetMemV4", lambda: UNetMemV4(
+        12, 3, cfg.embed_dim, cfg.n_embed, cfg.k, use_kernel, dtype=dt)))
+    for kind in ("concat_dire", "add_dire"):
+        nets.append((f"TwoStreamUNetMem[{kind}]", lambda kind=kind:
+                     TwoStreamUNetMem(12, 6, 3, 2, cfg.embed_dim,
+                                      cfg.n_embed, cfg.k, dt, use_kernel,
+                                      bridge_kind=kind)))
+    for name, build in nets:
+        net = init_weights(build(), torch.Generator().manual_seed(20200525))
+        yield name, net.to("cuda"), "TwoStream" in type(net).__name__
+
+
+def family_loss(out):
+    """``mean(prediction) + diff``: the mean of each image output that is
+    a prediction (not a code) plus each commit distance."""
+    preds, diffs = [], []
+    for t in output_tensors(out):
+        if t.ndim == 0:
+            diffs.append(t)
+        elif t.shape[1] <= 3:  # predictions have 2 or 3 channels, codes 64
+            preds.append(t)
+    return sum(t.float().mean() for t in preds) + sum(diffs)
+
+
+def ema_bounds(torch, net, forward):
+    """Run ``forward()`` (a train-mode forward of ``net``) with each
+    memory's latents and codebook captured, and return its result and, for
+    each memory's ``embed_avg`` and ``embed`` buffer, the most two float32
+    EMA updates of it may differ by, elementwise: each side's ``embed_sum`` within
+    ``ESUM_REL`` of the magnitude summed into the entry (the rows whose
+    float64 top-1 is its codeword), times ``1 - decay``, plus two
+    roundings of the result; ``embed`` that over the smoothed cluster
+    size."""
+    from ammcnet_aaai2021_torch.models import TopKMemory
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, inp: seen.append((mod, inp[0].detach(),
+                                      mod.embed.clone())))
+        for m in net.modules() if isinstance(m, TopKMemory)]
+    try:
+        result = forward()
+    finally:
+        for h in hooks:
+            h.remove()
+    names = {m: n for n, m in net.named_modules()}
+    eps32 = torch.finfo(torch.float32).eps
+    bounds = {}
+    for mod, z, embed in seen:
+        zf = z.permute(0, 2, 3, 1).reshape(-1, mod.embed_dim).double()
+        e = embed.double()
+        idx = (-2.0 * zf @ e + (e * e).sum(0)).argmin(1)
+        mag = zf.abs().t() @ torch.nn.functional.one_hot(
+            idx, mod.n_embed).double()
+        cs = mod.cluster_size.double()
+        n = cs.sum()
+        smoothed = (cs + mod.eps) / (n + mod.n_embed * mod.eps) * n
+        avg = ((1 - mod.decay) * 2 * ESUM_REL * mag
+               + 2 * eps32 * mod.embed_avg.double().abs())
+        bounds[f"{names[mod]}.embed_avg"] = avg
+        bounds[f"{names[mod]}.embed"] = (
+            avg / smoothed + 2 * eps32 * mod.embed.double().abs())
+    return result, bounds
+
+
+def family_path_phase(torch, mk) -> dict:
+    """The model family at full width on a batch of 8 at 256x256 (TF32 off,
+    cuDNN deterministic, as the caller sets): for each model,
+
+    1. a bf16 eval forward through the kernels and through plain PyTorch
+       (``use_memory_kernel=False``), held by :func:`compare_lookup_runs`,
+       B1 launched once a memory, on the tensor-core route;
+    2. a float32 train-mode forward and backward of ``mean(prediction) +
+       diff`` through B2 (its CUDA-core route: float32 latents) and through
+       plain PyTorch: the loss, every parameter's gradient and every buffer
+       (the EMA codebooks, BatchNorm's statistics) within ``MODEL_TOL``;
+    3. a bf16 train-mode forward and backward with every count set to 0
+       just before and read just after: B2 once a memory, all on the
+       tensor-core route, no B1;
+
+    then ``tools.summarize.main(["--net_tag", tag])`` on the card for every
+    tag, its total against ``SUMMARIZE_TOTALS``; then B1 and B2 at the
+    VQ-VAE nets' two lookup sizes, bf16, k 1 and 2, against their plain
+    versions and timed."""
+    from ammcnet_aaai2021_torch.models import NET_TAGS, TopKMemory
+    from ammcnet_aaai2021_torch.tools import summarize
+
+    g = torch.Generator(device="cuda").manual_seed(15)
+    b = FAMILY_BATCH
+    rgb = torch.rand(b, 12, IMAGE_SIZE, IMAGE_SIZE, device="cuda",
+                     generator=g) * 2 - 1
+    op = torch.randn(b, 6, IMAGE_SIZE, IMAGE_SIZE, device="cuda",
+                     generator=g) * 0.01
+    t0 = time.perf_counter()
+    out = {"models": {}, "launches_by_route": {}}
+
+    # 1. bf16 eval, kernel against plain
+    runs = {}
+    for use_kernel in (True, False):
+        for name, net, two in family_models(torch, "bfloat16", use_kernel):
+            memories = sum(isinstance(m, TopKMemory) for m in net.modules())
+            torch.cuda.synchronize()
+            reset_launches(mk)
+            res = generator_lookups(torch, net.eval(),
+                                    *((rgb, op) if two else (rgb,)))
+            torch.cuda.synchronize()
+            counts = launch_counts(mk)
+            want = {"b1": memories * use_kernel, "b2": 0}
+            for kernel, n in want.items():
+                if counts[kernel] != {r: n * (r == mk.TENSOR_CORE)
+                                      for r in mk.ROUTES}:
+                    fail(f"{name} bf16 eval (use_memory_kernel="
+                         f"{use_kernel}): {kernel} launched "
+                         f"{counts[kernel]}, want {n} on {mk.TENSOR_CORE!r}")
+            runs.setdefault(name, []).append(res)
+            out["models"].setdefault(name, {"memories": memories})
+            if use_kernel:
+                out["launches_by_route"][name] = {"eval": counts}
+            del net
+    for name, pair in runs.items():
+        out["models"][name]["eval_bf16"] = compare_lookup_runs(
+            torch, f"{name} bf16 eval", pair, b)
+    del runs, pair
+    torch.cuda.empty_cache()
+
+    # 2. float32 train-mode forward and backward, B2 (CUDA-core) vs plain
+    for (name, net_k, two), (_, net_p, _) in zip(
+            family_models(torch, "float32", True),
+            family_models(torch, "float32", False)):
+        memories = out["models"][name]["memories"]
+        got, bounds = [], {}
+        for net in (net_k, net_p):
+            def step():
+                loss = family_loss(net.train()(
+                    *((rgb, op) if two else (rgb,))))
+                loss.backward()
+                return float(loss.detach())
+            torch.cuda.synchronize()
+            reset_launches(mk)
+            if net is net_k:
+                loss, bounds = ema_bounds(torch, net, step)
+            else:
+                loss = step()
+            torch.cuda.synchronize()
+            counts = launch_counts(mk)
+            n = memories * (net is net_k)
+            if counts != {"b1": dict.fromkeys(mk.ROUTES, 0),
+                          "b2": {r: n * (r == mk.CUDA_CORE)
+                                 for r in mk.ROUTES}}:
+                fail(f"{name} float32 train forward: launched {counts}, "
+                     f"want B2 {n} times on {mk.CUDA_CORE!r}")
+            got.append((loss, {k: p.grad for k, p in net.named_parameters()},
+                        dict(net.named_buffers())))
+        (loss_k, grad_k, buf_k), (loss_p, grad_p, buf_p) = got
+        loss_err = abs(loss_k - loss_p)
+        grad_err = max((float((grad_k[k] - grad_p[k]).abs().max())
+                        for k in grad_p), default=0.0)
+        buf_err, ema_ratio = 0.0, 0.0
+        for k in buf_p:
+            diff = (buf_k[k].double() - buf_p[k].double()).abs()
+            if k in bounds:
+                ema_ratio = max(ema_ratio, float(
+                    (diff / bounds[k].clamp_min(1e-300)).max()))
+            elif k.endswith("cluster_size") and not torch.equal(
+                    buf_k[k], buf_p[k]):
+                fail(f"{name} float32 train: {k} differs (the top-1 "
+                     f"counts must be equal)")
+            else:
+                buf_err = max(buf_err, float(diff.max()))
+        if max(loss_err, grad_err, buf_err) > MODEL_TOL or ema_ratio > 1:
+            fail(f"{name} float32 train: kernel and plain differ: loss "
+                 f"{loss_err:.3g}, gradients {grad_err:.3g}, buffers "
+                 f"{buf_err:.3g} (> {MODEL_TOL}), codebooks "
+                 f"{ema_ratio:.3g} of their bound")
+        out["models"][name]["train_float32"] = {
+            "loss": loss_k, "loss_abs_err": loss_err,
+            "grad_max_abs_err": grad_err, "buffer_max_abs_err": buf_err,
+            "tol": MODEL_TOL, "codebook_err_over_bound": ema_ratio,
+            "b2_route": mk.CUDA_CORE}
+        del net_k, net_p, got, grad_k, grad_p
+        torch.cuda.empty_cache()
+
+    # 3. bf16 train-mode forward and backward: the launch counts
+    for name, net, two in family_models(torch, "bfloat16", True):
+        memories = out["models"][name]["memories"]
+        torch.cuda.synchronize()
+        reset_launches(mk)
+        loss = family_loss(net.train()(*((rgb, op) if two else (rgb,))))
+        loss.backward()
+        loss = float(loss.detach())
+        torch.cuda.synchronize()
+        counts = launch_counts(mk)
+        if not math.isfinite(loss) or counts != {
+                "b1": dict.fromkeys(mk.ROUTES, 0),
+                "b2": {r: memories * (r == mk.TENSOR_CORE)
+                       for r in mk.ROUTES}}:
+            fail(f"{name} bf16 train forward: loss {loss}, launched "
+                 f"{counts}, want B2 {memories} times on "
+                 f"{mk.TENSOR_CORE!r} and no B1")
+        out["launches_by_route"][name]["train"] = counts
+        out["models"][name]["train_bf16_loss"] = loss
+        del net, loss
+        torch.cuda.empty_cache()
+
+    # 4. tools.summarize on the card
+    out["summarize"] = {}
+    for tag in NET_TAGS:
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            total = summarize.main(["--net_tag", tag])
+        if total != SUMMARIZE_TOTALS[tag]:
+            fail(f"tools.summarize --net_tag {tag}: total {total}, want "
+                 f"{SUMMARIZE_TOTALS[tag]}")
+        out["summarize"][tag] = total
+    out["models_seconds"] = time.perf_counter() - t0
+
+    # B1 and B2 at the VQ-VAE nets' lookup sizes
+    dim, n_embed = 64, 256
+    embed = torch.randn(dim, n_embed, device="cuda", generator=g)
+    z = (torch.randn(max(FAMILY_LOOKUP_ROWS), dim, device="cuda",
+                     generator=g) * 0.5).to(torch.bfloat16)
+    tc = mk.TENSOR_CORE
+    out["kernels"] = {}
+    for n in FAMILY_LOOKUP_ROWS:
+        flat = z[:n]
+        for k in (1, 2):
+            b1 = {**public(b1_check(torch, mk, flat, embed, k, tc)),
+                  **time_pair(torch, mk.quantize_topk_fused,
+                              mk.quantize_topk_fused_ref, flat, embed, k),
+                  **lookup_bound(n, dim, n_embed, k, 2)}
+            b2 = {**public(compare_train_lookup(torch, mk, flat, embed, k,
+                                                tc)),
+                  **time_pair(torch, train_on(mk, tc),
+                              mk.quantize_topk_train_fused_ref, flat, embed,
+                              k),
+                  **train_lookup_bound(n, dim, n_embed, k, 2)}
+            for kernel, row in (("quantize_topk_fused", b1),
+                                ("quantize_topk_train_fused", b2)):
+                out["kernels"][(kernel, n, k)] = row
+                emit("family_kernel_check", kernel=kernel,
+                     input=f"bfloat16 N={n} k={k}", **row)
+    out["seconds"] = time.perf_counter() - t0
+    emit("family_path", **{key: val for key, val in out.items()
+                           if key != "kernels"})
+    return out
+
+
 # the stage-1 path: steps of each stage-1 run, of the stage-2 run grafted
 # from them, and of the n_embed 1024 run; log period (one train-PSNR
 # forward each)
@@ -2655,6 +2973,7 @@ def main(argv=None) -> None:
     torch.backends.cudnn.deterministic = True
     train_check_phase(torch, mk)
     remat = remat_check_phase(torch, mk)
+    family = family_path_phase(torch, mk)
     torch.backends.cudnn.deterministic = deterministic
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     train_run = train_path_phase(torch, mk)
@@ -2699,6 +3018,20 @@ def main(argv=None) -> None:
             if row["kind"] == kind}
     conv3, conv2 = int8_row("3x3"), int8_row("2x2")
 
+    def family_launches(run, kernel):
+        """The family path's launches of one kernel on its tensor-core
+        route, by model."""
+        return {name: counts[run][kernel][mk.TENSOR_CORE]
+                for name, counts in family["launches_by_route"].items()}
+
+    def family_rows(kernel):
+        """One wrapper's timed rows at the family's lookup sizes."""
+        return {f"at_n_{n}_k_{k}": {key: row[key] for key in (
+            "kernel_ms", "kernel_eager_ms", "plain_ms", "bound_ms",
+            "bound_by", "flips", "max_abs_err")}
+            for (name, n, k), row in family["kernels"].items()
+            if name == kernel}
+
     def stage1_launches(kernel):
         return {name: run["launches_by_route"][kernel]
                 for name, run in stage1_runs.items()}
@@ -2718,8 +3051,10 @@ def main(argv=None) -> None:
                                  "launches_by_route"]["b1"],
                              "remat_step": remat["remat_launches_by_route"][
                                  "b1"],
-                             **stage1_launches("b1")},
-        "max_abs_err": max(v["max_abs_err"] for v in checks.values()),
+                             **stage1_launches("b1"),
+                             "family_eval": family_launches("eval", "b1")},
+        "max_abs_err": max(v["max_abs_err"] for v in (
+            *checks.values(), *family_rows("quantize_topk_fused").values())),
         "flips": bf16["flips"],
         "ms": bf16["kernel_ms"],
         "kernel_ms": bf16["kernel_ms"],
@@ -2736,6 +3071,7 @@ def main(argv=None) -> None:
         "at_n_4096": {key: psnr[key] for key in (
             "kernel_ms", "kernel_eager_ms", "previous_kernel_ms", "plain_ms",
             "bound_ms", "bound_by")},
+        "family_lookups": family_rows("quantize_topk_fused"),
         "float32_route": {"kernel_route": mk.CUDA_CORE,
                           "source": "ammcnet_aaai2021_torch/csrc/"
                                     "quantize_topk.cu",
@@ -2760,8 +3096,11 @@ def main(argv=None) -> None:
                                  "b2"],
                              "plain_step": remat["plain_launches_by_route"][
                                  "b2"],
-                             **stage1_launches("b2")},
-        "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"]),
+                             **stage1_launches("b2"),
+                             "family_train": family_launches("train", "b2")},
+        "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"], *(
+            row["max_abs_err"] for row in family_rows(
+                "quantize_topk_train_fused").values())),
         "esum_max_rel_err": max(b2["esum_max_rel_err"],
                                 b2_f32["esum_max_rel_err"]),
         "flips": b2["flips"],
@@ -2771,6 +3110,7 @@ def main(argv=None) -> None:
         "previous_source": "ammcnet_aaai2021_torch/csrc/quantize_topk.cu",
         "library_ms": None,
         "at_n_196608": {key: b2_big[key] for key in b2_keys},
+        "family_lookups": family_rows("quantize_topk_train_fused"),
         "float32_route": {"kernel_route": mk.CUDA_CORE,
                           "source": "ammcnet_aaai2021_torch/csrc/"
                                     "quantize_topk.cu",

@@ -52,6 +52,7 @@ from ammcnet_aaai2021_torch.models import (
 )
 from ammcnet_aaai2021_torch.ops import int8_kernels as ik
 from ammcnet_aaai2021_torch.ops import memory_kernels
+from ammcnet_aaai2021_torch.ops.memory import Codebook, quantize_topk
 from ammcnet_aaai2021_torch.ops.memory_kernels import (
     CUDA_CORE,
     TENSOR_CORE,
@@ -559,6 +560,60 @@ def test_train_kernel_statistics_are_deterministic_at_n_embed_1024(cuda_device):
     for _ in range(2):
         again = quantize_topk_train_fused(flat, embed, K)
         assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, TENSOR_CORE),
+                                         (torch.float32, CUDA_CORE)])
+def test_topk_training_lookup_runs_b2_and_equals_the_plain_route(
+        cuda_device, dtype, route):
+    """The VQ-VAE family's training lookup (``st_mode="topk"``) at its top
+    level's N = 8 * 32 * 32 = 8,192: through B2 (one launch, on the
+    route's kernel) and through the plain route.  Rows whose codewords agree
+    give bitwise equal outputs and gradients; a differing row must be a
+    near-tie; the EMA codebooks differ by embed_sum's summation order."""
+    g = torch.Generator(device=cuda_device).manual_seed(31)
+    z0 = torch.randn(8, 32, 32, DIM, device=cuda_device, generator=g)
+    z0 = (z0 * 0.5).to(dtype)
+    embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+    cb = Codebook(embed, torch.zeros(256, device=cuda_device), embed.clone())
+    runs = []
+    for use_kernel in (True, False):
+        z = z0.clone().requires_grad_()
+        before = dict(quantize_topk_train_fused.launches_by_route)
+        q, diff, q_st, new = quantize_topk(z, cb, K, train=True,
+                                           use_kernel=use_kernel,
+                                           st_mode="topk")
+        (q.float().square().mean() + diff).backward()
+        torch.cuda.synchronize()
+        took = {r: c - before[r] for r, c in
+                quantize_topk_train_fused.launches_by_route.items()}
+        assert took == {r: int(use_kernel and r == route) for r in took}
+        runs.append((q.reshape(-1, K * DIM), diff, q_st.reshape(-1, DIM),
+                     new, z.grad.reshape(-1, DIM)))
+    (q, diff, q_st, new, grad), (rq, rdiff, rq_st, rnew, rgrad) = runs
+    agree = (q == rq).all(dim=1)
+    flat = z0.reshape(-1, DIM).double()
+    for j in range(K):
+        block = slice(j * DIM, (j + 1) * DIM)
+        rows = ~(q[:, block] == rq[:, block]).all(dim=1)
+        dk = (flat[rows] - q[rows, block].double()).square().sum(1)
+        dp = (flat[rows] - rq[rows, block].double()).square().sum(1)
+        assert bool(((dk - dp).abs()
+                     < NEAR_TIE_REL * torch.maximum(dk, dp)).all())
+    assert int((~agree).sum()) <= 2  # near-ties only, at this size
+    assert torch.equal(q[agree], rq[agree])
+    assert torch.equal(q_st[agree], rq_st[agree])
+    assert torch.equal(grad[agree], rgrad[agree])
+    torch.testing.assert_close(diff, rdiff, rtol=1e-5, atol=0)
+    # the codewords a flipped row's top-1 moved between
+    keep = torch.ones(256, dtype=torch.bool, device=cuda_device)
+    for r in (~agree).nonzero()[:, 0].tolist():
+        for word in (q[r, :DIM], rq[r, :DIM]):
+            keep &= ~(embed == word[:, None]).all(0)
+    for got, want in zip(new, rnew):
+        torch.testing.assert_close(got[..., keep], want[..., keep], rtol=0,
+                                   atol=1e-5)
 
 
 @pytest.mark.cuda

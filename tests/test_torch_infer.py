@@ -418,6 +418,7 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",
         "ammcnet_aaai2021_torch.losses", "ammcnet_aaai2021_torch.models",
         "ammcnet_aaai2021_torch.models.quantized",
+        "ammcnet_aaai2021_torch.models.vqvae",
         "ammcnet_aaai2021_torch.ops.int8_kernels",
         "ammcnet_aaai2021_torch.ops.cuda_build",
         "ammcnet_aaai2021_torch.ops.memory",
@@ -426,6 +427,7 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
         "ammcnet_aaai2021_torch.runners.run_test",
         "ammcnet_aaai2021_torch.runners.run_train",
         "ammcnet_aaai2021_torch.tools.jax_checkpoint",
+        "ammcnet_aaai2021_torch.tools.summarize",
         "ammcnet_aaai2021_torch.tools.weights",
         "ammcnet_aaai2021_torch.train.checkpoint",
         "ammcnet_aaai2021_torch.train.loop",

@@ -29,12 +29,16 @@ from ammcnet_aaai2021_tpu.models.unet_mem import TwoStreamUNetMem as JTwoStream
 from ammcnet_aaai2021_tpu.tools.torch_convert import convert_twostream
 from ammcnet_aaai2021_torch.configs import NetConfig
 from ammcnet_aaai2021_torch.models import (
+    NET_TAGS,
+    TWO_STREAM_TAGS,
     DoubleConv,
     Down,
     EncQuanDecResTopK,
+    TopKMemory,
     TwoStreamUNetMem,
     Up,
     build_generator,
+    build_model,
     init_weights,
 )
 from ammcnet_aaai2021_torch.tools.weights import (
@@ -221,11 +225,44 @@ def test_init_weights_is_seeded():
 @pytest.mark.parametrize("tag,error", [
     ("unet_vq", ValueError), ("unet_vq_res", ValueError),
     ("unet_vq_topk", ValueError), ("twostream_add_dire", ValueError),
-    ("unet", NotImplementedError), ("vqvae_twostream", NotImplementedError),
     ("no_such_net", ValueError)])
 def test_factory_rejects_tags_outside_the_slice(tag, error):
     with pytest.raises(error):
         build_generator(NetConfig(net_tag=tag))
+
+
+MEMORIES_BY_TAG = {"unet": 0, "unet_vq_topk_res": 1, "unet_vq_twostream": 2,
+                   "twostream_concat_dire": 2, "vqvae": 2, "vqvae_topk": 2,
+                   "vqvae_topk_res": 2, "vqvae_twostream": 4}
+
+
+@pytest.mark.parametrize("tag,data_type", [
+    (tag, data_type) for tag in NET_TAGS
+    for data_type in (("rgb_op",) if tag in TWO_STREAM_TAGS
+                      else ("rgb", "op", "rgb_op"))])
+def test_factory_builds_every_tag(tag, data_type):
+    """Every tag builds for its data types; a forward gives the channels
+    ``cfg.out_channel`` picks; the training discriminator takes the net's
+    (RGB) prediction's channels; every memory carries
+    ``use_memory_kernel``."""
+    for use_kernel in (True, False):
+        cfg = NetConfig(net_tag=tag, data_type=data_type, n_embed=32,
+                        dtype="float32", use_memory_kernel=use_kernel)
+        model = build_model(cfg, "training", with_flow=False)
+        memories = [m for m in model.generator.modules()
+                    if isinstance(m, TopKMemory)]
+        assert len(memories) == MEMORIES_BY_TAG[tag]
+        assert all(m.use_kernel == use_kernel for m in memories)
+    single = 1 if data_type == "op" else 0
+    inputs = [torch.zeros(1, cfg.in_channel[single], 16, 16)]
+    if tag in TWO_STREAM_TAGS:
+        inputs = [torch.zeros(1, c, 16, 16) for c in cfg.in_channel]
+    with torch.no_grad():
+        out = model.generator.eval()(*inputs)
+    pred = out if tag == "unet" else out[0]  # the plain UNet: a tensor
+    want = cfg.out_channel[single]
+    assert pred.shape == (1, want, 16, 16)
+    assert model.discriminator.conv0.in_channels == want
 
 
 def test_factory_builds_the_as_shipped_alias():
