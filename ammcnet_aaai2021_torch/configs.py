@@ -4,8 +4,8 @@ The port's own copy of the JAX package's configuration layer
 (``ammcnet_aaai2021_tpu/configs.py``), trimmed to what the ported slices
 read: the generator's architecture (:class:`NetConfig`), the data layout
 (:class:`DataConfig`), the loss weights (:class:`LossConfig`) and optimizer
-(:class:`OptimConfig`), the per-dataset presets and the score-fusion
-constants.  The device-mesh config comes with the multi-process slice.
+(:class:`OptimConfig`), the data-parallel layout (:class:`ParallelConfig`),
+the per-dataset presets and the score-fusion constants.
 
 Static constants follow the reference ``Code/main/params/const_params.py``:
 256x256 frames, channel dict {rgb:3, op:2}, history dict {rgb:4, op:3},
@@ -128,11 +128,23 @@ class OptimConfig:
 
 
 @dataclass(frozen=True)
+class ParallelConfig:
+    """The data-parallel layout (JAX ``configs.py:146-152``): ``data_axis``
+    ranks share the batch (-1: every process of the group).  The model fits
+    on one card, so ``data`` is the only axis the port lays out
+    (``parallel/mesh.py``)."""
+
+    data_axis: int = -1  # -1: all ranks
+    mesh_axes: Tuple[str, ...] = ("data",)
+
+
+@dataclass(frozen=True)
 class ExperimentConfig:
     net: NetConfig = field(default_factory=NetConfig)
     data: DataConfig = field(default_factory=DataConfig)
     loss: LossConfig = field(default_factory=LossConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    parallel: ParallelConfig = field(default_factory=ParallelConfig)
     exp_tag: str = "default"
     save_dir: str = "runs"
     seed: int = 20200525  # reference unet.py:4
@@ -143,8 +155,8 @@ class ExperimentConfig:
 
     @classmethod
     def from_json(cls, text: str) -> "ExperimentConfig":
-        """Inverse of :meth:`to_json`; keys this config does not know (the
-        JAX package's ``parallel`` section, say) are ignored."""
+        """Inverse of :meth:`to_json`, for the JAX package's run configs
+        too; keys this config does not know are ignored."""
 
         def build(tp, d):
             fields = {f.name for f in dataclasses.fields(tp)}
@@ -168,6 +180,7 @@ _SUBCONFIGS = {
     "data": DataConfig,
     "loss": LossConfig,
     "optim": OptimConfig,
+    "parallel": ParallelConfig,
 }
 
 # Per-dataset training loss weights.  The reference wires these from a

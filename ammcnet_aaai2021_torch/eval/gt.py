@@ -138,6 +138,29 @@ class GroundTruthLoader:
             for f in sorted(os.listdir(label_dir))
         ]
 
+    # -- pixel-level masks ----------------------------------------------------------
+    def get_pixel_masks_file_list(self, dataset: str):
+        """Sorted per-video pixel-mask ``.npy`` paths plus the indices of the
+        test videos that have masks — only a subset does in ped1/avenue
+        (serves the same role as the reference's mask/video id matching,
+        ``Code/main/eval_metric.py:182-210``).
+
+        A mask file must be named ``<video_folder_name>.npy``; unmatched mask
+        files are an error (a typo would silently misalign pixel-level eval).
+        """
+        mask_dir = os.path.join(self.data_dir, dataset, "pixel_masks")
+        mask_files = sorted(os.listdir(mask_dir))
+        video_folder = os.path.join(self.data_dir, dataset, "testing", "frames")
+        video_pos = {name: i for i, name in
+                     enumerate(sorted(os.listdir(video_folder)))}
+        try:
+            video_ids = [video_pos[os.path.splitext(m)[0]] for m in mask_files]
+        except KeyError as e:
+            raise ValueError(
+                f"pixel mask {e.args[0]!r}.npy has no matching test video "
+                f"under {video_folder!r}") from None
+        return [os.path.join(mask_dir, f) for f in mask_files], video_ids
+
     # -- toy json ------------------------------------------------------------------
     def _load_toydata(self) -> List[np.ndarray]:
         path = os.path.join(self.data_dir, "toydata", "toydata.json")

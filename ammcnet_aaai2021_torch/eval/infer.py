@@ -27,6 +27,7 @@ Deliberate deviations from the reference, as in the JAX package:
 
 from __future__ import annotations
 
+import os
 import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Optional, Tuple
@@ -36,6 +37,7 @@ import torch
 
 from ..data.datasets import VideoIndex, _decode_rgb, load_flow
 from ..ops.metrics import OP_PER_FRAME_METRICS, PER_FRAME_METRICS
+from ..parallel import multihost as multihost_lib
 
 
 def _stack_windows(video: torch.Tensor, idx: torch.Tensor, t: int
@@ -262,6 +264,7 @@ def score_dataset(
     scorer_mode: str = "auto",
     use_native_loader: bool = False,
     flow_extractor: Optional[Callable] = None,
+    shard_dir: Optional[str] = None,
 ) -> Tuple[Dict, float]:
     """Per-video batched scoring over a test set, on the device the
     ``model``'s parameters live on (it must be in eval mode).
@@ -287,6 +290,15 @@ def score_dataset(
     wait for the decode's stream) is queued behind them.  Returns
     (result_dict in the reference's golden-pickle schema, windows scored
     per second).
+
+    Multi-host (JAX ``eval/infer.py:662-772``): when a ``torch.distributed``
+    group of more than one rank is initialized, the ranks agree on a run
+    token, each scores its round-robin deal of the videos and writes its
+    records to a shard under ``shard_dir/run_<token>`` (a directory every
+    rank can reach; ``ValueError`` without one); rank 0 waits for every
+    shard, merges them in global video order into its result and removes
+    the directory, and the other ranks wait for that removal.  Their result
+    holds their own videos only, and their windows per second.
     """
     if scorer_mode not in ("auto", "video", "batch"):
         raise ValueError(f"unknown scorer_mode {scorer_mode!r} "
@@ -365,7 +377,24 @@ def score_dataset(
         "rgb_img_pred_records": [], "rgb_fea_comm_records": [],
         "op_img_pred_records": [], "op_fea_comm_records": [],
     }
-    names = rgb_index.names
+    names = all_names = rgb_index.names
+    multihost = multihost_lib.process_count() > 1
+    if multihost:
+        if not shard_dir:
+            raise ValueError(
+                "multi-host evaluation needs shard_dir (a directory every "
+                "rank can reach) to merge the ragged per-video records")
+        # a fresh per-run directory (the token is agreed while the ranks
+        # start aligned): a rerun into the same directory, with fewer ranks
+        # or another checkpoint, never merges another run's stale shards
+        shard_dir = os.path.join(
+            shard_dir, f"run_{multihost_lib.agree_on_run_token()}")
+        names = multihost_lib.host_shard(names)
+        if logger:
+            logger.info("rank %d/%d scoring %d of %d videos",
+                        multihost_lib.process_index(),
+                        multihost_lib.process_count(), len(names),
+                        len(all_names))
     total_frames = 0
     t0 = time.time()
     with ThreadPoolExecutor(max_workers=8) as pool, torch.inference_mode():
@@ -406,6 +435,20 @@ def score_dataset(
                 _assemble_records(op_fea, num_frame, clip_len_op))
             if logger:
                 logger.info("finish test video set %s", name)
+    if multihost:
+        multihost_lib.write_record_shard(shard_dir, result, names)
+        # a collective-free end of the run: rank 0 polls for the other
+        # ranks' (atomically renamed) shard files
+        if multihost_lib.process_index() == 0:
+            multihost_lib.wait_for_shards(shard_dir)
+            result.update(multihost_lib.merge_record_shards(shard_dir,
+                                                            all_names))
+            # the rename is the "merge done" signal the other ranks poll
+            # for; removing the directory keeps recurring evaluations from
+            # piling up stale shards
+            multihost_lib.consume_shard_dir(shard_dir)
+        else:
+            multihost_lib.wait_for_merge(shard_dir)
     used = time.time() - t0
     fps = total_frames / used if used > 0 else 0.0
     if logger:

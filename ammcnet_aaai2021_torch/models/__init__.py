@@ -77,7 +77,7 @@ __all__ = [
     "VQVAETopK", "VQVAETopKRes", "VQVAETopKTwoStream", "bridge_only_mask",
     "PixelDiscriminator", "FlowNetSD", "FlowNet2SD", "build_generator",
     "build_model", "init_weights", "init_flownet_weights", "Model",
-    "NET_TAGS", "TWO_STREAM_TAGS",
+    "NET_TAGS", "TWO_STREAM_TAGS", "set_process_group",
 ]
 
 # runnable reference tags (the reference's net_map minus its four entries
@@ -98,14 +98,31 @@ def _single(cfg: NetConfig, channels: Tuple[int, int]) -> int:
     return channels[1] if cfg.data_type == "op" else channels[0]
 
 
-def build_generator(cfg: NetConfig, per_sample_diff: bool = False
-                    ) -> nn.Module:
+def set_process_group(model: nn.Module, group) -> nn.Module:
+    """Set ``group`` on every BatchNorm and memory of ``model`` (a
+    ``torch.distributed`` process group, or None for a single process):
+    their training mode then reduces its statistics over the group's
+    global batch.  Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm2d, TopKMemory)):
+            m.group = group
+    return model
+
+
+def build_generator(cfg: NetConfig, per_sample_diff: bool = False,
+                    group=None) -> nn.Module:
     """net_tag -> constructed generator (reference net_map dispatch).
 
     ``per_sample_diff=True`` makes the UNet family's memory blocks emit
     per-frame commit distances (for the scorer) instead of batch-mean
     scalars; the VQ-VAE nets have none, as in the JAX package.
+    ``group`` (JAX ``axis_name``): a process group whose ranks each train
+    on a shard of the batch (:func:`set_process_group`).
     """
+    return set_process_group(_build_generator(cfg, per_sample_diff), group)
+
+
+def _build_generator(cfg: NetConfig, per_sample_diff: bool) -> nn.Module:
     tag = cfg.net_tag
     dtype = getattr(torch, cfg.dtype)
     in_ch, out_ch = _single(cfg, cfg.in_channel), _single(cfg, cfg.out_channel)
@@ -188,13 +205,14 @@ class Model:
 
 
 def build_model(cfg: NetConfig, mode: str = "testing",
-                per_sample_diff: bool = False, with_flow: bool = True
-                ) -> Model:
+                per_sample_diff: bool = False, with_flow: bool = True,
+                group=None) -> Model:
     """The generator, and in training mode the discriminator (on the
     two-stream net's RGB prediction, or on a single-stream net's own
     channels) and, with ``with_flow`` (the loss tags with a flow term), the
-    FlowNet2-SD teacher."""
-    gen = build_generator(cfg, per_sample_diff)
+    FlowNet2-SD teacher.  ``group`` as in :func:`build_generator` (the
+    discriminator holds no BatchNorm, and the teacher runs in eval mode)."""
+    gen = build_generator(cfg, per_sample_diff, group)
     if mode != "training":
         return Model(generator=gen)
     dtype = getattr(torch, cfg.dtype)

@@ -37,6 +37,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..parallel.multihost import all_reduce_sum
+
 
 class _BufferUpdates:
     """Where training forwards put their buffer updates: ``recorded`` a list
@@ -114,24 +116,57 @@ class ConvTranspose2d(nn.ConvTranspose2d):
                                   self.dilation)
 
 
+class _GroupSum(torch.autograd.Function):
+    """A sum over the ranks of a process group that autograd goes through:
+    the forward all-reduces (SUM), and so does the backward, since each
+    rank's input reaches every rank's output.  Summed over the ranks, the
+    gradients then are those of the sum of the ranks' losses."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, group) -> torch.Tensor:
+        ctx.group = group
+        return all_reduce_sum(x, group)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        return all_reduce_sum(grad, ctx.group), None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` (momentum 0.1, the same names and buffers) whose
     training mode is flax's ``BatchNorm(momentum=0.9)``: the output is
     torch's (normalized with the biased batch variance, statistics in
     float32, cast back to the input's dtype), and the running statistics
     are updated with the *biased* batch variance, ``r = 0.9 r + 0.1 stat``.
-    Eval mode is torch's own."""
+    Eval mode is torch's own.
+
+    ``group`` (a ``torch.distributed`` process group, None by default; set
+    by ``models.set_process_group``): the ranks each hold a shard of the
+    batch, and training mode normalizes with the global batch's mean and
+    biased variance, as the JAX step does under a ``data`` mesh.  The local
+    sum and count are all-reduced for the mean, then the local sum of
+    squared deviations from it for the variance (two passes: ``E[x^2] -
+    mean^2`` cancels digits that bf16 activations expose), each through
+    :class:`_GroupSum`, so the gradient goes through the global statistics.
+    ``torch.nn.SyncBatchNorm`` is not used: it takes no CPU tensors, and it
+    updates ``running_var`` with the unbiased variance."""
+
+    group = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        y = F.batch_norm(x, None, None, self.weight, self.bias, training=True,
-                         eps=self.eps)
+        if self.group is not None:
+            y, mean, var = self._group_batch_norm(x)
+        else:
+            y = F.batch_norm(x, None, None, self.weight, self.bias,
+                             training=True, eps=self.eps)
         if is_recomputing():
             return y
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
-                                       unbiased=False)
+            if self.group is None:
+                var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                           unbiased=False)
             keep = 1.0 - self.momentum  # flax's momentum, 0.9
             write_buffers((
                 (self.running_mean,
@@ -140,6 +175,22 @@ class BatchNorm2d(nn.BatchNorm2d):
                  self.running_var.mul(keep).add_(var, alpha=1.0 - keep)),
                 (self.num_batches_tracked, self.num_batches_tracked + 1)))
         return y
+
+    def _group_batch_norm(self, x: torch.Tensor):
+        """(output in x's dtype, detached float32 global mean and biased
+        variance) over the group's global batch."""
+        xf = x.float()
+        c = xf.shape[1]
+        count = xf.new_full((1,), xf.numel() // c)
+        sums = _GroupSum.apply(torch.cat([xf.sum(dim=(0, 2, 3)), count]),
+                               self.group)
+        mean = sums[:c] / sums[c]
+        dev = xf - mean[None, :, None, None]
+        var = _GroupSum.apply(dev.square().sum(dim=(0, 2, 3)),
+                              self.group) / sums[c]
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = dev * scale[None, :, None, None] + self.bias[None, :, None, None]
+        return y.to(x.dtype), mean.detach(), var.detach()
 
 
 class DoubleConv(nn.Module):

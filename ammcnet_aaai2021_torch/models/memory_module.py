@@ -31,7 +31,11 @@ class TopKMemory(nn.Module):
     :func:`~..ops.memory.quantize_topk`).  Takes and returns NCHW; the op
     itself runs channel-last.  In training mode the lookup reads the
     codebook as it was before the forward, and the EMA update is then
-    written into the buffers under ``no_grad``."""
+    written into the buffers under ``no_grad``.  ``group`` (None by
+    default; set by ``models.set_process_group``): the EMA statistics are
+    summed over this process group's ranks first."""
+
+    group = None
 
     def __init__(self, embed_dim: int, n_embed: int, k: int = 1,
                  use_kernel: bool = False, per_sample_diff: bool = False,
@@ -57,7 +61,8 @@ class TopKMemory(nn.Module):
         q_topk, diff, q_st, new_cb = quantize_topk(
             z.permute(0, 2, 3, 1), cb, self.k, train=update,
             decay=self.decay, eps=self.eps, use_kernel=self.use_kernel,
-            st_mode=self.st_mode, per_sample=self.per_sample_diff)
+            st_mode=self.st_mode, per_sample=self.per_sample_diff,
+            group=self.group)
         if update:
             write_buffers(((self.embed, new_cb.embed),
                            (self.cluster_size, new_cb.cluster_size),

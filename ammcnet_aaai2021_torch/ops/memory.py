@@ -23,7 +23,9 @@ from __future__ import annotations
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
+from ..parallel.multihost import all_reduce_sum
 from .memory_kernels import (
     exact_fp32_matmul,
     quantize_topk_fused,
@@ -56,15 +58,17 @@ def codebook_distances(flat: torch.Tensor, embed: torch.Tensor) -> torch.Tensor:
 @torch.no_grad()
 def ema_apply(codebook: Codebook, counts: torch.Tensor,
               embed_sum: torch.Tensor, decay: float = 0.99, eps: float = 1e-5,
-              axis_name: Optional[str] = None) -> Codebook:
+              group: Optional[dist.ProcessGroup] = None) -> Codebook:
     """Apply the EMA + Laplace smoothing given the batch statistics
-    (unet.py:298-309).  ``axis_name`` (the statistics' all-reduce across
-    data-parallel processes) comes with the multi-process slice."""
-    if axis_name is not None:
-        raise NotImplementedError(
-            "ema_apply(axis_name=...): reducing the EMA statistics across "
-            "processes comes with the multi-process slice of the port")
+    (unet.py:298-309).  Under data parallelism (``group``) the per-rank
+    statistics are summed over the group first, in one all-reduce, so every
+    rank applies the same global update (JAX ``ops/memory.py:83-85``)."""
     n_embed = codebook.embed.shape[1]
+    if group is not None:
+        summed = all_reduce_sum(
+            torch.cat([counts.reshape(-1), embed_sum.reshape(-1)]), group)
+        counts = summed[:n_embed]
+        embed_sum = summed[n_embed:].reshape(embed_sum.shape)
     cluster_size = codebook.cluster_size * decay + (1.0 - decay) * counts
     embed_avg = codebook.embed_avg * decay + (1.0 - decay) * embed_sum
     n = cluster_size.sum()
@@ -77,7 +81,7 @@ def ema_apply(codebook: Codebook, counts: torch.Tensor,
 @torch.no_grad()
 def ema_update(codebook: Codebook, flat: torch.Tensor,
                top1_idx: torch.Tensor, decay: float = 0.99,
-               eps: float = 1e-5, axis_name: Optional[str] = None
+               eps: float = 1e-5, group: Optional[dist.ProcessGroup] = None
                ) -> Codebook:
     """EMA update computing the one-hot statistics from indices (the plain
     path), in fp32 with TF32 off."""
@@ -86,8 +90,7 @@ def ema_update(codebook: Codebook, flat: torch.Tensor,
         top1_idx.long(), n_embed).to(torch.float32)
     with exact_fp32_matmul():
         embed_sum = flat.float().t() @ one_hot
-    return ema_apply(codebook, one_hot.sum(0), embed_sum, decay, eps,
-                     axis_name)
+    return ema_apply(codebook, one_hot.sum(0), embed_sum, decay, eps, group)
 
 
 def quantize_topk(
@@ -101,6 +104,7 @@ def quantize_topk(
     use_kernel: bool = False,
     st_mode: str = "top1",
     per_sample: bool = False,
+    group: Optional[dist.ProcessGroup] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Codebook]:
     """Top-k memory addressing.
 
@@ -122,6 +126,11 @@ def quantize_topk(
         and the commit distance compares all k codewords.
       per_sample: commit distance per leading-axis element instead of the
         scalar mean.
+      group: a ``torch.distributed`` process group whose ranks each hold a
+        shard of the batch: the EMA statistics are summed over it before
+        the update (:func:`ema_apply`).  B2 stays on its kernel: its
+        ``counts`` and ``embed_sum`` are sums, so the per-rank kernel
+        outputs compose with the all-reduce.
 
     Returns:
       ``(q_topk, diff, q_st, codebook)`` — ``q_topk`` is ``(..., k*dim)`` in
@@ -177,10 +186,10 @@ def quantize_topk(
     if train:
         if ema_stats is not None:
             new_codebook = ema_apply(codebook, *ema_stats, decay=decay,
-                                     eps=eps)
+                                     eps=eps, group=group)
         else:
             new_codebook = ema_update(codebook, flat_ng, top1_idx,
-                                      decay=decay, eps=eps)
+                                      decay=decay, eps=eps, group=group)
 
     q_topk = q_out_flat.reshape(*lead_shape, k * dim).to(z.dtype)
     q_st = q_st_flat.reshape(*lead_shape, dim).to(z.dtype)

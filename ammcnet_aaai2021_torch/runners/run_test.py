@@ -8,6 +8,14 @@ A checkpoint (``--ckptfile``, or ``--exp_tag``'s latest step) may be the
 JAX package's too: a flax ``.msgpack``, or an orbax step dir where
 tensorstore is installed (``tools/weights.load_generator_checkpoint``).
 
+Multi-host scoring (JAX ``runners/run_test.py:108-114,215-234``): start a
+``torch.distributed`` group in every process (``parallel.multihost
+.initialize``), then call :func:`main` with the same arguments in each,
+each with its own ``--device`` (two ranks on one card both take
+``cuda:0``).  The ranks deal the videos round-robin and merge their records
+through ``<save_dir>/record_shards``; rank 0 writes the pickle and prints
+the AUC, the others return ``{"fps", "rank"}``.
+
 Usage:
   python -m ammcnet_aaai2021_torch.runners.run_test \
       --dataset_name ped2 --data_dir /data --ckptfile generator.pth
@@ -114,6 +122,13 @@ def main(argv=None) -> dict:
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device is "
                            "visible (pass --device cpu to score on the CPU)")
+    from ..parallel import multihost
+
+    rank = multihost.process_index()
+    multi = multihost.process_count() > 1
+    # align the ranks before any heavy per-rank work (model build, kernel
+    # builds); callers should still prefer multihost.initialize()
+    multihost.warm_collectives()
 
     from ..configs import FUSION_LAMBDAS, preset
     from ..eval.gt import GroundTruthLoader
@@ -206,7 +221,13 @@ def main(argv=None) -> dict:
         batch_commit=args.batch_commit,
         reproduce_op_psnr_bug=args.reproduce_op_psnr_bug,
         scorer_mode=args.scorer_mode, use_native_loader=args.native_loader,
-        flow_extractor=flow_extractor)
+        flow_extractor=flow_extractor,
+        shard_dir=(os.path.join(args.save_dir, "record_shards")
+                   if multi else None))
+    if multi and rank != 0:
+        # rank 0 merged the records; this rank only contributed scores
+        logger.info("rank %d done (%.3f local fps)", rank, fps)
+        return {"fps": fps, "rank": rank}
 
     pickle_dir = os.path.join(args.save_dir, args.eval_type, "save_pickle")
     os.makedirs(pickle_dir, exist_ok=True)

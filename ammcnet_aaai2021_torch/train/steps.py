@@ -46,9 +46,10 @@ import torch.utils.checkpoint
 from ..configs import CHANNEL, LossConfig
 from ..losses.primitives import discriminate_loss
 from ..losses.zoo import LOSS_TAGS
-from ..models import TopKMemory
+from ..models import BatchNorm2d, TopKMemory
 from ..models.blocks import (deferred_buffer_updates, recomputing,
                              write_buffers)
+from ..parallel.multihost import all_reduce_sum, process_count
 from .state import TrainState
 
 CODEBOOK_BUFFERS = ("embed", "cluster_size", "embed_avg")
@@ -107,21 +108,40 @@ class _FrozenCodebook:
                 buf.copy_(self.saved[key])
 
 
+def _average(tensors, group) -> list:
+    """The tensors averaged over the group's ranks, in one all-reduce of a
+    flattened buffer."""
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in tensors]), group)
+    flat /= process_count(group)
+    return [chunk.view_as(t) for chunk, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)]
+
+
 def _update(state: TrainState, g_loss: torch.Tensor,
-            d_loss: torch.Tensor, after_backward: Callable = lambda: None
-            ) -> None:
+            d_loss: torch.Tensor, after_backward: Callable = lambda: None,
+            group=None) -> None:
     """G's gradient from the G loss w.r.t. G's parameters only, D's from
     the D loss w.r.t. D's (the JAX steps differentiate each loss with
-    respect to its own parameters); ``after_backward()``; then both
-    optimizers and schedulers step and the step count advances."""
+    respect to its own parameters); ``after_backward()``; under a
+    ``group``, each model's gradients averaged over the ranks; then both
+    optimizers and schedulers step and the step count advances.
+
+    Each rank's loss is the mean over its shard, and the BatchNorm
+    all-reduces send their gradients back summed over the ranks, so the
+    sum of the ranks' gradients is that of the sum of their losses; over
+    the world size, that of the global batch's mean loss."""
     g_params = list(state.generator.parameters())
     d_params = list(state.discriminator.parameters())
     g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
     d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
     after_backward()
     for params, grads in ((g_params, g_grads), (d_params, d_grads)):
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(params, grads)]
+        if group is not None:
+            grads = _average(grads, group)
         for p, g in zip(params, grads):
-            p.grad = torch.zeros_like(p) if g is None else g
+            p.grad = g
     state.d_opt.step()
     state.g_opt.step()
     state.d_sched.step()
@@ -129,13 +149,54 @@ def _update(state: TrainState, g_loss: torch.Tensor,
     state.step += 1
 
 
+def _metrics(g_loss: torch.Tensor, d_loss: torch.Tensor,
+             comps: Dict[str, torch.Tensor], group
+             ) -> Dict[str, torch.Tensor]:
+    """The step's metrics, detached; under a ``group`` their means over the
+    ranks (one all-reduce), the global batch's values the JAX step
+    reports."""
+    metrics = {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
+               **{k: v.detach() for k, v in comps.items()}}
+    if group is None:
+        return metrics
+    return dict(zip(metrics, _average(list(metrics.values()), group)))
+
+
+def _check_group(generator: nn.Module, group) -> None:
+    """A step under ``group`` needs a generator built for it: BatchNorm
+    and the memories reducing over the same group."""
+    if group is None:
+        return
+    stray = sorted({name for name, m in generator.named_modules()
+                    if isinstance(m, (BatchNorm2d, TopKMemory))
+                    and m.group is not group})
+    if stray:
+        raise ValueError(
+            f"a step under a process group needs the generator's BatchNorm "
+            f"and memories on that group (build_model(..., group=group) or "
+            f"models.set_process_group); not on it: {stray[:3]}")
+
+
 def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
                               op_channels: int = 2, remat: bool = False,
-                              freeze_codebook: bool = False) -> Callable:
+                              freeze_codebook: bool = False,
+                              group=None) -> Callable:
     """``train_step(state, batch, flownet) -> metrics``: one stage-2 step
     in place on ``state``; ``batch`` holds ``rgb`` and ``op`` clips (target
     last) on the state's device; ``metrics`` maps ``g_loss``, ``d_loss`` and
-    the loss components to 0-dim float32 tensors on that device."""
+    the loss components to 0-dim float32 tensors on that device.
+
+    ``group``: data parallelism over a ``torch.distributed`` process group
+    (the JAX step under a ``data`` mesh).  Each rank passes its equal shard
+    of the global batch (``parallel.make_global_batch``) and a generator
+    built with the same group (``build_model(..., group=group)``), whose
+    BatchNorm and EMA statistics are then the global batch's; gradients
+    and metrics are averaged over the ranks, so every rank applies the
+    global-batch update and returns the global metrics.  Every rank issues
+    the same collectives in the same order.  The models are not wrapped in
+    ``DistributedDataParallel``: its reducer hooks the accumulation of
+    ``.grad``, which the step's two ``autograd.grad`` calls (G's loss
+    running through D) never do."""
     g_loss_fn = LOSS_TAGS[loss_cfg.loss_tag]
 
     def gen_apply(gen: nn.Module, rgb_input: torch.Tensor,
@@ -149,6 +210,7 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    flownet: nn.Module) -> Dict[str, torch.Tensor]:
         gen, disc = state.generator, state.discriminator
+        _check_group(gen, group)
         rgb = _to_model_range(batch["rgb"])
         op = _to_model_range(batch["op"])
         rgb_input, rgb_target = rgb[:, :-rgb_channels], rgb[:, -rgb_channels:]
@@ -178,16 +240,16 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
                 write_buffers(recorded)
                 frozen.restore()
 
-        _update(state, g_loss, d_loss, after_backward)
-        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                **{k: v.detach() for k, v in comps.items()}}
+        _update(state, g_loss, d_loss, after_backward, group)
+        return _metrics(g_loss, d_loss, comps, group)
 
     return train_step
 
 
 def make_single_stream_train_step(loss_cfg: LossConfig, data_type: str = "rgb",
                                   channels: Optional[int] = None,
-                                  freeze_codebook: bool = False) -> Callable:
+                                  freeze_codebook: bool = False,
+                                  group=None) -> Callable:
     """Stage-1 step (JAX ``make_single_stream_train_step``; reference
     inference_v1..v4 closures, train_helper.py:1408-1827):
     ``train_step(state, batch, flownet) -> metrics`` on one modality.
@@ -198,7 +260,8 @@ def make_single_stream_train_step(loss_cfg: LossConfig, data_type: str = "rgb",
     ``no_grad``) runs only for the ``*flow*`` loss tags, which the rgb
     recipes use with GDL; the op recipes are intensity + adversarial (+
     commit for the ``_vq`` tags), and ``flownet`` may then be ``None``.
-    ``freeze_codebook`` as in :func:`make_twostream_train_step`."""
+    ``freeze_codebook`` and ``group`` as in
+    :func:`make_twostream_train_step`."""
     g_loss_fn = LOSS_TAGS[loss_cfg.loss_tag]
     c = channels if channels is not None else CHANNEL[data_type]
     uses_flow = "flow" in loss_cfg.loss_tag
@@ -206,6 +269,7 @@ def make_single_stream_train_step(loss_cfg: LossConfig, data_type: str = "rgb",
     def train_step(state: TrainState, batch: torch.Tensor,
                    flownet: Optional[nn.Module]) -> Dict[str, torch.Tensor]:
         gen, disc = state.generator, state.discriminator
+        _check_group(gen, group)
         clip = _to_model_range(batch)
         x_input, x_target = clip[:, :-c], clip[:, -c:]
 
@@ -224,8 +288,7 @@ def make_single_stream_train_step(loss_cfg: LossConfig, data_type: str = "rgb",
                                                    x_target)
         g_loss, comps = g_loss_fn(loss_batch, loss_cfg)
         d_loss = discriminate_loss(disc(x_target), disc(pred.detach()))
-        _update(state, g_loss, d_loss)
-        return {"g_loss": g_loss.detach(), "d_loss": d_loss.detach(),
-                **{k: v.detach() for k, v in comps.items()}}
+        _update(state, g_loss, d_loss, group=group)
+        return _metrics(g_loss, d_loss, comps, group)
 
     return train_step

@@ -71,7 +71,19 @@ Phases, one JSON line each; any failure exits non-zero:
    a bf16 one counted (B2 once a memory, tensor-core route); then
    ``tools.summarize`` for every tag (totals pinned by the CPU tests),
    and B1 and B2 at the VQ-VAE nets' lookup sizes (N = 8,192 and 32,768,
-   bf16, k 1 and 2) against their plain versions, timed;
+   bf16, k 1 and 2) against their plain versions, timed; then the
+   multi-process phases: ``dp_check`` (a process group of one rank, NCCL:
+   one bf16 and one float32 stage-2 step of the released configuration,
+   batch 4, with and without the group from one state, within the stated
+   bounds; B2 twice a step on each dtype's route; the all-reduces a step;
+   ms a step each way), ``dp_path`` (two ranks of this script on the one
+   card, gloo with CUDA tensors, two samples each of a global batch of 4:
+   three float32 steps, each against one process's step on the global
+   batch from the same state, then three bf16 steps; B2's launches, the
+   all-reduces and ms a step per rank) and ``mh_score`` (two ranks run
+   ``run_test`` on the main path's split cut to Ped2's first 4 lengths:
+   rank 0's merged records bitwise one process's, the same AUC line, B1
+   twice a forward on each rank, the shard directory removed);
 7. training path: ``runners.run_train.main`` trains the released
    configuration (bf16, batch 4, 256x256) for 30 steps on a numpy training
    tree, then resumes from its step-30 checkpoint to step 40; checks the
@@ -827,18 +839,8 @@ def main_path_phase(torch, mk, n_videos: int, tmp: str) -> dict:
     forwards = sum(math.ceil((t - 4) / min(window_batch, t - 4))
                    for t in lengths)
     t0 = time.perf_counter()
-    write_ped2_tree(tmp, lengths)
+    dataset = write_scoring_tree(tmp, lengths)
     data_s = time.perf_counter() - t0
-    dataset = "ped2"
-    if n_videos < len(PED2_TEST_LENGTHS):
-        # the builtin ped2 labels need all 12 videos: a cut run carries
-        # its videos' ped2 events in the toydata label format instead
-        dataset = "toydata"
-        os.rename(os.path.join(tmp, "ped2"), os.path.join(tmp, dataset))
-        with open(os.path.join(tmp, dataset, "toydata.json"), "w") as fh:
-            json.dump({f"{vi:02d}": {"length": t, "gt": [[s - 1, e - 1]]}
-                       for vi, (t, (s, e)) in enumerate(
-                           zip(lengths, PED2_EVENTS), start=1)}, fh)
     argv = ["--dataset_name", dataset, "--data_dir", tmp,
             "--save_dir", os.path.join(tmp, "eval_out")]
     stdout = io.StringIO()
@@ -2912,11 +2914,722 @@ def raw_path_phase(torch, mk) -> dict:
             "extractor": extractor, "host": host, "c2": c2}
 
 
+# the data-parallel phases: the released configuration at 256x256 on a
+# global batch of DP_BATCH; dp_path's two ranks take DP_STEPS steps in each
+# dtype, dp_check's step is timed over DP_TIMED_STEPS more each way
+DP_BATCH, DP_STEPS, DP_TIMED_STEPS = 4, 3, 5
+# The step under a process group against the plain step (one rank), and
+# two ranks against one process on the global batch, differ only in
+# BatchNorm's training statistics: two-pass float32 sums over the group's
+# batch (on two ranks, the halves' sums added) against ATen's kernel, a few
+# float32 ulps of each statistic.  After one float32 step from the same
+# state that leaves the CPU tests' one-step bounds
+# (tests/test_torch_train.py): losses 1e-5 relative; gradients 2e-2 per
+# tensor and 5e-3 over the generator relative to their norms (BatchNorm's
+# backward loses digits level by level); BatchNorm statistics and codebooks
+# 1e-5 of their scale (a running mean's is its standard deviation, a
+# codeword's its RMS) plus 1e-5, cluster sizes equal.  Adam's update is
+# about lr * sign(g), and rounding decides the sign of a near-zero
+# gradient, so a parameter is held to Adam's own bound, 2 * lr.  The
+# rounding moves each memory's latents too, so a row two of whose k + 1
+# nearest codewords lie within the near-tie rule (NEAR_TIE_REL, as the
+# kernel checks) may take either, and ``dp_compare`` says what a flipped
+# row leaves bounded.  In bf16 every BatchNorm output rounds to bf16 either way, and
+# those ulps flip some elements by one bf16 ulp (2^-8): losses and
+# statistics 2e-2 (five bf16 ulps); codebooks 4e-2 (the latents pass ten
+# BatchNorm layers on the way to a memory, each flipping its ulps anew);
+# near-ties within 2^-7 (a latent an ulp off moves its distances to two
+# codewords by up to 2^-8 each, in opposite directions).  dp_path holds
+# each of its steps against one process's step from the same state, so
+# every step takes the one-step bounds.
+DP_STEP1 = {"loss_rel": 1e-5, "stat_rel": 1e-5, "stat_abs": 1e-5,
+            "codebook_rel": 1e-5, "codebook_abs": 1e-5,
+            "near_tie": NEAR_TIE_REL}
+DP_BF16 = {"loss_rel": 2e-2, "stat_rel": 2e-2, "stat_abs": 1e-5,
+           "codebook_rel": 4e-2, "codebook_abs": 1e-5, "near_tie": 2 ** -7}
+# beyond Adam's 2 * lr: the float32 rounding of the two updated values
+# (parameters of order 1)
+DP_PARAM_ROUNDING = 1e-6
+DP_GRAD_REL_TENSOR, DP_GRAD_REL_ALL = 2e-2, 5e-3
+# mh_score: Ped2's first test lengths, scored by two ranks and by one
+MH_LENGTHS = PED2_TEST_LENGTHS[:4]
+WORKER_TIMEOUT_S = 600
+# the card every rank of these phases runs on (two ranks share it)
+DP_DEVICE = "cuda"
+
+
+def train_flags(torch) -> None:
+    """The float32 comparisons' settings: TF32 off, cuDNN deterministic."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+
+
+def dp_setup(torch, dtype: str, group=None):
+    """The released configuration in ``dtype``, seeded state on the card
+    (generator, discriminator, optimizers) under ``group``, and the seeded
+    FlowNet2-SD teacher."""
+    import dataclasses
+
+    from ammcnet_aaai2021_torch.configs import NetConfig, OptimConfig
+    from ammcnet_aaai2021_torch.models import build_model, init_flownet_weights
+    from ammcnet_aaai2021_torch.train.state import create_train_state
+
+    model = build_model(dataclasses.replace(NetConfig(), dtype=dtype),
+                        mode="training", group=group)
+    state = create_train_state(model.generator, model.discriminator,
+                               OptimConfig(), 20200525, device=DP_DEVICE)
+    flownet = init_flownet_weights(model.flow_network,
+                                   torch.Generator().manual_seed(7))
+    return state, flownet.to(DP_DEVICE).eval()
+
+
+def dp_batch(torch) -> dict:
+    """The global batch, seeded, on the host."""
+    g = torch.Generator().manual_seed(16)
+    return {"rgb": torch.randint(0, 256, (DP_BATCH, 5, IMAGE_SIZE, IMAGE_SIZE,
+                                          3), generator=g, dtype=torch.uint8),
+            "op": torch.randn(DP_BATCH, 4, IMAGE_SIZE, IMAGE_SIZE, 2,
+                              generator=g) * 0.5}
+
+
+TRAIN_STATE_PARTS = ("g_opt", "d_opt", "g_sched", "d_sched")
+
+
+def host_copy(tensors: dict) -> dict:
+    return {k: v.detach().to("cpu", copy=True) for k, v in tensors.items()}
+
+
+def host_rows(latents: dict) -> dict:
+    return {name: host_copy(rows) for name, rows in latents.items()}
+
+
+def step_record(state, metrics: dict, latents: dict) -> dict:
+    """One step's metrics, G's gradients and state, and each memory's
+    rows of the step's forward (``dp_run``), on the host."""
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "g_grads": host_copy({n: p.grad for n, p in
+                                  state.generator.named_parameters()}),
+            "state": host_copy(state.generator.state_dict()),
+            "latents": host_rows(latents)}
+
+
+def train_state_dict(state) -> dict:
+    """Everything a step reads: both models, optimizers and schedulers."""
+    import copy
+
+    return copy.deepcopy({
+        "step": state.step, "g": state.generator.state_dict(),
+        "d": state.discriminator.state_dict(),
+        **{name: getattr(state, name).state_dict()
+           for name in TRAIN_STATE_PARTS}})
+
+
+def load_train_state(state, saved: dict) -> None:
+    import copy
+
+    state.generator.load_state_dict(saved["g"])
+    state.discriminator.load_state_dict(saved["d"])
+    for name in TRAIN_STATE_PARTS:
+        getattr(state, name).load_state_dict(copy.deepcopy(saved[name]))
+    state.step = saved["step"]
+
+
+def dp_run(torch, mk, state, step, batch, flownet, steps: int,
+           record=None) -> dict:
+    """``steps`` steps with every count set to 0 just before and read just
+    after: each step's metrics, the launches by route and the all-reduces,
+    and ms a step over the steps after the first (CUDA events);
+    ``record(i, state, metrics, latents)`` after each step, ``latents``
+    each memory's input rows (``z``) and gathered codewords (``q``, its
+    ``q_topk``) of the step's forward, by module name."""
+    from ammcnet_aaai2021_torch.models import TopKMemory
+    from ammcnet_aaai2021_torch.parallel import all_reduce_sum
+
+    latents, hooks = {}, []
+    if record is not None:
+        def rows(x):  # NCHW -> one row a position
+            return x.detach().permute(0, 2, 3, 1).reshape(-1, x.shape[1])
+
+        def keep(name):
+            def hook(module, args, out):
+                latents[name] = {"z": rows(args[0]), "q": rows(out[0])}
+            return hook
+        hooks = [m.register_forward_hook(keep(name))
+                 for name, m in state.generator.named_modules()
+                 if isinstance(m, TopKMemory)]
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    calls = all_reduce_sum.calls
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    metrics = []
+    try:
+        for i in range(steps):
+            if i == 1:
+                start.record()
+            m = step(state, batch, flownet)
+            metrics.append({k: float(v) for k, v in m.items()})
+            if record is not None:
+                record(i, state, m, latents)
+    finally:
+        for h in hooks:
+            h.remove()
+    end.record()
+    torch.cuda.synchronize()
+    return {"metrics": metrics, "launches_by_route": launch_counts(mk),
+            "all_reduces": all_reduce_sum.calls - calls,
+            "ms_per_step": (start.elapsed_time(end) / (steps - 1)
+                            if steps > 1 else None)}
+
+
+def one_step(torch, mk, state, step, batch, flownet) -> tuple:
+    """One step's ``dp_run`` result and its ``step_record``."""
+    rec = []
+    run = dp_run(torch, mk, state, step, batch, flownet, 1,
+                 record=lambda i, st, m, z: rec.append(step_record(st, m, z)))
+    return run, rec[0]
+
+
+def loss_rel_err(got: dict, want: dict) -> float:
+    """The largest relative difference of one step's metrics."""
+    return max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+               for k in want)
+
+
+def codebooks(generator_state: dict) -> dict:
+    """Each memory's codebook (on the host) in a generator state dict, by
+    the memory's module name."""
+    return {k[:-len(".embed")]: v.detach().cpu()
+            for k, v in generator_state.items() if k.endswith(".embed")}
+
+
+def lookup_flips(torch, what: str, got: dict, want: dict, embeds: dict,
+                 rel: float) -> dict:
+    """Each memory's rows whose gathered codewords (``q_topk``) differ
+    between the runs.  Each must be a near-tie: two of its k + 1 nearest
+    codewords (float64 distances to the codebook the step read, in either
+    run) within ``rel`` relative of each other, so that the rounding of the
+    step's sums could reorder them.  Returns, by memory, the rows, the
+    flipped rows and the codewords they touch (the k + 1 nearest in both
+    runs)."""
+    out = {}
+    for name, w in want.items():
+        g = got[name]
+        k = w["q"].shape[1] // w["z"].shape[1]
+        flipped = (g["q"] != w["q"]).any(dim=1)
+        e = embeds[name].double()
+        e_sq = e.square().sum(0, keepdim=True)
+        near, touched = torch.zeros_like(flipped), []
+        for rows in (g, w):
+            z = rows["z"][flipped].double()
+            top = (z.square().sum(1, keepdim=True) - 2 * z @ e + e_sq).topk(
+                k + 1, dim=1, largest=False)
+            gaps = top.values.diff(dim=1) / top.values[:, :-1].abs().clamp_min(
+                1e-30)
+            near[flipped] |= (gaps < rel).any(dim=1)
+            touched.append(top.indices.ravel())
+        if not bool(near[flipped].all()):
+            fail(f"{what}: {name}'s codewords differ between the runs at a "
+                 f"row that is no near-tie (within {rel} relative)")
+        out[name] = {"rows": len(flipped), "flipped": int(flipped.sum()),
+                     "codewords": torch.cat(touched).unique()}
+    return out
+
+
+def is_encoder_layer(key: str) -> bool:
+    """A BatchNorm buffer of a stream's encoder (inc, down1..down3), which
+    runs before that stream's memory."""
+    return ".inc." in key or ".down" in key
+
+
+def dp_compare(torch, what: str, got: dict, want: dict, tol: dict,
+               embeds: dict, grads: bool) -> dict:
+    """One step's ``step_record`` against another's from the same state,
+    within ``tol`` (and the gradients' bounds with ``grads``); ``embeds``
+    the codebooks the step read.  Fails where a bound is broken; returns
+    the largest errors.
+
+    A latent within ``tol["near_tie"]`` of the boundary between two
+    codewords may take either (the rounding of the step's sums moves it),
+    and a row that flips carries another codeword into the decoder and back
+    through the whole backward pass.  So the codewords a flipped row
+    touches leave the codebook comparison; the bounds of the losses and of
+    the BatchNorm statistics after the memories grow by the flipped rows'
+    share of the rows (four times that share for the statistics: a row's
+    positions and their 3x3 neighbours at each level), since each moves
+    its own share by about its scale; and with any flipped row the
+    gradients are reported, not bounded.  The encoders' statistics, the
+    other codewords and the parameters keep their bounds."""
+    from ammcnet_aaai2021_torch.configs import OptimConfig
+
+    sd_got, sd_want = got["state"], want["state"]
+    params = set(want["g_grads"])
+    flips = lookup_flips(torch, what, got["latents"], want["latents"],
+                         embeds, tol["near_tie"])
+    by_prefix = {name + ".": f for name, f in flips.items()}
+    n_flipped = sum(f["flipped"] for f in flips.values())
+    share = n_flipped / sum(f["rows"] for f in flips.values())
+    loss_rel = loss_rel_err(got["metrics"], want["metrics"])
+    param_bound = 2 * OptimConfig().lr_g + DP_PARAM_ROUNDING
+    param_err = 0.0
+    errs = {kind: [0.0, 0.0, True] for kind in
+            ("encoder_stat", "stat", "codebook")}
+    for key, w in sd_want.items():
+        g = sd_got[key]
+        if key in params:
+            param_err = max(param_err, float((g - w).abs().max()))
+            continue
+        if key.endswith("num_batches_tracked"):
+            if not torch.equal(g, w):
+                fail(f"{what}: {key} differs")
+            continue
+        # |got - want| <= rel * scale + abs: a running mean's scale is its
+        # standard deviation, a running variance's itself, a codeword's
+        # (a column of embed and embed_avg) its RMS, a cluster size exact
+        if key.endswith(("running_mean", "running_var")):
+            encoder = is_encoder_layer(key)
+            kind = "encoder_stat" if encoder else "stat"
+            scale = (sd_want[key[:-4] + "var"].sqrt()
+                     if key.endswith("running_mean") else w.abs())
+            rel = tol["stat_rel"] + (0.0 if encoder else 4 * share)
+            absolute = tol["stat_abs"]
+        else:
+            keep = torch.ones(w.shape[-1], dtype=torch.bool)
+            keep[by_prefix[key[:key.rindex(".") + 1]]["codewords"]] = False
+            g, w = g[..., keep], w[..., keep]
+            kind = "codebook"
+            if key.endswith("cluster_size"):
+                scale, rel, absolute = w.abs(), 0.0, 0.0
+            else:
+                scale = w.square().mean(0, keepdim=True).sqrt()
+                rel, absolute = tol["codebook_rel"], tol["codebook_abs"]
+        d = (g - w).abs()
+        err = errs[kind]
+        err[0] = max(err[0], float(d.max()))
+        err[1] = max(err[1], float((d / scale.clamp_min(1e-30)).max()))
+        err[2] &= bool((d <= rel * scale + absolute).all())
+    bounded = n_flipped == 0
+    out = {"loss_max_rel_err": loss_rel,
+           "loss_bound": tol["loss_rel"] + share,
+           "param_max_abs_err": param_err, "param_bound": param_bound,
+           "lookup_rows": {n: f["rows"] for n, f in flips.items()},
+           "flipped_rows": {n: f["flipped"] for n, f in flips.items()},
+           "codewords_left_out": {n: int(f["codewords"].numel())
+                                  for n, f in flips.items()},
+           **{f"{kind}_max_abs_err": e[0] for kind, e in errs.items()},
+           **{f"{kind}_max_err_of_scale": e[1] for kind, e in errs.items()},
+           "decoder_stat_bound": tol["stat_rel"] + 4 * share,
+           "gradients_bounded": bounded, "tol": tol}
+    if grads:
+        g_got, g_want = got["g_grads"], want["g_grads"]
+        rel = {n: float((g_got[n] - g_want[n]).norm()
+                        / max(float(g_want[n].norm()), 1e-30)) for n in g_want}
+        flat = [torch.cat([g[n].ravel() for n in g_want])
+                for g in (g_got, g_want)]
+        out["grad_max_rel_err_tensor"] = max(rel.values())
+        out["grad_rel_err_all"] = float((flat[0] - flat[1]).norm()
+                                        / flat[1].norm())
+        if bounded and (out["grad_max_rel_err_tensor"] > DP_GRAD_REL_TENSOR
+                        or out["grad_rel_err_all"] > DP_GRAD_REL_ALL):
+            fail(f"{what}: gradients differ by {out['grad_max_rel_err_tensor']:.3g}"
+                 f" per tensor, {out['grad_rel_err_all']:.3g} over the "
+                 f"generator (> {DP_GRAD_REL_TENSOR}, {DP_GRAD_REL_ALL})")
+    if loss_rel > out["loss_bound"]:
+        fail(f"{what}: losses differ by {loss_rel:.3g} relative "
+             f"(> {out['loss_bound']:.3g})")
+    if param_err > param_bound:
+        fail(f"{what}: parameters differ by {param_err:.3g} (> Adam's "
+             f"{param_bound:.3g})")
+    for kind in ("encoder_stat", "stat", "codebook"):
+        if not errs[kind][2]:
+            fail(f"{what}: {kind} differs by {errs[kind][0]:.3g}, "
+                 f"{errs[kind][1]:.3g} of its scale (> the bound of {tol})")
+    return out
+
+
+def dp_check_phase(torch, mk, tmp: str) -> dict:
+    """World size 1 (NCCL, a ``file://`` init): one bf16 and one float32
+    stage-2 step of the released configuration (256x256, batch
+    ``DP_BATCH``) with and without the group, from one state and batch,
+    TF32 off and cuDNN deterministic: losses, parameters, BatchNorm
+    statistics and codebooks (and in float32 the gradients) within the
+    bounds above; B2 twice a step on its route (tensor-core in bf16,
+    general in float32); the all-reduces a step; then
+    ``DP_TIMED_STEPS`` more steps each way, ms a step by CUDA events."""
+    import torch.distributed as dist
+
+    from ammcnet_aaai2021_torch.configs import LossConfig
+    from ammcnet_aaai2021_torch.models import BatchNorm2d, set_process_group
+    from ammcnet_aaai2021_torch.train.steps import make_twostream_train_step
+
+    started = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/dp_check_pg",
+                            world_size=1, rank=0)
+    try:
+        batch = {k: v.to(DP_DEVICE) for k, v in dp_batch(torch).items()}
+        out = {}
+        for dtype, route in (("bfloat16", mk.TENSOR_CORE),
+                             ("float32", mk.CUDA_CORE)):
+            state, flownet = dp_setup(torch, dtype)
+            n_bn = sum(isinstance(m, BatchNorm2d)
+                       for m in state.generator.modules())
+            init = train_state_dict(state)
+            runs = {}
+            for grouped in (False, True):
+                group = dist.group.WORLD if grouped else None
+                load_train_state(state, init)
+                set_process_group(state.generator, group)
+                step = make_twostream_train_step(LossConfig(), group=group)
+                run, rec = one_step(torch, mk, state, step, batch, flownet)
+                timed = dp_run(torch, mk, state, step, batch, flownet,
+                               DP_TIMED_STEPS + 1)
+                runs[grouped] = {**run, "record": rec,
+                                 "ms_per_step": timed["ms_per_step"]}
+                want = {"b1": 0, "b2": 2}
+                for kernel, n in want.items():
+                    if run["launches_by_route"][kernel] != {
+                            r: n * (r == route) for r in mk.ROUTES}:
+                        fail(f"dp_check {dtype} (group={grouped}): {kernel} "
+                             f"launched {run['launches_by_route']}, want "
+                             f"{n} a step on {route!r}")
+            plain, grouped = runs[False], runs[True]
+            # a BatchNorm's two all-reduces forward and two backward, one
+            # a memory's EMA, one each of G's and D's gradients, one for the
+            # metrics
+            want_calls = 4 * n_bn + 2 + 2 + 1
+            if plain["all_reduces"] != 0 or grouped["all_reduces"] != want_calls:
+                fail(f"dp_check {dtype}: {grouped['all_reduces']} all-reduces "
+                     f"a step under the group (want {want_calls}), "
+                     f"{plain['all_reduces']} without")
+            res = dp_compare(torch, f"dp_check {dtype}", grouped["record"],
+                             plain["record"],
+                             DP_STEP1 if dtype == "float32" else DP_BF16,
+                             codebooks(init["g"]), grads=dtype == "float32")
+            out[dtype] = {
+                "b2_route": route, **res,
+                "launches_by_route": grouped["launches_by_route"],
+                "plain_ms_per_step": plain["ms_per_step"],
+                "group_ms_per_step": grouped["ms_per_step"],
+                "all_reduces_per_step": grouped["all_reduces"],
+                "batchnorm_layers": n_bn,
+                "g_loss": plain["record"]["metrics"]["g_loss"]}
+            del state, flownet
+    finally:
+        dist.destroy_process_group()
+    emit("dp_check", world_size=1, backend="nccl", batch=DP_BATCH,
+         image_size=IMAGE_SIZE, timed_steps=DP_TIMED_STEPS,
+         seconds=time.perf_counter() - started, **out)
+    return out
+
+
+def spawn_workers(role: str, workdir: str, world: int = 2):
+    """``world`` ranks of this script (``--worker role``), each on the one
+    card."""
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--worker", role,
+         "--rank", str(rank), "--world", str(world), "--workdir", workdir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO) for rank in range(world)]
+
+
+def reap_workers(procs, what: str) -> list:
+    """Each worker's output, every worker ended by its PID whatever
+    happens; fails if one did not exit 0."""
+    outs = []
+    try:
+        outs = [p.communicate(timeout=WORKER_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    for rank, (p, text) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            print(text[-6000:], file=sys.stderr, flush=True)
+            fail(f"{what}: rank {rank} exited {p.returncode}")
+    return outs
+
+
+def worker_group(torch, rank: int, world: int, workdir: str):
+    """Join the workers' gloo group (CUDA tensors ride through the host:
+    NCCL refuses two ranks on one card)."""
+    import datetime
+
+    from ammcnet_aaai2021_torch.parallel import initialize
+
+    initialize(backend="gloo", init_method=f"file://{workdir}/pg",
+               world_size=world, rank=rank,
+               timeout=datetime.timedelta(seconds=WORKER_TIMEOUT_S))
+
+
+def dp_worker(torch, mk, rank: int, world: int, workdir: str) -> None:
+    """One rank of ``dp_path``: its shard of the global batch, the step
+    under the gloo group, ``DP_STEPS`` float32 steps then ``DP_STEPS``
+    bf16 steps from the same seeded state.  Rank 0 writes the float32
+    run's train state before its first step (``before.pt``) and after each
+    step with the step's record (``after_<i>_0.pt``), rank 1 its latents
+    of each step (``after_<i>_1.pt``); each rank writes its runs and its
+    last generator state (``out_<rank>.pt``)."""
+    import torch.distributed as dist
+
+    from ammcnet_aaai2021_torch.configs import LossConfig
+    from ammcnet_aaai2021_torch.parallel import (make_global_batch, replicate,
+                                                 shard_batch)
+    from ammcnet_aaai2021_torch.train.steps import make_twostream_train_step
+
+    def snapshot(i, state, metrics, latents):
+        path = os.path.join(workdir, f"after_{i}_{rank}.pt")
+        if rank != 0:  # its memories' rows; rank 0 writes the rest
+            torch.save({"latents": host_rows(latents)}, path)
+            return
+        torch.save({**step_record(state, metrics, latents),
+                    "train_state": train_state_dict(state)}, path)
+
+    train_flags(torch)
+    worker_group(torch, rank, world, workdir)
+    try:
+        group = dist.group.WORLD
+        batch = make_global_batch(shard_batch(dp_batch(torch), rank, world),
+                                  DP_DEVICE, group)
+        out = {}
+        for dtype in ("float32", "bfloat16"):
+            state, flownet = dp_setup(torch, dtype, group)
+            replicate(state.generator, group)
+            replicate(state.discriminator, group)
+            step = make_twostream_train_step(LossConfig(), group=group)
+            keep = dtype == "float32"
+            if keep and rank == 0:
+                torch.save(train_state_dict(state),
+                           os.path.join(workdir, "before.pt"))
+            out[dtype] = dp_run(torch, mk, state, step, batch, flownet,
+                                DP_STEPS, record=snapshot if keep else None)
+            if dtype == "float32":
+                out["float32_state"] = host_copy(state.generator.state_dict())
+            del state, flownet
+        torch.save(out, os.path.join(workdir, f"out_{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def dp_path_phase(torch, mk, tmp: str) -> dict:
+    """Two ranks on the one card (gloo, CUDA tensors), ``DP_BATCH //
+    2`` samples each of the global batch: ``DP_STEPS`` float32 steps, each
+    held against one process's step on the global batch from the same
+    state (rank 0's state before that step): losses, gradients,
+    parameters, BatchNorm statistics and codebooks within the one-step
+    bounds above; the ranks' metrics and states bitwise equal; then
+    ``DP_STEPS`` bf16 steps; each rank's B2 launches (twice a step, on the
+    route of each dtype), all-reduces and ms a step."""
+    from ammcnet_aaai2021_torch.configs import LossConfig
+    from ammcnet_aaai2021_torch.train.steps import make_twostream_train_step
+
+    workdir = os.path.join(tmp, "dp_path")
+    os.makedirs(workdir)
+    torch.cuda.empty_cache()  # the card's memory to the two ranks
+    started = time.perf_counter()
+    reap_workers(spawn_workers("dp", workdir), "dp_path")
+    wall = time.perf_counter() - started
+    ranks = [torch.load(os.path.join(workdir, f"out_{r}.pt"),
+                        weights_only=False) for r in range(2)]
+    for key, val in ranks[0]["float32_state"].items():
+        if not torch.equal(ranks[1]["float32_state"][key], val):
+            fail(f"dp_path: the ranks' {key} differ")
+    if ranks[0]["float32"]["metrics"] != ranks[1]["float32"]["metrics"]:
+        fail("dp_path: the ranks report different metrics")
+    state, flownet = dp_setup(torch, "float32")
+    step = make_twostream_train_step(LossConfig())
+    batch = {k: v.to(DP_DEVICE) for k, v in dp_batch(torch).items()}
+    before = torch.load(os.path.join(workdir, "before.pt"),
+                        weights_only=False)
+    per_step = []
+    for i in range(DP_STEPS):
+        load_train_state(state, before)
+        _, want = one_step(torch, mk, state, step, batch, flownet)
+        got, other = (torch.load(os.path.join(workdir, f"after_{i}_{r}.pt"),
+                                 weights_only=False) for r in range(2))
+        # the global batch's rows: rank 0's samples, then rank 1's
+        got["latents"] = {name: {k: torch.cat([v, other["latents"][name][k]])
+                                 for k, v in rows.items()}
+                          for name, rows in got["latents"].items()}
+        embeds = codebooks(before["g"])
+        before = got.pop("train_state")
+        per_step.append(dp_compare(torch, f"dp_path step {i + 1}", got, want,
+                                   DP_STEP1, embeds, grads=True))
+    del state, flownet, batch, before
+    routes = {"float32": mk.CUDA_CORE, "bfloat16": mk.TENSOR_CORE}
+    for rank, out in enumerate(ranks):
+        for dtype, route in routes.items():
+            n = 2 * DP_STEPS
+            if out[dtype]["launches_by_route"]["b2"] != {
+                    r: n * (r == route) for r in mk.ROUTES}:
+                fail(f"dp_path rank {rank} {dtype}: B2 launched "
+                     f"{out[dtype]['launches_by_route']['b2']}, want {n} on "
+                     f"{route!r}")
+    res = {"ranks": 2, "backend": "gloo (CUDA tensors)",
+           "batch_per_rank": DP_BATCH // 2, "global_batch": DP_BATCH,
+           "image_size": IMAGE_SIZE, "steps": DP_STEPS, "wall_s": wall,
+           "float32_by_step": per_step,
+           "b2_launches_by_rank": {
+               dtype: [out[dtype]["launches_by_route"]["b2"]
+                       for out in ranks] for dtype in routes},
+           "all_reduces_by_rank": {
+               dtype: [out[dtype]["all_reduces"] for out in ranks]
+               for dtype in routes},
+           "ms_per_step_by_rank": {
+               dtype: [out[dtype]["ms_per_step"] for out in ranks]
+               for dtype in routes},
+           "g_loss_by_step": {dtype: [m["g_loss"] for m in
+                                      ranks[0][dtype]["metrics"]]
+                              for dtype in routes},
+           "seconds": time.perf_counter() - started}
+    emit("dp_path", **res)
+    return res
+
+
+def write_scoring_tree(root: str, lengths) -> str:
+    """``write_ped2_tree``'s split of these lengths; a cut split carries its
+    videos' ped2 events in the toydata label format, since the builtin ped2
+    labels need all 12 videos.  Returns the dataset name ``run_test``
+    takes."""
+    write_ped2_tree(root, lengths)
+    if len(lengths) == len(PED2_TEST_LENGTHS):
+        return "ped2"
+    os.rename(os.path.join(root, "ped2"), os.path.join(root, "toydata"))
+    with open(os.path.join(root, "toydata", "toydata.json"), "w") as fh:
+        json.dump({f"{vi:02d}": {"length": t, "gt": [[s - 1, e - 1]]}
+                   for vi, (t, (s, e)) in enumerate(
+                       zip(lengths, PED2_EVENTS), start=1)}, fh)
+    return "toydata"
+
+
+def score_worker(torch, mk, rank: int, world: int, workdir: str) -> None:
+    """One rank of ``mh_score``: ``run_test.main`` on the split under
+    ``workdir`` with every count set to 0 just before; prints its B1
+    launches and result as the JSON line ``MH_RESULT``."""
+    import torch.distributed as dist
+
+    from ammcnet_aaai2021_torch.runners import run_test
+
+    train_flags(torch)  # as the single-process run's
+    worker_group(torch, rank, world, workdir)
+    try:
+        with open(os.path.join(workdir, "argv.json")) as fh:
+            argv = json.load(fh)
+        reset_launches(mk)
+        res = run_test.main(argv)
+        torch.cuda.synchronize()
+        print("MH_RESULT " + json.dumps({
+            "rank": rank, "return": res,
+            "b1_launches_by_route": dict(
+                mk.quantize_topk_fused.launches_by_route)}, default=float),
+            flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def mh_score_phase(torch, mk, tmp: str) -> dict:
+    """``run_test`` on ``main_path``'s split cut to ``MH_LENGTHS`` (the same
+    seeded frames, flows and weights) by two ranks on the one card (gloo)
+    and by this process: rank 0's merged records bitwise the single run's,
+    the same "the optimal auc =" line, rank 1 returning ``{"fps",
+    "rank"}``, B1 twice a forward of each rank's videos on its tensor-core
+    route, and the run's shard directory gone."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.runners import run_test
+
+    started = time.perf_counter()
+    workdir = os.path.join(tmp, "mh_score")
+    os.makedirs(workdir)
+    dataset = write_scoring_tree(workdir, MH_LENGTHS)
+    base = ["--dataset_name", dataset, "--data_dir", workdir,
+            "--device", DP_DEVICE]
+    multi_dir = os.path.join(workdir, "eval_multi")
+    with open(os.path.join(workdir, "argv.json"), "w") as fh:
+        json.dump(base + ["--save_dir", multi_dir], fh)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs = spawn_workers("score", workdir)
+    outs = reap_workers(procs, "mh_score")
+    wall = time.perf_counter() - t0
+    results = [json.loads(next(line for line in out.splitlines()
+                               if line.startswith("MH_RESULT "))[10:])
+               for out in outs]
+    stdout = io.StringIO()
+    reset_launches(mk)
+    with contextlib.redirect_stdout(stdout):
+        single = run_test.main(base + ["--save_dir",
+                                       os.path.join(workdir, "eval_single")])
+    torch.cuda.synchronize()
+    single_b1 = dict(mk.quantize_topk_fused.launches_by_route)
+
+    def auc_line(text):
+        return next((line for line in text.splitlines()
+                     if "the optimal auc = " in line), None)
+
+    if auc_line(outs[0]) is None or auc_line(outs[0]) != auc_line(
+            stdout.getvalue()):
+        fail(f"mh_score: rank 0 printed {auc_line(outs[0])!r}, one process "
+             f"{auc_line(stdout.getvalue())!r}")
+    if set(results[1]["return"]) != {"fps", "rank"} or results[1][
+            "return"]["rank"] != 1:
+        fail(f"mh_score: rank 1 returned {results[1]['return']}")
+    with open(single["pickle"], "rb") as fh:
+        want = pickle.load(fh)
+    with open(results[0]["return"]["pickle"], "rb") as fh:
+        got = pickle.load(fh)
+    keys = ("rgb_img_pred_records", "rgb_fea_comm_records",
+            "op_img_pred_records", "op_fea_comm_records")
+    if set(got) != set(want) or got["dataset"] != want["dataset"]:
+        fail(f"mh_score: merged keys {sorted(got)}, want {sorted(want)}")
+    for key in keys:
+        if len(got[key]) != len(MH_LENGTHS) or not all(
+                g.dtype == w.dtype and np.array_equal(g, w)
+                for g, w in zip(got[key], want[key])):
+            fail(f"mh_score: rank 0's merged {key} is not bitwise the single "
+                 "process's")
+    leftovers = os.listdir(os.path.join(multi_dir, "record_shards"))
+    if leftovers:
+        fail(f"mh_score: shard directories left behind: {leftovers}")
+    # round robin: rank r scores videos r, r + 2; one forward a video
+    # (window_batch 192 covers every Ped2 length)
+    want_b1 = [2 * len(MH_LENGTHS[r::2]) for r in range(2)]
+    for r, res in enumerate(results):
+        if res["b1_launches_by_route"] != {
+                route: want_b1[r] * (route == mk.TENSOR_CORE)
+                for route in mk.ROUTES}:
+            fail(f"mh_score rank {r}: B1 launched "
+                 f"{res['b1_launches_by_route']}, want {want_b1[r]} on "
+                 f"{mk.TENSOR_CORE!r}")
+    if single_b1[mk.TENSOR_CORE] != sum(want_b1):
+        fail(f"mh_score: one process launched B1 {single_b1}")
+    out = {"ranks": 2, "backend": "gloo", "videos": len(MH_LENGTHS),
+           "frames": sum(MH_LENGTHS), "records_bitwise": True,
+           "auc_line": auc_line(outs[0]), "auc": single["auc"],
+           "two_rank_wall_s": wall,
+           "fps_by_rank": [results[0]["return"]["fps"],
+                           results[1]["return"]["fps"]],
+           "single_fps": single["fps"],
+           "b1_launches_by_rank": [res["b1_launches_by_route"]
+                                   for res in results],
+           "single_b1_launches": single_b1,
+           "seconds": time.perf_counter() - started}
+    emit("mh_score", **out)
+    return out
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--videos", type=int, default=len(PED2_TEST_LENGTHS),
                         help="ped2-shaped videos in the main path (cut only "
                              "to fit a time limit)")
+    # one rank of dp_path or mh_score, started by those phases
+    parser.add_argument("--worker", choices=["dp", "score"],
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--rank", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--world", type=int, help=argparse.SUPPRESS)
+    parser.add_argument("--workdir", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
 
     started = time.perf_counter()
@@ -2927,6 +3640,11 @@ def main(argv=None) -> None:
     sys.path.insert(0, REPO)
     from ammcnet_aaai2021_torch.ops import cuda_build
     from ammcnet_aaai2021_torch.ops import memory_kernels as mk
+
+    if args.worker:
+        worker = {"dp": dp_worker, "score": score_worker}[args.worker]
+        worker(torch, mk, args.rank, args.world, args.workdir)
+        return
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2974,6 +3692,10 @@ def main(argv=None) -> None:
     train_check_phase(torch, mk)
     remat = remat_check_phase(torch, mk)
     family = family_path_phase(torch, mk)
+    with tempfile.TemporaryDirectory() as tmp:
+        dp_check = dp_check_phase(torch, mk, tmp)
+        dp_path = dp_path_phase(torch, mk, tmp)
+        mh_score = mh_score_phase(torch, mk, tmp)
     torch.backends.cudnn.deterministic = deterministic
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
     train_run = train_path_phase(torch, mk)
@@ -3052,7 +3774,12 @@ def main(argv=None) -> None:
                              "remat_step": remat["remat_launches_by_route"][
                                  "b1"],
                              **stage1_launches("b1"),
-                             "family_eval": family_launches("eval", "b1")},
+                             "family_eval": family_launches("eval", "b1"),
+                             "mh_score_by_rank": [
+                                 r[mk.TENSOR_CORE] for r in
+                                 mh_score["b1_launches_by_rank"]],
+                             "mh_score_single": mh_score[
+                                 "single_b1_launches"][mk.TENSOR_CORE]},
         "max_abs_err": max(v["max_abs_err"] for v in (
             *checks.values(), *family_rows("quantize_topk_fused").values())),
         "flips": bf16["flips"],
@@ -3097,7 +3824,12 @@ def main(argv=None) -> None:
                              "plain_step": remat["plain_launches_by_route"][
                                  "b2"],
                              **stage1_launches("b2"),
-                             "family_train": family_launches("train", "b2")},
+                             "family_train": family_launches("train", "b2"),
+                             "dp_check_group_step": {
+                                 dtype: dp_check[dtype]["launches_by_route"][
+                                     "b2"] for dtype in dp_check},
+                             "dp_path_by_rank": dp_path[
+                                 "b2_launches_by_rank"]},
         "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"], *(
             row["max_abs_err"] for row in family_rows(
                 "quantize_topk_train_fused").values())),

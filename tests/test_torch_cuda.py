@@ -17,6 +17,10 @@ geometries, the colour kernel on chunks of each subsampling, and a colour
 chunk's one colour launch.
 A remat stage-2 step at full width is held against the plain step, and
 a JAX-format ``.msgpack`` generator against its weights through B1.
+Under a process group of one rank (NCCL), the group BatchNorm is held
+against the plain one (two-pass float32 statistics against ATen's: 1e-5)
+and the group lookup on B2 against the lookup without a group (bitwise:
+one rank's all-reduce returns its input).
 The int8 convolution kernels are held against their plain versions
 bitwise: accumulators and epilogue; the int8 calibration reads JPEG
 training frames through the GPU route as its plain pipeline reads them.
@@ -30,6 +34,7 @@ embed_sum the plain sum over those indices within 1e-5 of the magnitude
 summed into each entry (another summation order).
 """
 
+import copy
 import os
 
 import numpy as np
@@ -44,6 +49,7 @@ from ammcnet_aaai2021_torch.data.kernel_sweeps import (
     ycc_sweep,
 )
 from ammcnet_aaai2021_torch.models import (
+    BatchNorm2d,
     TopKMemory,
     build_generator,
     build_model,
@@ -1129,3 +1135,53 @@ def test_int8_transposed_conv_kernel_matches_plain_version(cuda_device,
                                               acc=acc)
         assert got.dtype == want.dtype and torch.equal(got, want)
     assert ik.qconv_transpose2x2_int8.launches == before + 2
+
+
+@pytest.mark.cuda
+def test_world_size_one_group_equals_the_plain_batchnorm_and_b2(cuda_device,
+                                                                tmp_path):
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'pg'}",
+                            world_size=1, rank=0)
+    try:
+        g = torch.Generator(device=cuda_device).manual_seed(41)
+        x0 = torch.randn(4, 64, 32, 32, device=cuda_device, generator=g) * 2 + 0.5
+        grad_out = torch.randn(x0.shape, device=cuda_device, generator=g)
+        plain = BatchNorm2d(64).to(cuda_device).train()
+        with torch.no_grad():
+            plain.weight.uniform_(0.5, 1.5, generator=g)
+            plain.bias.uniform_(-0.5, 0.5, generator=g)
+        grouped = copy.deepcopy(plain)
+        grouped.group = dist.group.WORLD
+        outs = []
+        for layer in (plain, grouped):
+            x = x0.clone().requires_grad_()
+            y = layer(x)
+            (y * grad_out).sum().backward()
+            outs.append((y.detach(), x.grad, layer.weight.grad,
+                         layer.bias.grad, layer.running_mean,
+                         layer.running_var))
+        for want, got in zip(*outs):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+        for dtype, route in ((torch.bfloat16, TENSOR_CORE),
+                             (torch.float32, CUDA_CORE)):
+            z = (torch.randn(4, 32, 32, DIM, device=cuda_device, generator=g)
+                 * 0.5).to(dtype)
+            embed = torch.randn(DIM, 256, device=cuda_device, generator=g)
+            cb = Codebook(embed, torch.zeros(256, device=cuda_device),
+                          embed.clone())
+            runs = []
+            for group in (None, dist.group.WORLD):
+                before = dict(quantize_topk_train_fused.launches_by_route)
+                *_, new = quantize_topk(z, cb, K, train=True, use_kernel=True,
+                                        group=group)
+                torch.cuda.synchronize()
+                took = {r: c - before[r] for r, c in
+                        quantize_topk_train_fused.launches_by_route.items()}
+                assert took == {r: int(r == route) for r in took}
+                runs.append(new)
+            assert all(torch.equal(a, b) for a, b in zip(*runs))
+    finally:
+        dist.destroy_process_group()

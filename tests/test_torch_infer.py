@@ -13,6 +13,7 @@
   loader, on-the-fly flow and the gray upload (one FlowNet2-SD ``.pth``),
   and with ``--int8`` on a short tree: the records to 1e-4 of their scale
   and the same printed result line;
+* ``GroundTruthLoader.get_pixel_masks_file_list`` against the JAX one;
 * the port and ``chip_smoke.py`` import nothing of JAX.
 """
 
@@ -30,6 +31,7 @@ import torch
 
 from ammcnet_aaai2021_tpu.configs import NetConfig as JNetConfig
 from ammcnet_aaai2021_tpu.eval import infer as jinfer
+from ammcnet_aaai2021_tpu.eval.gt import GroundTruthLoader as JGroundTruthLoader
 from ammcnet_aaai2021_tpu.eval.scoring import evaluate as j_evaluate
 from ammcnet_aaai2021_tpu.ops import metrics as jmetrics
 from ammcnet_aaai2021_tpu.models import build_generator as j_build_generator
@@ -222,6 +224,35 @@ def test_run_test_cli_on_cpu(toy_tree, tmp_path, capsys):
     lam = FUSION_LAMBDAS["toydata"]
     assert res["auc"] == evaluate(str(pickle_path), lam=lam, gt=gt)["auc"]
     assert res["auc"] == j_evaluate(str(pickle_path), lam=lam, gt=gt)["auc"]
+
+
+def _pixel_mask_layout(tmp_path, videos, masks):
+    """An avenue-shaped test split's frame folders and pixel-mask files
+    (tests/test_eval_spine.py:339-347)."""
+    frames = tmp_path / "avenue" / "testing" / "frames"
+    for v in videos:
+        (frames / v).mkdir(parents=True)
+    mask_dir = tmp_path / "avenue" / "pixel_masks"
+    mask_dir.mkdir(parents=True)
+    for m in masks:
+        np.save(mask_dir / m, np.zeros((2, 4, 4), np.uint8))
+    return str(tmp_path)
+
+
+def test_pixel_masks_match_the_jax_loader_on_a_subset(tmp_path):
+    root = _pixel_mask_layout(tmp_path, ["01", "02", "03", "04"], ["02", "04"])
+    files, ids = GroundTruthLoader(root).get_pixel_masks_file_list("avenue")
+    assert ids == [1, 3]
+    assert [f.endswith(("02.npy", "04.npy")) for f in files] == [True, True]
+    assert (files, ids) == JGroundTruthLoader(root).get_pixel_masks_file_list(
+        "avenue")
+
+
+def test_pixel_mask_without_a_video_is_rejected_as_by_jax(tmp_path):
+    root = _pixel_mask_layout(tmp_path, ["01", "02"], ["02", "99"])
+    for loader in (GroundTruthLoader(root), JGroundTruthLoader(root)):
+        with pytest.raises(ValueError, match="99"):
+            loader.get_pixel_masks_file_list("avenue")
 
 
 def test_run_test_cuda_without_gpu_raises(toy_tree, tmp_path):
@@ -424,6 +455,9 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
         "ammcnet_aaai2021_torch.ops.memory",
         "ammcnet_aaai2021_torch.ops.memory_kernels",
         "ammcnet_aaai2021_torch.ops.metrics",
+        "ammcnet_aaai2021_torch.parallel",
+        "ammcnet_aaai2021_torch.parallel.mesh",
+        "ammcnet_aaai2021_torch.parallel.multihost",
         "ammcnet_aaai2021_torch.runners.run_test",
         "ammcnet_aaai2021_torch.runners.run_train",
         "ammcnet_aaai2021_torch.tools.jax_checkpoint",

@@ -23,6 +23,9 @@ Tolerances and their reasons:
   shapes, and the difference grows with depth from the loss (1e-6 at the
   output convolution).  Post-Adam parameters are not compared: Adam's first
   step is about lr * sign(g) and would amplify those differences.
+* two ranks of the port's step (gloo, one sample each) against the JAX
+  step on the global batch: the one-step tolerances above; the ranks sum
+  BatchNorm's statistics in another order, which those bounds cover;
 * the remat step against the plain step: parameters 1e-6 absolute after
   the Adam update and g_loss 1e-6 relative (JAX tests/test_train_step.py's
   remat tolerances), buffers bitwise; against the JAX remat step, the
@@ -38,6 +41,7 @@ Tolerances and their reasons:
 """
 
 import copy
+import dataclasses
 import json
 import os
 import pickle
@@ -188,7 +192,7 @@ def test_train_wrapper_rejects_a_tensor_core_route_the_rule_does_not_give():
         assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
-def test_ema_apply_matches_jax():
+def test_ema_apply_matches_jax(tmp_path):
     rng = np.random.default_rng(2)
     embed = rng.normal(size=(DIM, N_EMBED)).astype(np.float32)
     cs = rng.uniform(0, 5, N_EMBED).astype(np.float32)
@@ -201,9 +205,18 @@ def test_ema_apply_matches_jax():
                            torch.from_numpy(counts), torch.from_numpy(esum))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-6, atol=1e-7)
-    with pytest.raises(NotImplementedError, match="multi-process"):
-        memory.ema_apply(got, torch.from_numpy(counts), torch.from_numpy(esum),
-                         axis_name="data")
+    # under a group of one rank the all-reduce is the identity
+    # (tests/test_torch_multihost.py holds two ranks)
+    torch.distributed.init_process_group(
+        "gloo", init_method=f"file://{tmp_path / 'pg'}", world_size=1, rank=0)
+    try:
+        grouped = memory.ema_apply(
+            memory.Codebook(*map(torch.from_numpy, (embed, cs, avg))),
+            torch.from_numpy(counts), torch.from_numpy(esum),
+            group=torch.distributed.group.WORLD)
+    finally:
+        torch.distributed.destroy_process_group()
+    assert all(torch.equal(g, w) for g, w in zip(grouped, got))
 
 
 @pytest.mark.parametrize("st_mode", ["top1", "topk"])
@@ -398,10 +411,20 @@ def test_configs_match_jax(tmp_path):
     assert OptimConfig().__dict__ == JOptimConfig().__dict__
     cfg = configs.preset("ped2", data_dir="/d")
     assert configs.ExperimentConfig.from_json(cfg.to_json()) == cfg
-    # a config the JAX package wrote loads (its extra sections are ignored)
+    # a config the JAX package wrote loads, its parallel section too
     back = configs.ExperimentConfig.from_json(
         jconfigs.preset("ped2", data_dir="/d").to_json())
     assert back.net.n_embed == 256 and back.loss == cfg.loss
+    assert back.parallel == configs.ParallelConfig() == cfg.parallel
+    assert (configs.ParallelConfig().__dict__
+            == jconfigs.ParallelConfig().__dict__)
+    jcfg = dataclasses.replace(
+        jconfigs.preset("ped2"),
+        parallel=jconfigs.ParallelConfig(data_axis=2,
+                                         mesh_axes=("data", "model")))
+    back = configs.ExperimentConfig.from_json(jcfg.to_json())
+    assert back.parallel == configs.ParallelConfig(2, ("data", "model"))
+    assert configs.ExperimentConfig.from_json(back.to_json()) == back
     run_dir = registry.register_run(str(tmp_path / "reg.json"), configs.ExperimentConfig(
         save_dir=str(tmp_path), exp_tag="e1"))
     assert registry.resolve_run(str(tmp_path / "reg.json"), "e1") == run_dir
@@ -680,6 +703,67 @@ def test_remat_step_matches_the_jax_remat_step(remat_pair):
             np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
                                        atol=1e-5,
                                        err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.fixture(scope="module")
+def two_rank_step(step_pair, tmp_path_factory):
+    """step_pair's port step on two gloo ranks of one sample each
+    (``tests/torch_dp_worker.py``), from the same state, discriminator and
+    FlowNet: rank 0's and rank 1's ``run_steps`` record."""
+    from torch_dp_worker import launch
+
+    *_, init, batch, flownet = step_pair
+    jd = JDisc(dtype=jnp.float32)
+    d_params = jd.init({"params": jax.random.PRNGKey(4)},
+                       jnp.zeros((1, SIZE, SIZE, 3)))["params"]
+    spec = {"task": "train", "n_embed": N_EMBED, "init": init,
+            "disc": discriminator_state_from_jax(d_params),
+            "flownet": flownet.state_dict(),
+            "batch": {k: torch.from_numpy(v) for k, v in batch.items()},
+            "steps": 1, "remat": False}
+    outs = launch(str(tmp_path_factory.mktemp("two_rank_step")),
+                  {"train": spec})
+    return [out["train"] for out in outs]
+
+
+def test_two_rank_step_matches_the_jax_global_batch_step(step_pair,
+                                                         two_rank_step):
+    """Two ranks of the port (BatchNorm statistics, the EMA statistics,
+    gradients and metrics reduced over the group) against JAX's step on the
+    global batch of 2, at this file's one-step bounds: losses 1e-5,
+    gradients 2e-2 per tensor and 5e-3 over the generator, D's 1e-3,
+    BatchNorm statistics and codebooks 1e-5; both ranks hold the same."""
+    jnew, jmetrics, *_ = step_pair
+    first, other = (out["first"] for out in two_rank_step)
+    metrics = two_rank_step[0]["metrics"][0]
+    assert metrics == two_rank_step[1]["metrics"][0]
+    for k in jmetrics:
+        np.testing.assert_allclose(metrics[k], float(jmetrics[k]), rtol=1e-5,
+                                   err_msg=k)
+    grads = {n: g.numpy() for n, g in first["g_grads"].items()}
+    tg = jax.tree_util.tree_leaves_with_path(convert_twostream(grads)["params"])
+    jg = jax.tree_util.tree_leaves_with_path(jnew.g_opt_state)
+    assert [p for p, _ in tg] == [p for p, _ in jg]
+    for (path, a), (_, b) in zip(tg, jg):
+        assert _rel(a, b) < 2e-2, jax.tree_util.keystr(path)
+    flat = lambda leaves: np.concatenate([np.ravel(x) for _, x in leaves])
+    assert _rel(flat(tg), flat(jg)) < 5e-3
+    for name, leaf in jnew.d_opt_state.items():
+        dg = first["d_grads"]
+        assert _rel(np.transpose(dg[f"{name}.weight"].numpy(), (2, 3, 1, 0)),
+                    leaf["kernel"]) < 1e-3, name
+        assert _rel(dg[f"{name}.bias"].numpy(), leaf["bias"]) < 1e-3, name
+    want = convert_twostream({k: v.numpy() for k, v in first["state"].items()})
+    for col in ("batch_stats", "codebook"):
+        got = jax.tree_util.tree_leaves_with_path(want[col])
+        ref = jax.tree_util.tree_leaves_with_path(jnew.g_state[col])
+        assert [p for p, _ in got] == [p for p, _ in ref]
+        for (path, a), (_, b) in zip(got, ref):
+            np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-5,
+                                       atol=1e-5,
+                                       err_msg=jax.tree_util.keystr(path))
+    for key, val in first["state"].items():
+        assert torch.equal(other["state"][key], val), key
 
 
 def test_fix_branches_trains_only_the_bridge(step_pair):
