@@ -4,8 +4,9 @@ Port of ``ammcnet_aaai2021_tpu/models/quantized.py``, with its function
 names: the released two-stream generator's inference forward (reference
 ``Code/models/unet.py:967-1007``) with every 3x3 conv and 2x2 transposed
 conv in int8, through the port's own kernels (``ops/int8_kernels.py``,
-``csrc/int8_conv.cu``): no PyTorch call computes an int8 convolution on
-the card.
+``csrc/int8_conv.cu``), called as registered ops (``ops/library.py``), so
+the forward exports (``eval/export.py``): no PyTorch call computes an int8
+convolution on the card.
 
 * **BatchNorm folding** at weight preparation
   (:func:`quantize_twostream_variables`, from the port's
@@ -41,13 +42,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.int8_kernels import (
-    CIN_ALIGN,
-    COLS_ALIGN,
-    pad_channels,
-    qconv3x3_int8,
-    qconv_transpose2x2_int8,
-)
+from ..ops.int8_kernels import CIN_ALIGN, COLS_ALIGN, pad_channels
+from ..ops.library import qconv3x3_int8, qconv_transpose2x2_int8
 from .memory_module import EncQuanDecResTopK
 
 _BN_EPS = 1e-5

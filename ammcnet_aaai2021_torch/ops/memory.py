@@ -11,7 +11,9 @@ the commit distance ``mean((sg[q] - z)^2)``.  Layout is the JAX package's:
 The lookup carries no gradient (indices are integers, the codebook is a
 buffer); the encoder's only gradient from this op is the commit distance's.
 The EMA statistics of a training lookup come from kernel B2
-(:func:`~.memory_kernels.quantize_topk_train_fused`) in either
+(:func:`~.memory_kernels.quantize_topk_train_fused`, called as the
+registered op ``ammcnet::quantize_topk_train``, ``ops/library.py``, as B1
+is as ``ammcnet::quantize_topk``) in either
 straight-through mode, else from :func:`ema_update`.  The JAX package takes
 its Pallas training kernel in ``"top1"`` mode only, because ``pallas_call``
 has no VJP; in ``"topk"`` mode every use of the lookup's output is detached
@@ -26,12 +28,8 @@ import torch
 import torch.distributed as dist
 
 from ..parallel.multihost import all_reduce_sum
-from .memory_kernels import (
-    exact_fp32_matmul,
-    quantize_topk_fused,
-    quantize_topk_train_fused,
-    topk_smallest,
-)
+from .library import quantize_topk_fused, quantize_topk_train_fused
+from .memory_kernels import exact_fp32_matmul, topk_smallest
 
 
 class Codebook(NamedTuple):

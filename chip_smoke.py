@@ -53,7 +53,16 @@ Phases, one JSON line each; any failure exits non-zero:
    ped2-shaped split, records bitwise equal and B1 twice a forward on its
    tensor-core route; an orbax step dir of the same variables raises
    ``ImportError`` naming tensorstore and the converter (or, where
-   tensorstore is installed, scores the same records);
+   tensorstore is installed, scores the same records); then
+   ``export_path``: ``runners.export_model --check`` exports the chunk
+   scorer of the released configuration (bf16, then ``--int8`` calibrated
+   on 32 training clips) for 2 Ped2-length videos bucket-padded to 192
+   frames; each artifact, loaded through ``eval.export`` alone, scores the
+   split's first 2 videos within 1e-3/1e-2 of the live scorer, launches
+   B1 twice a forward on its tensor-core route (and the int8 one every
+   3x3 and transposed conv on the int8 kernels), and refuses to load for
+   the CPU; the int8 records correlate >= 0.99 with the bf16 ones; sizes,
+   export and load seconds, and ms a chunk live and loaded;
 6. train check: one float32 training step of the released generator at
    256x256, batch 4, through the kernels and through plain PyTorch; then
    ``remat_check``: one bf16 step at full width with ``remat=False`` and
@@ -93,7 +102,19 @@ Phases, one JSON line each; any failure exits non-zero:
    --async_checkpoints --step_save 20`` (steps 10 and 20 fetched in one
    copy, the step-20 checkpoint written on the writer thread), resumed
    from it to step 40 with the same flags: every log row in the scalars,
-   the writer thread's step-40 checkpoint restoring bit-exactly;
+   the writer thread's step-40 checkpoint restoring bit-exactly; then
+   ``watch_path``: ``runners.watch_eval --once --sweep`` on that run's
+   step-30 and step-40 checkpoints against the main path's split cut to 3
+   videos (two CSV rows, each AUC ``run_test``'s on the same checkpoint,
+   B1 twice a forward; a second pass scores nothing, the other
+   ``--sweep`` setting raises); then ``tools_path``: ``device_bench
+   --passes 3`` (bf16, ``--int8 --calibrated``, ``--folded``: frames/s
+   with the card's name), the folded forward against the unfolded one at
+   full width (float32, 16 windows, near-tie rule, ``MODEL_TOL``),
+   ``dtype_bench`` over the four levels, ``train_flops --measure`` (B2
+   twice a step) and ``run_recipe`` on a 64x64 ``.npy`` toydata, 10
+   iterations a stage (B2 once a stage-1 and twice a stage-2 step), its
+   AUC line printed;
 8. the stage-1 path: ``runners.run_train.main`` runs the released recipe
    from stage 1 at full width (bf16, batch 4, 256x256): stage 1 rgb and op
    on the device-resident backend, 20 steps each, then stage 2
@@ -899,7 +920,8 @@ class Int8Recorder:
     """Every int8 kernel call of one ``run_test --int8`` run, seen through
     the names ``models/quantized.py`` calls: its two conv helpers (each
     call's site, unpadded input width and record pass) and the two kernel
-    wrappers.  A forward begins where a site repeats.  Every call of the
+    entries (``ops/library.py``, each the registered op over its kernel
+    wrapper).  A forward begins where a site repeats.  Every call of the
     first forward at each batch size is held against its plain version,
     bitwise: the output the forward went on with, and the int32
     accumulators of an uncounted relaunch.  The largest scoring forward
@@ -975,9 +997,11 @@ class Int8Recorder:
     def _check(self, fn, plain, args, kwargs, out) -> None:
         import torch
 
-        launches = fn.launches
+        # the kernel wrapper under the registered op counts the launches
+        wrapper = getattr(self.ik, fn.__name__)
+        launches = wrapper.launches
         acc = fn(*args, **kwargs, acc=True)
-        fn.launches = launches  # a comparison's launch does not count
+        wrapper.launches = launches  # a comparison's launch does not count
         a = inspect.signature(plain).bind(*args, **kwargs)
         a.apply_defaults()
         a = a.arguments
@@ -1006,8 +1030,10 @@ class Int8Recorder:
         if key in self.timing:
             self.timing[key]["sites"].append(self.site)
             return
+        # timed as the kernel wrapper itself, without the op's dispatch
         self.timing[key] = {
-            "fn": fn, "plain": plain, "args": args, "kwargs": kwargs,
+            "fn": getattr(self.ik, fn.__name__), "plain": plain,
+            "args": args, "kwargs": kwargs,
             "sites": [self.site], "true_cin": self.true_cin, "relu": relu,
             "out_bytes": out.numel() * out.element_size(),
             "epilogue": ("int8" if out.element_size() == 1
@@ -1352,122 +1378,123 @@ def check_restore(torch, ckpt_dir: str, state, what: str) -> None:
         fail(f"{what}: the step or schedule did not restore")
 
 
-def train_path_phase(torch, mk) -> dict:
+def train_path_phase(torch, mk, tmp: str) -> dict:
     """``run_train.main`` with the released defaults (bf16, batch 4,
     256x256) for ``TRAIN_STEPS`` steps, then ``--resume`` to
-    ``RESUME_STEPS``.  The kernels' counts are set to 0 just before and read
-    just after."""
+    ``RESUME_STEPS``, its tree and runs under ``tmp`` (the runs stay for
+    watch_path: ``run_dirs`` in the result).  The kernels' counts are set
+    to 0 just before and read just after."""
     from ammcnet_aaai2021_torch.runners import run_train
 
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        write_train_tree(tmp)
-        data_s = time.perf_counter() - t0
-        argv = ["--dataset_name", "ped2", "--data_dir", tmp,
-                "--save_dir", os.path.join(tmp, "runs"),
-                "--registry", os.path.join(tmp, "runs", "registry.json"),
-                "--step_log", "10", "--step_summary", "10",
-                "--step_save", str(TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        reset_launches(mk)
-        t0 = time.perf_counter()
-        run1, state1 = run_train.main(argv + ["--iterations", str(TRAIN_STEPS)])
-        torch.cuda.synchronize()
-        wall1 = time.perf_counter() - t0
-        time.sleep(1.0)  # run dirs are named by the second
-        run2, state2 = run_train.main(argv + ["--iterations", str(RESUME_STEPS),
-                                              "--resume", run1])
-        torch.cuda.synchronize()
-        b1 = mk.quantize_topk_fused.launches
-        b1_by_route = dict(mk.quantize_topk_fused.launches_by_route)
-        b2 = mk.quantize_topk_train_fused.launches
-        b2_by_route = dict(mk.quantize_topk_train_fused.launches_by_route)
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    os.makedirs(tmp)
+    t0 = time.perf_counter()
+    write_train_tree(tmp)
+    data_s = time.perf_counter() - t0
+    argv = ["--dataset_name", "ped2", "--data_dir", tmp,
+            "--save_dir", os.path.join(tmp, "runs"),
+            "--registry", os.path.join(tmp, "runs", "registry.json"),
+            "--step_log", "10", "--step_summary", "10",
+            "--step_save", str(TRAIN_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    run1, state1 = run_train.main(argv + ["--iterations", str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    time.sleep(1.0)  # run dirs are named by the second
+    run2, state2 = run_train.main(argv + ["--iterations", str(RESUME_STEPS),
+                                          "--resume", run1])
+    torch.cuda.synchronize()
+    b1 = mk.quantize_topk_fused.launches
+    b1_by_route = dict(mk.quantize_topk_fused.launches_by_route)
+    b2 = mk.quantize_topk_train_fused.launches
+    b2_by_route = dict(mk.quantize_topk_train_fused.launches_by_route)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
 
-        scalars = [read_scalars(run1), read_scalars(run2)]
-        for sc in scalars:
-            for tag, vals in sc.items():
-                if not all(math.isfinite(v) for v in vals.values()):
-                    fail(f"training path: scalar {tag} not finite: {vals}")
-        if b2 != 2 * RESUME_STEPS:
-            fail(f"B2 launched {b2} times in the training path, want 2 per "
-                 f"step = {2 * RESUME_STEPS}")
-        if b2_by_route[mk.TENSOR_CORE] != b2:
-            fail(f"B2 launches by route in the training path {b2_by_route}:"
-                 f" want all {b2} on {mk.TENSOR_CORE!r}")
-        log_steps = RESUME_STEPS // 10
-        if b1 != 2 * log_steps:
-            fail(f"B1 launched {b1} times in the training path, want 2 per "
-                 f"train-PSNR forward = {2 * log_steps}")
-        if b1_by_route[mk.TENSOR_CORE] != b1:
-            fail(f"B1 launches by route in the training path {b1_by_route}:"
-                 f" want all {b1} on {mk.TENSOR_CORE!r}")
-        cs = state2.generator.rgb.vq_down3.quan.quantize.cluster_size
-        if not bool(cs.any()):
-            fail("training path: cluster_size did not move from its zeros")
-        if state2.step != RESUME_STEPS:
-            fail(f"resumed run ended at step {state2.step}")
-        log_dir = os.path.join(run2, "log_dir")
-        with open(os.path.join(log_dir, "info.log")) as fh:
-            log = fh.read()
-        if f"training steps {TRAIN_STEPS + 1} to {RESUME_STEPS}" not in log:
-            fail(f"the resumed run did not start at step {TRAIN_STEPS + 1}")
+    scalars = [read_scalars(run1), read_scalars(run2)]
+    for sc in scalars:
+        for tag, vals in sc.items():
+            if not all(math.isfinite(v) for v in vals.values()):
+                fail(f"training path: scalar {tag} not finite: {vals}")
+    if b2 != 2 * RESUME_STEPS:
+        fail(f"B2 launched {b2} times in the training path, want 2 per "
+             f"step = {2 * RESUME_STEPS}")
+    if b2_by_route[mk.TENSOR_CORE] != b2:
+        fail(f"B2 launches by route in the training path {b2_by_route}:"
+             f" want all {b2} on {mk.TENSOR_CORE!r}")
+    log_steps = RESUME_STEPS // 10
+    if b1 != 2 * log_steps:
+        fail(f"B1 launched {b1} times in the training path, want 2 per "
+             f"train-PSNR forward = {2 * log_steps}")
+    if b1_by_route[mk.TENSOR_CORE] != b1:
+        fail(f"B1 launches by route in the training path {b1_by_route}:"
+             f" want all {b1} on {mk.TENSOR_CORE!r}")
+    cs = state2.generator.rgb.vq_down3.quan.quantize.cluster_size
+    if not bool(cs.any()):
+        fail("training path: cluster_size did not move from its zeros")
+    if state2.step != RESUME_STEPS:
+        fail(f"resumed run ended at step {state2.step}")
+    log_dir = os.path.join(run2, "log_dir")
+    with open(os.path.join(log_dir, "info.log")) as fh:
+        log = fh.read()
+    if f"training steps {TRAIN_STEPS + 1} to {RESUME_STEPS}" not in log:
+        fail(f"the resumed run did not start at step {TRAIN_STEPS + 1}")
 
-        # the step-30 checkpoint restores the first run's final state exactly
-        check_restore(torch, os.path.join(run1, "training", "checkpoints"),
-                      state1, "the step-30 checkpoint")
+    # the step-30 checkpoint restores the first run's final state exactly
+    check_restore(torch, os.path.join(run1, "training", "checkpoints"),
+                  state1, "the step-30 checkpoint")
 
-        # the long-run loop flags: scalars fetched two periods at a time
-        # (steps 10 and 20 in one copy), a checkpoint written on a writer
-        # thread mid-run (step 20); then resumed from it to step 40 with
-        # the same flags, its step-40 checkpoint also the writer thread's
-        flagged = argv + ["--fetch_every_periods", "2", "--async_checkpoints",
-                          "--step_save", "20"]
-        time.sleep(1.0)
-        torch.cuda.synchronize()
-        reset_launches(mk)
-        t0 = time.perf_counter()
-        run3, state3 = run_train.main(flagged + ["--iterations",
-                                                 str(TRAIN_STEPS)])
-        torch.cuda.synchronize()
-        wall3 = time.perf_counter() - t0
-        time.sleep(1.0)
-        run4, state4 = run_train.main(flagged + ["--iterations",
-                                                 str(RESUME_STEPS),
-                                                 "--resume", run3])
-        torch.cuda.synchronize()
-        flagged_counts = launch_counts(mk)
-        steps_run = TRAIN_STEPS + RESUME_STEPS - 20
-        for kernel, n in (("b2", 2 * steps_run), ("b1", 2 * steps_run // 10)):
-            if flagged_counts[kernel] != {r: n * (r == mk.TENSOR_CORE)
-                                          for r in mk.ROUTES}:
-                fail(f"flagged training path: {kernel} launched "
-                     f"{flagged_counts[kernel]}, want {n} on "
-                     f"{mk.TENSOR_CORE!r}")
-        flagged_scalars = [read_scalars(run3), read_scalars(run4)]
-        for sc, steps in zip(flagged_scalars,
-                             (range(10, TRAIN_STEPS + 1, 10),
-                              range(30, RESUME_STEPS + 1, 10))):
-            for tag in ("g_loss", "d_loss", "train_psnr", "steps_per_sec"):
-                if sorted(sc.get(tag, {})) != list(steps):
-                    fail(f"flagged training path: {tag} rows at steps "
-                         f"{sorted(sc.get(tag, {}))}, want {list(steps)}")
-            for tag, vals in sc.items():
-                if not all(math.isfinite(v) for v in vals.values()):
-                    fail(f"flagged training path: scalar {tag} not finite")
-        flagged_rates = flagged_scalars[0]["steps_per_sec"]
-        if flagged_rates[10] != flagged_rates[20]:
-            fail("flagged training path: the periods of steps 10 and 20 "
-                 "were not fetched together (their rates differ)")
-        saved = sorted(int(d) for d in os.listdir(
-            os.path.join(run3, "training", "checkpoints")) if d.isdigit())
-        if saved != [20]:
-            fail(f"flagged training path: checkpoints at {saved}, want [20]")
-        if state4.step != RESUME_STEPS:
-            fail(f"the flagged run's resume ended at step {state4.step}")
-        check_restore(torch, os.path.join(run4, "training", "checkpoints"),
-                      state4, "the writer thread's step-40 checkpoint")
+    # the long-run loop flags: scalars fetched two periods at a time
+    # (steps 10 and 20 in one copy), a checkpoint written on a writer
+    # thread mid-run (step 20); then resumed from it to step 40 with
+    # the same flags, its step-40 checkpoint also the writer thread's
+    flagged = argv + ["--fetch_every_periods", "2", "--async_checkpoints",
+                      "--step_save", "20"]
+    time.sleep(1.0)
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    run3, state3 = run_train.main(flagged + ["--iterations",
+                                             str(TRAIN_STEPS)])
+    torch.cuda.synchronize()
+    wall3 = time.perf_counter() - t0
+    time.sleep(1.0)
+    run4, state4 = run_train.main(flagged + ["--iterations",
+                                             str(RESUME_STEPS),
+                                             "--resume", run3])
+    torch.cuda.synchronize()
+    flagged_counts = launch_counts(mk)
+    steps_run = TRAIN_STEPS + RESUME_STEPS - 20
+    for kernel, n in (("b2", 2 * steps_run), ("b1", 2 * steps_run // 10)):
+        if flagged_counts[kernel] != {r: n * (r == mk.TENSOR_CORE)
+                                      for r in mk.ROUTES}:
+            fail(f"flagged training path: {kernel} launched "
+                 f"{flagged_counts[kernel]}, want {n} on "
+                 f"{mk.TENSOR_CORE!r}")
+    flagged_scalars = [read_scalars(run3), read_scalars(run4)]
+    for sc, steps in zip(flagged_scalars,
+                         (range(10, TRAIN_STEPS + 1, 10),
+                          range(30, RESUME_STEPS + 1, 10))):
+        for tag in ("g_loss", "d_loss", "train_psnr", "steps_per_sec"):
+            if sorted(sc.get(tag, {})) != list(steps):
+                fail(f"flagged training path: {tag} rows at steps "
+                     f"{sorted(sc.get(tag, {}))}, want {list(steps)}")
+        for tag, vals in sc.items():
+            if not all(math.isfinite(v) for v in vals.values()):
+                fail(f"flagged training path: scalar {tag} not finite")
+    flagged_rates = flagged_scalars[0]["steps_per_sec"]
+    if flagged_rates[10] != flagged_rates[20]:
+        fail("flagged training path: the periods of steps 10 and 20 "
+             "were not fetched together (their rates differ)")
+    saved = sorted(int(d) for d in os.listdir(
+        os.path.join(run3, "training", "checkpoints")) if d.isdigit())
+    if saved != [20]:
+        fail(f"flagged training path: checkpoints at {saved}, want [20]")
+    if state4.step != RESUME_STEPS:
+        fail(f"the flagged run's resume ended at step {state4.step}")
+    check_restore(torch, os.path.join(run4, "training", "checkpoints"),
+                  state4, "the writer thread's step-40 checkpoint")
 
     rates = scalars[0]["steps_per_sec"]
     steady = [rates[s] for s in sorted(rates) if s > 10]
@@ -1501,7 +1528,8 @@ def train_path_phase(torch, mk) -> dict:
                        "launches_by_route": flagged_counts,
                        "async_checkpoint_restored_bit_exact": True}}
     emit("train_path", **out)
-    return out
+    # the runs that saved steps 30 and 40 (the flagged run's resume)
+    return {**out, "run_dirs": (run1, run4)}
 
 
 # ---------------------------------------------------------------------------
@@ -1772,6 +1800,438 @@ def ckpt_path_phase(torch, mk) -> dict:
            "quantize_topk_launches_by_run": {
                name: run["launches_by_route"] for name, run in runs.items()}}
     emit("ckpt_path", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# export_path, watch_path, tools_path: the serving artifact, the
+# watch-folder evaluator and the tools
+
+# a chunk of 2 Ped2-length videos bucket-padded to 192 frames, one
+# 192-window batch a video
+EXPORT_VIDEOS, EXPORT_FRAMES, EXPORT_WINDOW_BATCH = 2, 192, 192
+# the JAX export CLI's bound: the artifact against the live scorer
+EXPORT_RTOL, EXPORT_ATOL = 1e-3, 1e-2
+# int8 convolutions a forward of the released generator
+INT8_3X3_PER_FORWARD, INT8_2X2_PER_FORWARD = 34, 6
+
+
+def load_artifact(path: str, device: str):
+    """A serving artifact loaded through ``eval.export`` alone (no import
+    of the port's ``models`` in this scope): ``(score_chunk, header,
+    seconds)``."""
+    from ammcnet_aaai2021_torch.eval.export import load_scorer
+
+    t0 = time.perf_counter()
+    score_chunk, header = load_scorer(path, device=device)
+    return score_chunk, header, time.perf_counter() - t0
+
+
+def split_chunk(torch, root: str, dataset: str, n_videos: int):
+    """The first ``n_videos`` of a scoring split, each bucket-padded as
+    ``score_dataset`` pads it, on the card: ``(rgbs, ops, lengths)``,
+    frames uint8, flows bf16."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.data.datasets import (VideoIndex,
+                                                      _decode_rgb, load_flow)
+    from ammcnet_aaai2021_torch.eval.infer import pad_video_to_bucket
+
+    size = (IMAGE_SIZE, IMAGE_SIZE)
+    frames = VideoIndex(os.path.join(root, dataset, "testing", "frames"))
+    flows = VideoIndex(os.path.join(root, dataset, "testing", "flows"))
+    rgbs, ops, lengths = [], [], []
+    for name in frames.names[:n_videos]:
+        rgb, op, t = pad_video_to_bucket(
+            np.stack([_decode_rgb(p, size) for p in frames.videos[name]]),
+            np.stack([load_flow(p, size) for p in flows.videos[name]]))
+        rgbs.append(torch.from_numpy(rgb).cuda())
+        ops.append(torch.from_numpy(op).cuda().to(torch.bfloat16))
+        lengths.append(t)
+    return tuple(rgbs), tuple(ops), lengths
+
+
+def int8_counts() -> dict:
+    from ammcnet_aaai2021_torch.ops import int8_kernels as ik
+
+    return {"qconv3x3_int8": ik.qconv3x3_int8.launches,
+            "qconv_transpose2x2_int8": ik.qconv_transpose2x2_int8.launches}
+
+
+def export_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
+    """``runners.export_model --check`` on the released configuration
+    (main_path's seeded weights; bf16, then ``--int8`` calibrated on 32
+    clips of the training tree int8_path wrote), each artifact loaded here
+    through ``eval.export`` alone and run on the split's first 2 videos:
+    its output against the live ``ChunkScorer``'s within
+    ``EXPORT_RTOL``/``EXPORT_ATOL``, B1 twice a forward inside it on its
+    tensor-core route (and every int8 convolution of the int8 artifact on
+    the int8 kernels), loading it for the CPU raises; the int8 artifact's
+    records correlate with the bf16 one's; sizes, export and load seconds,
+    and ms a chunk live and loaded (CUDA events)."""
+    import numpy as np
+
+    from ammcnet_aaai2021_torch.configs import preset
+    from ammcnet_aaai2021_torch.eval.export import ChunkScorer
+    from ammcnet_aaai2021_torch.models import build_model, init_weights
+    from ammcnet_aaai2021_torch.models.quantized import (
+        calibrated_int8_from_dataset)
+    from ammcnet_aaai2021_torch.runners import export_model
+
+    dataset = main_run["dataset"]
+    rgbs, ops, lengths = split_chunk(torch, tmp, dataset, EXPORT_VIDEOS)
+    if any(r.shape[0] != EXPORT_FRAMES for r in rgbs):
+        fail(f"export_path: the chunk's videos pad to "
+             f"{[r.shape[0] for r in rgbs]} frames, want {EXPORT_FRAMES}")
+    forwards = EXPORT_VIDEOS * -(-(EXPORT_FRAMES - 4) // EXPORT_WINDOW_BATCH)
+    cfg = preset(dataset, mode="testing", data_dir=tmp)
+    gen = build_model(cfg.net, mode="testing", per_sample_diff=True).generator
+    init_weights(gen, torch.Generator().manual_seed(cfg.seed))
+    gen = gen.cuda().eval()
+    calib = ["--calib_batches", str(INT8_CALIB_CLIPS // 8),
+             "--calib_batch_size", "8"]
+    out, outputs = {}, {}
+    for name, extra in (("bf16", []), ("int8", ["--int8", *calib])):
+        path = os.path.join(tmp, f"scorer_{name}.ammc")
+        argv = ["--dataset_name", dataset, "--data_dir", tmp, "--out", path,
+                "--n_videos", str(EXPORT_VIDEOS), "--frames",
+                str(EXPORT_FRAMES), "--window_batch",
+                str(EXPORT_WINDOW_BATCH), "--check", *extra]
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = export_model.main(argv)
+        score_chunk, header, load_s = load_artifact(path, "cuda")
+        torch.cuda.synchronize()
+        reset_launches(mk)
+        with torch.no_grad():
+            got = score_chunk(rgbs, ops)
+        torch.cuda.synchronize()
+        b1 = dict(mk.quantize_topk_fused.launches_by_route)
+        convs = int8_counts()
+        want_b1 = {r: 2 * forwards * (r == mk.TENSOR_CORE) for r in mk.ROUTES}
+        per = name == "int8"
+        want_convs = {"qconv3x3_int8": INT8_3X3_PER_FORWARD * forwards * per,
+                      "qconv_transpose2x2_int8":
+                          INT8_2X2_PER_FORWARD * forwards * per}
+        if b1 != want_b1 or convs != want_convs:
+            fail(f"export_path ({name}): the loaded artifact launched B1 "
+                 f"{b1} and the int8 convolutions {convs}, want {want_b1} "
+                 f"and {want_convs}")
+        if name == "int8":
+            model, _ = calibrated_int8_from_dataset(
+                cfg.net, gen.state_dict(), tmp, dataset, IMAGE_SIZE,
+                INT8_CALIB_CLIPS // 8, 8, device="cuda")
+        else:
+            model = gen
+        live = ChunkScorer(model, window_batch=EXPORT_WINDOW_BATCH).eval()
+        with torch.no_grad():
+            want = live(rgbs, ops)
+            diff = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=EXPORT_RTOL,
+                                  atol=EXPORT_ATOL):
+                fail(f"export_path ({name}): the loaded artifact and the "
+                     f"live scorer differ by {diff} on the split's videos")
+            if not torch.isfinite(got).all():
+                fail(f"export_path ({name}): non-finite scores")
+            loaded_ms = time_ms(torch, lambda: score_chunk(rgbs, ops),
+                                reps=3, warmup=1)
+            live_ms = time_ms(torch, lambda: live(rgbs, ops), reps=3,
+                              warmup=1)
+        try:
+            load_artifact(path, "cpu")
+        except ValueError as e:
+            if "cannot serve on" not in str(e):
+                fail(f"export_path: loading for the CPU raised {e!r}")
+        else:
+            fail("export_path: a CUDA artifact loaded for the CPU")
+        outputs[name] = got.float().cpu().numpy()
+        out[name] = {
+            "bytes": res["bytes"], "export_s": res["export_s"],
+            "check_load_s": res["load_s"], "load_s": load_s,
+            "check_max_diff": res["check_max_diff"],
+            "split_max_diff": diff, "rtol": EXPORT_RTOL, "atol": EXPORT_ATOL,
+            "loaded_ms_per_chunk": loaded_ms, "live_ms_per_chunk": live_ms,
+            "forwards_per_chunk": forwards, "b1_launches_by_route": b1,
+            "int8_launches": convs, "header": header}
+        del score_chunk, live, model, got, want
+        torch.cuda.empty_cache()
+    n_windows = [t - 4 for t in lengths]
+    corr = {}
+    for row, key in ((0, "rgb_psnr"), (1, "rgb_fea")):
+        pick = [np.concatenate([outputs[name][v, row, :n]
+                                for v, n in enumerate(n_windows)])
+                for name in ("int8", "bf16")]
+        corr[key] = float(np.corrcoef(*pick)[0, 1])
+    if min(corr.values()) < INT8_MIN_CORR:
+        fail(f"export_path: the int8 artifact's records correlate with the "
+             f"bf16 one's by {corr}, want >= {INT8_MIN_CORR}")
+    out.update(videos=EXPORT_VIDEOS, frames=EXPORT_FRAMES,
+               window_batch=EXPORT_WINDOW_BATCH, true_lengths=lengths,
+               int8_corr_with_bf16=corr)
+    emit("export_path", **out)
+    del gen
+    torch.cuda.empty_cache()
+    return out
+
+
+WATCH_LENGTHS = PED2_TEST_LENGTHS[:3]
+
+
+def watch_path_phase(torch, mk, tmp: str, train_run: dict) -> dict:
+    """``runners.watch_eval --once --sweep`` on train_path's run dir with
+    its step-30 and step-40 checkpoints (the flagged run's step 40 copied
+    beside the first run's step 30), against main_path's split cut to its
+    first 3 videos: two CSV rows, each AUC that of ``run_test`` on the
+    same checkpoint and split, B1 twice a forward on its tensor-core
+    route; a second pass scores nothing, and a pass with the other
+    ``--sweep`` setting raises ``ValueError``."""
+    import csv
+
+    from ammcnet_aaai2021_torch.configs import FUSION_LAMBDAS
+    from ammcnet_aaai2021_torch.eval.gt import GroundTruthLoader
+    from ammcnet_aaai2021_torch.eval.scoring import img_pred_fea_comm_auc
+    from ammcnet_aaai2021_torch.runners import run_test, watch_eval
+
+    run30, run40 = train_run["run_dirs"]
+    run_dir = os.path.join(tmp, "watch_run")
+    shutil.copytree(run30, run_dir)
+    ckpt_dir = os.path.join(run_dir, "training", "checkpoints")
+    shutil.copytree(os.path.join(run40, "training", "checkpoints",
+                                 f"{RESUME_STEPS:06d}"),
+                    os.path.join(ckpt_dir, f"{RESUME_STEPS:06d}"))
+    steps = sorted(int(d) for d in os.listdir(ckpt_dir) if d.isdigit())
+    if steps != [TRAIN_STEPS, RESUME_STEPS]:
+        fail(f"watch_path: checkpoints at {steps}")
+    data = os.path.join(tmp, "watch_data")
+    dataset = write_scoring_tree(data, WATCH_LENGTHS)
+    forwards = sum(math.ceil((t - 4) / min(192, t - 4))
+                   for t in WATCH_LENGTHS)
+    argv = ["--run_dir", run_dir, "--dataset_name", dataset, "--data_dir",
+            data, "--once"]
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    best = watch_eval.main(argv + ["--sweep"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    b1 = dict(mk.quantize_topk_fused.launches_by_route)
+    want_b1 = {r: 2 * forwards * len(steps) * (r == mk.TENSOR_CORE)
+               for r in mk.ROUTES}
+    if b1 != want_b1:
+        fail(f"watch_path: B1 launched {b1}, want {want_b1}")
+    results = os.path.join(run_dir, "watch_results.csv")
+    with open(results) as fh:
+        rows = list(csv.DictReader(fh))
+    if [int(r["step"]) for r in rows] != steps:
+        fail(f"watch_path: CSV rows {rows}, want steps {steps}")
+    run_test_auc = {}
+    for row in rows:
+        step_dir = os.path.join(ckpt_dir, f"{int(row['step']):06d}")
+        res = score_records(torch, mk, run_test, [
+            "--dataset_name", dataset, "--data_dir", data, "--save_dir",
+            os.path.join(tmp, f"watch_test_{row['step']}"), "--ckptfile",
+            step_dir], forwards)
+        # run_test prints the AUC to 3 places, the CSV keeps 4: the AUC of
+        # run_test's records, unrounded
+        records = res["records"]
+        auc = img_pred_fea_comm_auc(records, GroundTruthLoader(data)(
+            dataset, video_lengths=[
+                len(r) for r in records["rgb_img_pred_records"]]),
+            FUSION_LAMBDAS[dataset])
+        run_test_auc[row["step"]] = auc
+        printed = float(res["auc_line"].split("=")[1])
+        if round(auc, 4) != float(row["auc"]) or round(auc, 3) != printed:
+            fail(f"watch_path: step {row['step']} AUC {row['auc']} in the "
+                 f"CSV, run_test's records give {auc} ({printed} printed)")
+    reset_launches(mk)
+    again = watch_eval.main(argv + ["--sweep"])
+    with open(results) as fh:
+        rerun_rows = list(csv.DictReader(fh))
+    if (again != (None, -1.0) or rerun_rows != rows
+            or mk.quantize_topk_fused.launches):
+        fail(f"watch_path: a second pass scored again ({again}, "
+             f"{len(rerun_rows)} rows)")
+    try:
+        watch_eval.main(argv)
+    except ValueError as e:
+        other_sweep = str(e)
+    else:
+        fail("watch_path: a pass without --sweep appended to the --sweep "
+             "CSV")
+    out = {"steps": steps, "rows": rows, "best": list(best),
+           "run_test_auc": run_test_auc, "videos": len(WATCH_LENGTHS),
+           "forwards_per_checkpoint": forwards, "b1_launches_by_route": b1,
+           "wall_s": wall, "other_sweep_raised": other_sweep}
+    emit("watch_path", **out)
+    return out
+
+
+DEVICE_BENCH_PASSES = 3
+DEVICE_BENCH_RUNS = (("bf16", []), ("int8_calibrated", ["--int8",
+                                                        "--calibrated"]),
+                     ("folded", ["--folded"]))
+FOLDED_WINDOWS = 16
+RECIPE_ITERS = 10
+
+
+def folded_check(torch, mk) -> dict:
+    """The folded forward against the unfolded generator at full width on
+    a 16-window batch in float32 (TF32 off, cuDNN deterministic), the
+    lookups' indices first (near-tie rule), then the outputs of the samples
+    without a flip within ``MODEL_TOL``; each forward's B1 launches."""
+    import dataclasses
+
+    from ammcnet_aaai2021_torch.configs import NetConfig
+    from ammcnet_aaai2021_torch.models import build_generator, init_weights
+    from ammcnet_aaai2021_torch.models.folded import make_folded_forward
+
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic)
+    train_flags(torch)
+    try:
+        cfg = dataclasses.replace(NetConfig(), dtype="float32")
+        gen = init_weights(build_generator(cfg, per_sample_diff=True),
+                           torch.Generator().manual_seed(20200525))
+        folded = make_folded_forward(
+            gen.state_dict(), embed_dim=cfg.embed_dim, n_embed=cfg.n_embed,
+            k=cfg.k, dtype=torch.float32, use_kernel=True,
+            per_sample_diff=True).cuda()
+        gen = gen.cuda().eval()
+        g = torch.Generator(device="cuda").manual_seed(3)
+        rgb = torch.rand(FOLDED_WINDOWS, 12, IMAGE_SIZE, IMAGE_SIZE,
+                         device="cuda", generator=g) * 2 - 1
+        op = torch.randn(FOLDED_WINDOWS, 6, IMAGE_SIZE, IMAGE_SIZE,
+                         device="cuda", generator=g) * 0.01
+        runs, launches = [], []
+        for net in (folded, gen):
+            reset_launches(mk)
+            outs, lookups = generator_lookups(torch, net, rgb, op)
+            torch.cuda.synchronize()
+            launches.append(dict(mk.quantize_topk_fused.launches_by_route))
+            runs.append((outs[:3], lookups))  # the codes: unfolded only
+        for got in launches:
+            if got[mk.CUDA_CORE] != 2:
+                fail(f"folded check: B1 launched {got}, want 2 a forward on "
+                     f"{mk.CUDA_CORE!r} (float32 latents)")
+        res = compare_lookup_runs(torch, "folded forward", runs,
+                                  FOLDED_WINDOWS)
+        with torch.no_grad():
+            res["folded_ms"] = time_ms(torch, lambda: folded(rgb, op),
+                                       reps=3, warmup=1)
+            res["unfolded_ms"] = time_ms(torch, lambda: gen(rgb, op),
+                                         reps=3, warmup=1)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved
+    del gen, folded
+    torch.cuda.empty_cache()
+    res.update(windows=FOLDED_WINDOWS, dtype="float32",
+               b1_launches_by_route=launches[0])
+    return res
+
+
+def tools_path_phase(torch, mk, tmp: str) -> dict:
+    """The tools on the card: ``device_bench --passes 3`` (bf16, ``--int8
+    --calibrated``, ``--folded``) with B1 twice a forward and the int8
+    convolutions counted; the folded forward against the unfolded one
+    (:func:`folded_check`); ``dtype_bench`` over the four levels;
+    ``train_flops --measure`` at batch 4 (B2 twice a step); ``run_recipe``
+    on an ``.npy`` toydata at 64x64, 10 iterations a stage (B2 once a
+    stage-1 step and twice a stage-2 step, all on the tensor-core route),
+    its AUC line printed."""
+    from ammcnet_aaai2021_torch.tools import (device_bench, dtype_bench,
+                                              run_recipe, train_flops)
+
+    out = {"device_bench": {}}
+    forwards = 6 * -(-(192 - 4) // 192)  # the default chunk a pass
+    for name, extra in DEVICE_BENCH_RUNS:
+        torch.cuda.synchronize()
+        reset_launches(mk)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            res = device_bench.main(["--passes", str(DEVICE_BENCH_PASSES),
+                                     *extra])
+        wall = time.perf_counter() - t0
+        b1 = dict(mk.quantize_topk_fused.launches_by_route)
+        convs = int8_counts()
+        # the warm pass and the timed ones; the calibration's record pass
+        passes = DEVICE_BENCH_PASSES + 1
+        calib = name == "int8_calibrated"
+        want_b1 = 2 * (forwards * passes + calib)
+        want_convs = {
+            "qconv3x3_int8": INT8_3X3_PER_FORWARD * (forwards * passes + 1)
+            * calib,
+            "qconv_transpose2x2_int8": INT8_2X2_PER_FORWARD
+            * (forwards * passes + 1) * calib}
+        if b1 != {r: want_b1 * (r == mk.TENSOR_CORE) for r in mk.ROUTES} \
+                or convs != want_convs:
+            fail(f"tools_path: device_bench {name} launched B1 {b1} and the "
+                 f"int8 convolutions {convs}, want {want_b1} and "
+                 f"{want_convs}")
+        out["device_bench"][name] = {
+            "frames_per_s": res["value"], "windows_per_s":
+                res["windows_per_sec"], "pass_s": res["pass_s"],
+            "card": res["card"], "config": res["config"],
+            "b1_launches": want_b1, "int8_launches": convs, "wall_s": wall}
+        print(f"device_bench {name}: {res['value']:.1f} frames/s on "
+              f"{res['card']}", flush=True)
+    out["folded_check"] = folded_check(torch, mk)
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = dtype_bench.main([])
+    out["dtype_bench"] = {"levels": res["levels"], "card": res["card"],
+                          "batch": res["batch"],
+                          "wall_s": time.perf_counter() - t0}
+
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        res = train_flops.main(["--measure"])
+    counts = launch_counts(mk)
+    # the census step, the warm step and the chain of 30
+    steps = 1 + 1 + 30
+    if counts["b2"] != {r: 2 * steps * (r == mk.TENSOR_CORE)
+                        for r in mk.ROUTES}:
+        fail(f"tools_path: train_flops launched B2 {counts['b2']}, want "
+             f"{2 * steps} on {mk.TENSOR_CORE!r}")
+    out["train_flops"] = {**{k: res[k] for k in (
+        "census", "step_ms", "tflops", "share_of_bf16_peak", "card",
+        "batch", "size")}, "launches_by_route": counts,
+        "wall_s": time.perf_counter() - t0}
+
+    data = os.path.join(tmp, "recipe_data")
+    stdout = io.StringIO()
+    torch.cuda.synchronize()
+    reset_launches(mk)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        res = run_recipe.main([
+            "--data_dir", data, "--save_dir", os.path.join(tmp, "recipe"),
+            "--image_size", "64", "--stage1_iters", str(RECIPE_ITERS),
+            "--stage2_iters", str(RECIPE_ITERS), "--skip_scratch_control",
+            "--anomaly", "teleport", "--frame_format", "npy"])
+    wall = time.perf_counter() - t0
+    counts = launch_counts(mk)
+    auc = [line for line in stdout.getvalue().splitlines()
+           if line.startswith("the optimal auc")]
+    if len(auc) != 1:
+        fail("tools_path: run_recipe printed no 'the optimal auc =' line")
+    print(auc[0], flush=True)
+    want_b2 = 2 * RECIPE_ITERS + 2 * RECIPE_ITERS  # stage 1 x2, stage 2
+    if (counts["b2"] != {r: want_b2 * (r == mk.TENSOR_CORE)
+                         for r in mk.ROUTES}
+            or counts["b1"][mk.CUDA_CORE] or not counts["b1"][mk.TENSOR_CORE]):
+        fail(f"tools_path: run_recipe launched {counts}, want B2 {want_b2} "
+             f"and B1 on {mk.TENSOR_CORE!r} only")
+    out["run_recipe"] = {"auc_line": auc[0], "auc": res["auc_pretrained"],
+                         "sweep": res["sweep_pretrained"],
+                         "launches_by_route": counts, "wall_s": wall,
+                         "iterations_a_stage": RECIPE_ITERS,
+                         "image_size": 64}
+    emit("tools_path", **out)
     return out
 
 
@@ -3683,22 +4143,34 @@ def main(argv=None) -> None:
     with tempfile.TemporaryDirectory() as tmp:
         main_run = main_path_phase(torch, mk, args.videos, tmp)
         int8 = int8_path_phase(torch, mk, tmp, main_run)
-    ckpt = ckpt_path_phase(torch, mk)
+        ckpt = ckpt_path_phase(torch, mk)
+        t0 = time.perf_counter()
+        export = export_path_phase(torch, mk, tmp, main_run)
+        new_phases_s = {"export_path": time.perf_counter() - t0}
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    train_check_phase(torch, mk)
-    remat = remat_check_phase(torch, mk)
-    family = family_path_phase(torch, mk)
-    with tempfile.TemporaryDirectory() as tmp:
-        dp_check = dp_check_phase(torch, mk, tmp)
-        dp_path = dp_path_phase(torch, mk, tmp)
-        mh_score = mh_score_phase(torch, mk, tmp)
-    torch.backends.cudnn.deterministic = deterministic
-    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
-    train_run = train_path_phase(torch, mk)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        train_check_phase(torch, mk)
+        remat = remat_check_phase(torch, mk)
+        family = family_path_phase(torch, mk)
+        with tempfile.TemporaryDirectory() as dp_tmp:
+            dp_check = dp_check_phase(torch, mk, dp_tmp)
+            dp_path = dp_path_phase(torch, mk, dp_tmp)
+            mh_score = mh_score_phase(torch, mk, dp_tmp)
+        torch.backends.cudnn.deterministic = deterministic
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+        train_run = train_path_phase(torch, mk, os.path.join(tmp, "train"))
+        t0 = time.perf_counter()
+        watch = watch_path_phase(torch, mk, tmp, train_run)
+        new_phases_s["watch_path"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tools = tools_path_phase(torch, mk, tmp)
+        new_phases_s["tools_path"] = time.perf_counter() - t0
+    emit("new_phases", seconds=new_phases_s,
+         total_s=sum(new_phases_s.values()))
     stage1_runs = stage1_path_phase(torch, mk)
     raw = raw_path_phase(torch, mk)
 
@@ -3779,7 +4251,21 @@ def main(argv=None) -> None:
                                  r[mk.TENSOR_CORE] for r in
                                  mh_score["b1_launches_by_rank"]],
                              "mh_score_single": mh_score[
-                                 "single_b1_launches"][mk.TENSOR_CORE]},
+                                 "single_b1_launches"][mk.TENSOR_CORE],
+                             "export_loaded_bf16": export["bf16"][
+                                 "b1_launches_by_route"][mk.TENSOR_CORE],
+                             "export_loaded_int8": export["int8"][
+                                 "b1_launches_by_route"][mk.TENSOR_CORE],
+                             "watch": watch["b1_launches_by_route"][
+                                 mk.TENSOR_CORE],
+                             "device_bench": {
+                                 name: run["b1_launches"] for name, run in
+                                 tools["device_bench"].items()},
+                             "folded_check_cuda_core": tools[
+                                 "folded_check"]["b1_launches_by_route"][
+                                 mk.CUDA_CORE],
+                             "run_recipe": tools["run_recipe"][
+                                 "launches_by_route"]["b1"][mk.TENSOR_CORE]},
         "max_abs_err": max(v["max_abs_err"] for v in (
             *checks.values(), *family_rows("quantize_topk_fused").values())),
         "flips": bf16["flips"],
@@ -3829,7 +4315,11 @@ def main(argv=None) -> None:
                                  dtype: dp_check[dtype]["launches_by_route"][
                                      "b2"] for dtype in dp_check},
                              "dp_path_by_rank": dp_path[
-                                 "b2_launches_by_rank"]},
+                                 "b2_launches_by_rank"],
+                             "train_flops": tools["train_flops"][
+                                 "launches_by_route"]["b2"][mk.TENSOR_CORE],
+                             "run_recipe": tools["run_recipe"][
+                                 "launches_by_route"]["b2"][mk.TENSOR_CORE]},
         "max_abs_err": max(b2["max_abs_err"], b2_f32["max_abs_err"], *(
             row["max_abs_err"] for row in family_rows(
                 "quantize_topk_train_fused").values())),
@@ -3904,6 +4394,13 @@ def main(argv=None) -> None:
         "source": "ammcnet_aaai2021_torch/csrc/int8_conv.cu",
         "replaces": "ammcnet_aaai2021_tpu/models/quantized.py:153",
         "launches": int8["run"]["launches"]["qconv3x3_int8"],
+        "launches_by_path": {
+            "int8_path": int8["run"]["launches"]["qconv3x3_int8"],
+            "export_loaded_int8": export["int8"]["int8_launches"][
+                "qconv3x3_int8"],
+            "device_bench_int8_calibrated": tools["device_bench"][
+                "int8_calibrated"]["int8_launches"][
+                "qconv3x3_int8"]},
         "max_abs_err": 0,
         "ms": conv3["kernel_ms"],
         **{key: conv3[key] for key in (
@@ -3919,6 +4416,13 @@ def main(argv=None) -> None:
         "source": "ammcnet_aaai2021_torch/csrc/int8_conv.cu",
         "replaces": "ammcnet_aaai2021_tpu/models/quantized.py:177",
         "launches": int8["run"]["launches"]["qconv_transpose2x2_int8"],
+        "launches_by_path": {
+            "int8_path": int8["run"]["launches"]["qconv_transpose2x2_int8"],
+            "export_loaded_int8": export["int8"]["int8_launches"][
+                "qconv_transpose2x2_int8"],
+            "device_bench_int8_calibrated": tools["device_bench"][
+                "int8_calibrated"]["int8_launches"][
+                "qconv_transpose2x2_int8"]},
         "max_abs_err": 0,
         "ms": conv2["kernel_ms"],
         **{key: conv2[key] for key in (

@@ -24,6 +24,9 @@ one rank's all-reduce returns its input).
 The int8 convolution kernels are held against their plain versions
 bitwise: accumulators and epilogue; the int8 calibration reads JPEG
 training frames through the GPU route as its plain pipeline reads them.
+The registered ops (``ops/library.py``) launch their kernels, counted, and
+return the wrappers' outputs bitwise; a scorer exported on the card runs
+B1 inside the loaded graph, equals the live scorer and refuses the CPU.
 
 Near-ties: the kernel and the plain version sum the same fp32 products in
 another order (B1's tensor-core route sums three bf16 split products), so a
@@ -1185,3 +1188,70 @@ def test_world_size_one_group_equals_the_plain_batchnorm_and_b2(cuda_device,
             assert all(torch.equal(a, b) for a, b in zip(*runs))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_registered_ops_launch_the_kernels_and_count(cuda_device):
+    """Each registered op (``ops/library.py``) on CUDA tensors launches its
+    kernel once, counted by the wrapper under it, and returns the
+    wrapper's output bitwise."""
+    from ammcnet_aaai2021_torch.ops import library
+
+    g = torch.Generator(device=cuda_device).manual_seed(17)
+    flat = torch.randn(4096, DIM, generator=g, device=cuda_device
+                       ).to(torch.bfloat16)
+    embed = torch.randn(DIM, 256, generator=g, device=cuda_device)
+    x, wk, sx, scale, bias = _int8_case(cuda_device, 44, 2, 9, 13, 32, 64, 9)
+    xt, wt, sxt, scale_t, bias_t = _int8_case(cuda_device, 45, 2, 5, 7, 64,
+                                              24, 1)
+    cases = [
+        (library.quantize_topk_fused, quantize_topk_fused, (flat, embed, K)),
+        (library.quantize_topk_train_fused, quantize_topk_train_fused,
+         (flat, embed, K)),
+        (library.qconv3x3_int8, ik.qconv3x3_int8,
+         (x, wk, sx, scale, bias, 64)),
+        (library.qconv_transpose2x2_int8, ik.qconv_transpose2x2_int8,
+         (xt, wt, sxt, scale_t, bias_t, 24)),
+    ]
+    for op, wrapper, args in cases:
+        before = wrapper.launches
+        got = op(*args)
+        assert wrapper.launches == before + 1, wrapper.__name__
+        want = wrapper(*args)
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for a, b in zip(got, want):
+            assert a.dtype == b.dtype and torch.equal(a, b), wrapper.__name__
+
+
+@pytest.mark.cuda
+def test_cuda_artifact_runs_b1_inside_and_refuses_the_cpu(cuda_device,
+                                                          tmp_path):
+    """A scorer exported on the card (float32, 32x32, 2 videos of 16
+    frames) loads, launches B1 twice a forward inside the loaded graph and
+    equals the live scorer bitwise; loading it for the CPU raises."""
+    from ammcnet_aaai2021_torch.eval.export import (ChunkScorer,
+                                                    chunk_example,
+                                                    load_scorer, save_scorer)
+
+    gen = init_weights(build_generator(NetConfig(dtype="float32",
+                                                 n_embed=64),
+                                       per_sample_diff=True),
+                       torch.Generator().manual_seed(3))
+    gen = gen.to(cuda_device).eval()
+    path = str(tmp_path / "scorer.ammc")
+    header = save_scorer(path, gen, n_videos=2, frames=16, size=32,
+                         window_batch=8)
+    assert header["platforms"] == ["cuda"]
+    score_chunk, _ = load_scorer(path, device="cuda")
+    rgbs, ops = chunk_example(2, 16, 32, cuda_device, torch.float32, seed=5)
+    before = quantize_topk_fused.launches
+    with torch.no_grad():
+        got = score_chunk(rgbs, ops)
+        torch.cuda.synchronize()
+        assert quantize_topk_fused.launches == before + 2 * 2 * 2
+        want = ChunkScorer(gen, window_batch=8)(rgbs, ops)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError, match="cannot serve on"):
+        load_scorer(path, device="cpu")

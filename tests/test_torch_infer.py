@@ -447,6 +447,20 @@ def test_port_and_chip_smoke_import_no_jax(tmp_path):
         "ammcnet_aaai2021_torch.data.framepack",
         "ammcnet_aaai2021_torch.data.resident",
         "ammcnet_aaai2021_torch.eval", "ammcnet_aaai2021_torch.eval.infer",
+        "ammcnet_aaai2021_torch.eval.export",
+        "ammcnet_aaai2021_torch.models.folded",
+        "ammcnet_aaai2021_torch.ops.library",
+        "ammcnet_aaai2021_torch.runners.export_model",
+        "ammcnet_aaai2021_torch.runners.watch_eval",
+        "ammcnet_aaai2021_torch.tools.bench_loader",
+        "ammcnet_aaai2021_torch.tools.device_bench",
+        "ammcnet_aaai2021_torch.tools.dtype_bench",
+        "ammcnet_aaai2021_torch.tools.gen_eval_pins",
+        "ammcnet_aaai2021_torch.tools.lam_sweep",
+        "ammcnet_aaai2021_torch.tools.make_toydata",
+        "ammcnet_aaai2021_torch.tools.run_recipe",
+        "ammcnet_aaai2021_torch.tools.train_flops",
+        "ammcnet_aaai2021_torch.utils.profiling",
         "ammcnet_aaai2021_torch.losses", "ammcnet_aaai2021_torch.models",
         "ammcnet_aaai2021_torch.models.quantized",
         "ammcnet_aaai2021_torch.models.vqvae",

@@ -50,6 +50,7 @@ from ammcnet_aaai2021_torch.models import (
 )
 from ammcnet_aaai2021_torch.models import quantized as pq
 from ammcnet_aaai2021_torch.ops import int8_kernels as ik
+from ammcnet_aaai2021_torch.ops import library
 
 torch.set_num_threads(2)
 SIZE, N_EMBED = 32, 32
@@ -611,7 +612,7 @@ class TestChipSmokeInt8Check:
             calibrated(rgb, op)
             calibrated(rgb, op)  # a batch size seen: not checked again
             calibrated(rgb[:1], op[:1])
-        assert pq.qconv3x3_int8 is ik.qconv3x3_int8  # restored
+        assert pq.qconv3x3_int8 is library.qconv3x3_int8  # restored
         assert [(b["windows"], b["record_pass"]) for b in rec.batches] == [
             (2, True), (1, False)]
         for b in rec.batches:
