@@ -32,6 +32,7 @@ import torch
 import torch.nn as nn
 
 from ..ops import library  # noqa: F401  (registers the kernels' ops)
+from ..utils.profiling import span
 
 _MAGIC = b"AMMCSCR1"
 KIND = "ammcnet_chunk_scorer"
@@ -57,7 +58,9 @@ class ChunkScorer(nn.Module):
     n_windows - 1)`` (the padded tail repeats the last window); the videos
     and window batches unroll in Python, since an exported chunk has fixed
     shapes.  ``model`` is the generator (or the int8 forward) in eval
-    mode."""
+    mode.  A call is the span ``scorer.forward`` (``utils/profiling.py``),
+    which records only while a profiler runs: an export, which runs none,
+    traces no profiler op into the artifact."""
 
     def __init__(self, model: nn.Module, window_batch: int = 192,
                  clip_len_rgb: int = 5, clip_len_op: int = 4,
@@ -75,6 +78,10 @@ class ChunkScorer(nn.Module):
 
     def forward(self, rgbs: Tuple[torch.Tensor, ...],
                 ops: Tuple[torch.Tensor, ...]) -> torch.Tensor:
+        with span("scorer.forward"):
+            return self._score(rgbs, ops)
+
+    def _score(self, rgbs, ops) -> torch.Tensor:
         n_windows = rgbs[0].shape[0] - self.clip_len_rgb + 1
         wb = self.window_batch
         n_cols = out_windows(rgbs[0].shape[0], wb, self.clip_len_rgb)

@@ -38,6 +38,7 @@ import torch
 from ..data.datasets import VideoIndex, _decode_rgb, load_flow
 from ..ops.metrics import OP_PER_FRAME_METRICS, PER_FRAME_METRICS
 from ..parallel import multihost as multihost_lib
+from ..utils.profiling import span
 
 
 def _stack_windows(video: torch.Tensor, idx: torch.Tensor, t: int
@@ -145,11 +146,16 @@ def make_otf_flow_extractor(flow_net: torch.nn.Module,
     channels a colour decode of a grayscale JPEG gives (exact, and a third
     of the upload).  With either, ``extract`` returns the pair
     ``(rgb (T', h, w, 3) u8, flows)`` for the scorer.  ``extract.forwards``
-    counts FlowNet's forwards.
+    counts FlowNet's forwards.  A call is the span ``flow.extract``
+    (``utils/profiling.py``).
     """
     returns_pair = gray or pad_to is not None
 
     def extract(video_u8: torch.Tensor):
+        with span("flow.extract"):
+            return _extract(video_u8)
+
+    def _extract(video_u8):
         if gray:
             if video_u8.shape[-1] != 1:
                 raise ValueError(f"the gray extractor takes (T, h, w, 1) "

@@ -44,6 +44,7 @@ import torch.nn as nn
 
 from ..ops.int8_kernels import CIN_ALIGN, COLS_ALIGN, pad_channels
 from ..ops.library import qconv3x3_int8, qconv_transpose2x2_int8
+from ..utils.profiling import count, span
 from .memory_module import EncQuanDecResTopK
 
 _BN_EPS = 1e-5
@@ -166,10 +167,12 @@ def _quant_in(x: torch.Tensor, q, record: Optional[Dict], site: str
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Quantize a conv input: the site's calibrated scale if it has one,
     else dynamic per-tensor; ``record`` keeps the site's running max|x|.
-    An int8 input was quantized to this site's scale by its producer."""
+    An int8 input was quantized to this site's scale by its producer.  The
+    counters ``int8.inputs.{resident,static,dynamic}`` count the three."""
     if x.dtype == torch.int8:
         if record is not None:
             raise ValueError("a record pass cannot take int8 inputs")
+        count("int8.inputs.resident")
         return x, q["act_scale"]
     if record is not None:
         m = x.float().abs().amax()
@@ -177,9 +180,21 @@ def _quant_in(x: torch.Tensor, q, record: Optional[Dict], site: str
         record[site] = m if prev is None else torch.maximum(prev, m)
     sx = q.get("act_scale")
     if sx is None:
+        count("int8.inputs.dynamic")
         return _quant_act(x)
+    count("int8.inputs.static")
     xq = torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8)
     return xq, sx
+
+
+def _kernel_input(x: torch.Tensor, q, record: Optional[Dict], site: str
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A conv input as the kernel takes it, quantized (:func:`_quant_in`)
+    and its channels padded, and its scale (1,): the ``int8.quantize``
+    span."""
+    with span("int8.quantize"):
+        xq, sx = _quant_in(x, q, record, site)
+        return pad_channels(xq).contiguous(), sx.reshape(1)
 
 
 def _qconv(x: torch.Tensor, q, relu: bool, record: Optional[Dict] = None,
@@ -187,17 +202,15 @@ def _qconv(x: torch.Tensor, q, relu: bool, record: Optional[Dict] = None,
            ) -> torch.Tensor:
     """A 3x3 int8 conv with the JAX epilogue: NHWC in -> NHWC bf16 (int8 at
     ``out_scale``)."""
-    xq, sx = _quant_in(x, q, record, site)
-    return qconv3x3_int8(pad_channels(xq).contiguous(), q["wk"],
-                         sx.reshape(1), q["scale"], q["bias"],
+    xq, sx = _kernel_input(x, q, record, site)
+    return qconv3x3_int8(xq, q["wk"], sx, q["scale"], q["bias"],
                          q["scale"].numel(), relu, out_scale)
 
 
 def _qconv_transpose(x: torch.Tensor, q, record: Optional[Dict] = None,
                      site: str = "") -> torch.Tensor:
-    xq, sx = _quant_in(x, q, record, site)
-    return qconv_transpose2x2_int8(pad_channels(xq).contiguous(), q["wk"],
-                                   sx.reshape(1), q["scale"], q["bias"],
+    xq, sx = _kernel_input(x, q, record, site)
+    return qconv_transpose2x2_int8(xq, q["wk"], sx, q["scale"], q["bias"],
                                    q["scale"].numel())
 
 

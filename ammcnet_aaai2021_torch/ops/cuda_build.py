@@ -83,9 +83,14 @@ def build(names: Iterable[str]) -> Dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library for ``csrc/<name>.cu``, built first if needed
+    (the build and the load counted as the ops' set-up, ``setup.ops``)."""
+    from ..utils import profiling
+
     with _lock:
         if name not in _libs:
+            t0 = time.perf_counter_ns()
             build([name])
             _libs[name] = ctypes.CDLL(str(library_path(name)))
+            profiling.add_setup("setup.ops", t0)
         return _libs[name]

@@ -38,13 +38,24 @@ at the kernel's padded input width.
 
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
-from torch.utils.flop_counter import register_flop_formula
 
-from . import int8_kernels, memory_kernels
+from ..utils import profiling
+
+# set-up (``setup.ops``) from here to the registrations' end.  Each op's
+# first call imports ``torch._dynamo`` (``torch.library.custom_op`` wraps
+# every implementation in ``torch._disable_dynamo``): imported here, it is
+# counted as the ops' set-up
+_T_SETUP = time.perf_counter_ns()
+
+import torch._dynamo  # noqa: E402,F401
+from torch.utils.flop_counter import register_flop_formula  # noqa: E402
+
+from . import int8_kernels, memory_kernels  # noqa: E402
 
 NAMESPACE = "ammcnet"
 
@@ -163,6 +174,9 @@ def _qconv_transpose_flop(x_shape, wk_shape, *args, out_shape=None,
                           **kwargs) -> int:
     n, h, w, cin = x_shape
     return 2 * n * h * w * cin * 4 * out_shape[-1]
+
+
+profiling.add_setup("setup.ops", _T_SETUP)
 
 
 def quantize_topk_fused(flat: Tensor, embed: Tensor, k: int

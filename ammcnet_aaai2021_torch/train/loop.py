@@ -14,6 +14,13 @@ such stacks are fetched with one device-to-host copy (JAX
 checkpoints and prunes on a writer thread, from a device copy of the state
 taken at the step (:func:`~.checkpoint.snapshot`).  TensorBoard scalars and
 image grids are not ported (the card's machine has no tensorboard).
+
+Spans (``utils/profiling.py``): ``train_loop.start`` (the writers and the
+prefetch thread's start), ``train_loop.data_wait`` (each wait for the next
+batch, whose host seconds are also ``data_stall_frac``'s),
+``train_loop.fetch`` (a fetch of the pending rows, or the wait for the first
+step) and ``train_loop.stop`` (the prefetch thread's stop and the writers'
+close).
 """
 
 from __future__ import annotations
@@ -29,6 +36,7 @@ import numpy as np
 import torch
 
 from ..configs import STEP_LOG, STEP_SAVE_CKPT, STEP_SUMMARY
+from ..utils.profiling import span, timed
 from .checkpoint import (checkpoint_payload, prune_checkpoints, snapshot,
                          write_checkpoint)
 from .state import TrainState
@@ -56,9 +64,10 @@ class ScalarWriter:
 
 def prefetch(batch_iter: Iterator, depth: int = 2) -> Iterator:
     """Host-thread prefetch so batch assembly overlaps the device step
-    (replaces the reference's DataLoader worker processes).  An exception in
-    the producer is raised here.  Closing this generator stops the producer
-    thread, which then closes ``batch_iter``."""
+    (replaces the reference's DataLoader worker processes).  The producer
+    thread starts here; an exception in it is raised to the consumer.
+    Closing the returned generator stops the producer thread, which then
+    closes ``batch_iter``."""
     q: "queue.Queue" = queue.Queue(maxsize=depth)
     end = object()
     stop = threading.Event()
@@ -86,19 +95,25 @@ def prefetch(batch_iter: Iterator, depth: int = 2) -> Iterator:
                 close()
             put(end)
 
+    def consume():
+        thread.start()
+        try:
+            yield  # started: closing the generator from here stops the thread
+            while True:
+                item = q.get()
+                if item is end:
+                    if failure:
+                        raise failure[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+
     thread = threading.Thread(target=worker, daemon=True)
-    thread.start()
-    try:
-        while True:
-            item = q.get()
-            if item is end:
-                if failure:
-                    raise failure[0]
-                return
-            yield item
-    finally:
-        stop.set()
-        thread.join(timeout=60)
+    items = consume()
+    next(items)
+    return items
 
 
 class CheckpointWriter:
@@ -190,15 +205,17 @@ def train_loop(state: TrainState, train_step: Callable,
     Pending rows are fetched before every checkpoint and at the end.
     ``async_checkpoints`` saves on a writer thread (:class:`CheckpointWriter`)
     from a snapshot taken at the step.  Returns ``state``."""
-    writer = ScalarWriter(os.path.join(run_dir, "summary"))
-    saver = CheckpointWriter(os.path.join(run_dir, "training", "checkpoints"),
-                             keep_ckpts, keep_every, logger,
-                             async_=async_checkpoints)
+    with span("train_loop.start"):
+        writer = ScalarWriter(os.path.join(run_dir, "summary"))
+        saver = CheckpointWriter(
+            os.path.join(run_dir, "training", "checkpoints"), keep_ckpts,
+            keep_every, logger, async_=async_checkpoints)
+        batches = prefetch(batch_iter)
     if logger:
         logger.info("training steps %d to %d", state.step + 1, iterations)
     data_times = []
     period_steps = 0
-    t_period = t_data0 = time.perf_counter()
+    t_period = time.perf_counter()
     # (step, keys, values on the device, period start, steps, data seconds)
     # of each log period not yet fetched; a period ends where the next
     # begins, the last at the fetch
@@ -206,9 +223,12 @@ def train_loop(state: TrainState, train_step: Callable,
     fetched = [state.step, t_period]  # step and time of the last fetch
 
     def flush() -> None:
+        if pending:
+            with span("train_loop.fetch"):
+                fetch()
+
+    def fetch() -> None:
         nonlocal t_period
-        if not pending:
-            return
         rows = torch.stack([p[2] for p in pending]).cpu().tolist()  # one copy
         now = time.perf_counter()
         span_rate = (pending[-1][0] - fetched[0]) / max(now - fetched[1], 1e-9)
@@ -234,19 +254,22 @@ def train_loop(state: TrainState, train_step: Callable,
         if period_steps == 0:  # the next period starts after the fetch
             t_period = now
 
-    batches = prefetch(batch_iter)
+    end = object()
     try:
-        for batch in batches:
-            if state.step >= iterations:
+        while True:
+            with timed("train_loop.data_wait") as wait:
+                batch = next(batches, end)
+            if batch is end or state.step >= iterations:
                 break
-            data_times.append(time.perf_counter() - t_data0)
+            data_times.append(wait.seconds)
             t_step = time.perf_counter()
             metrics = train_step(state, batch, flownet)
             step = state.step
             period_steps += 1
             if len(data_times) == 1:
-                first = torch.stack([v.float() for v in metrics.values()])
-                first.cpu()  # waits for the step
+                with span("train_loop.fetch"):
+                    first = torch.stack([v.float() for v in metrics.values()])
+                    first.cpu()  # waits for the step
                 writer.scalars(step, {"first_step_s":
                                       time.perf_counter() - t_step})
             if step % step_log == 0:
@@ -266,12 +289,12 @@ def train_loop(state: TrainState, train_step: Callable,
             if step % step_save == 0:
                 flush()
                 saver.put(state)
-            t_data0 = time.perf_counter()
             if step >= iterations:
                 break
         flush()
     finally:
-        batches.close()
-        writer.close()
-        saver.close()
+        with span("train_loop.stop"):
+            batches.close()
+            writer.close()
+            saver.close()
     return state

@@ -19,6 +19,12 @@ in ``ammcnet_aaai2021_tpu/train/steps.py`` (reference
   differentiates each loss with respect to its own parameters);
 * then both optimizers step and both schedulers advance.
 
+Each step is the span ``train_step`` (``utils/profiling.py``), its phases
+the spans ``train_step.forward`` (G), ``.teacher`` (FlowNet2-SD),
+``.discriminator`` (the D forwards and both losses), ``.backward`` and
+``.optimizer`` (the gradients' assignment and average, the optimizers and
+schedulers); a stage-1 step has the same, ``.teacher`` only for a flow loss.
+
 ``freeze_codebook=True`` puts the three codebook buffers back as they were
 before the step (the JAX step discards the codebook update).
 
@@ -50,6 +56,7 @@ from ..models import BatchNorm2d, TopKMemory
 from ..models.blocks import (deferred_buffer_updates, recomputing,
                              write_buffers)
 from ..parallel.multihost import all_reduce_sum, process_count
+from ..utils.profiling import span
 from .state import TrainState
 
 CODEBOOK_BUFFERS = ("embed", "cluster_size", "embed_avg")
@@ -132,20 +139,22 @@ def _update(state: TrainState, g_loss: torch.Tensor,
     the world size, that of the global batch's mean loss."""
     g_params = list(state.generator.parameters())
     d_params = list(state.discriminator.parameters())
-    g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
-    d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
-    after_backward()
-    for params, grads in ((g_params, g_grads), (d_params, d_grads)):
-        grads = [torch.zeros_like(p) if g is None else g
-                 for p, g in zip(params, grads)]
-        if group is not None:
-            grads = _average(grads, group)
-        for p, g in zip(params, grads):
-            p.grad = g
-    state.d_opt.step()
-    state.g_opt.step()
-    state.d_sched.step()
-    state.g_sched.step()
+    with span("train_step.backward"):
+        g_grads = torch.autograd.grad(g_loss, g_params, allow_unused=True)
+        d_grads = torch.autograd.grad(d_loss, d_params, allow_unused=True)
+        after_backward()
+    with span("train_step.optimizer"):
+        for params, grads in ((g_params, g_grads), (d_params, d_grads)):
+            grads = [torch.zeros_like(p) if g is None else g
+                     for p, g in zip(params, grads)]
+            if group is not None:
+                grads = _average(grads, group)
+            for p, g in zip(params, grads):
+                p.grad = g
+        state.d_opt.step()
+        state.g_opt.step()
+        state.d_sched.step()
+        state.g_sched.step()
     state.step += 1
 
 
@@ -209,6 +218,10 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    flownet: nn.Module) -> Dict[str, torch.Tensor]:
+        with span("train_step"):
+            return _step(state, batch, flownet)
+
+    def _step(state, batch, flownet):
         gen, disc = state.generator, state.discriminator
         _check_group(gen, group)
         rgb = _to_model_range(batch["rgb"])
@@ -216,24 +229,28 @@ def make_twostream_train_step(loss_cfg: LossConfig, rgb_channels: int = 3,
         rgb_input, rgb_target = rgb[:, :-rgb_channels], rgb[:, -rgb_channels:]
         op_input, op_target = op[:, :-op_channels], op[:, -op_channels:]
 
-        frozen = _FrozenCodebook(gen, freeze_codebook)
-        gen.train()
-        with (deferred_buffer_updates() if remat
-              else contextlib.nullcontext()) as recorded:
-            rgb_pred, op_pred, diffs, _ = gen_apply(gen, rgb_input, op_input)
-        frozen.restore()
+        with span("train_step.forward"):
+            frozen = _FrozenCodebook(gen, freeze_codebook)
+            gen.train()
+            with (deferred_buffer_updates() if remat
+                  else contextlib.nullcontext()) as recorded:
+                rgb_pred, op_pred, diffs, _ = gen_apply(gen, rgb_input,
+                                                        op_input)
+            frozen.restore()
 
-        with torch.no_grad():
+        with span("train_step.teacher"), torch.no_grad():
             flow_pred = _flow_pair(flownet, rgb_target, rgb_pred)
             flow_gt = _flow_pair(flownet, rgb_target, rgb_target)
-        d_gen = disc(rgb_pred)
-        g_loss, comps = g_loss_fn({
-            "rgb_pred": rgb_pred, "rgb_target": rgb_target,
-            "op_pred": op_pred, "op_target": op_target,
-            "d_gen": d_gen, "flow_pred": flow_pred, "flow_gt": flow_gt,
-            "latent_diff": diffs,
-        }, loss_cfg)
-        d_loss = discriminate_loss(disc(rgb_target), disc(rgb_pred.detach()))
+        with span("train_step.discriminator"):
+            d_gen = disc(rgb_pred)
+            g_loss, comps = g_loss_fn({
+                "rgb_pred": rgb_pred, "rgb_target": rgb_target,
+                "op_pred": op_pred, "op_target": op_target,
+                "d_gen": d_gen, "flow_pred": flow_pred, "flow_gt": flow_gt,
+                "latent_diff": diffs,
+            }, loss_cfg)
+            d_loss = discriminate_loss(disc(rgb_target),
+                                       disc(rgb_pred.detach()))
 
         def after_backward():
             if recorded is not None:  # remat: the forward's buffer updates
@@ -268,26 +285,33 @@ def make_single_stream_train_step(loss_cfg: LossConfig, data_type: str = "rgb",
 
     def train_step(state: TrainState, batch: torch.Tensor,
                    flownet: Optional[nn.Module]) -> Dict[str, torch.Tensor]:
+        with span("train_step"):
+            return _step(state, batch, flownet)
+
+    def _step(state, batch, flownet):
         gen, disc = state.generator, state.discriminator
         _check_group(gen, group)
         clip = _to_model_range(batch)
         x_input, x_target = clip[:, :-c], clip[:, -c:]
 
-        frozen = _FrozenCodebook(gen, freeze_codebook)
-        gen.train()
-        pred, diff, _ = gen(x_input)
-        frozen.restore()
+        with span("train_step.forward"):
+            frozen = _FrozenCodebook(gen, freeze_codebook)
+            gen.train()
+            pred, diff, _ = gen(x_input)
+            frozen.restore()
 
         loss_batch = {"rgb_pred": pred, "rgb_target": x_target,
                       "op_pred": pred, "op_target": x_target,
-                      "d_gen": disc(pred), "latent_diff": diff}
+                      "latent_diff": diff}
         if uses_flow:
-            with torch.no_grad():
+            with span("train_step.teacher"), torch.no_grad():
                 loss_batch["flow_pred"] = _flow_pair(flownet, x_target, pred)
                 loss_batch["flow_gt"] = _flow_pair(flownet, x_target,
                                                    x_target)
-        g_loss, comps = g_loss_fn(loss_batch, loss_cfg)
-        d_loss = discriminate_loss(disc(x_target), disc(pred.detach()))
+        with span("train_step.discriminator"):
+            loss_batch["d_gen"] = disc(pred)
+            g_loss, comps = g_loss_fn(loss_batch, loss_cfg)
+            d_loss = discriminate_loss(disc(x_target), disc(pred.detach()))
         _update(state, g_loss, d_loss, group=group)
         return _metrics(g_loss, d_loss, comps, group)
 

@@ -7,8 +7,8 @@ watch-folder evaluator against the JAX package's.
   equal JAX's; a missing released pickle raises naming its path;
 * ``tools/make_toydata``: JPEG frames byte for byte JAX's (cv2 is
   installed here), ``frame_format="npy"`` the same pixels as ``.npy``;
-* ``utils/profiling``: ``StepTimer`` as JAX's, ``device_trace`` writes a
-  Chrome trace on the CPU;
+* ``utils/profiling``: ``device_trace`` writes a Chrome trace on the CPU,
+  the port's spans in it;
 * ``models/folded``: the folded forward equals the port's unfolded one
   and JAX's folded one, at ``tests/test_folded.py``'s bounds;
 * ``tools/train_flops``: the generator forward's FLOPs are the analytic
@@ -151,32 +151,23 @@ def test_make_toydata_npy_writes_the_same_pixels(tmp_path, monkeypatch):
         make_toydata(proot, frame_format="png", **TOY)
 
 
-def test_step_timer_matches_jax_and_device_trace_writes(tmp_path):
+def test_device_trace_writes_port_spans(tmp_path):
     import json
 
-    from ammcnet_aaai2021_tpu.utils.profiling import StepTimer as JStepTimer
-    from ammcnet_aaai2021_torch.utils.profiling import (StepTimer,
-                                                        device_trace)
-
-    timers = (StepTimer(window=3), JStepTimer(window=3))
-    for timer in timers:
-        timer.step_times = [0.5, 0.25, 0.125, 0.0625][-3:]
-        timer.data_tick(0.01)
-        timer.data_tick(0.03)
-        with timer.step():
-            pass
-        assert len(timer.step_times) == 3
-        timer.step_times = [0.5, 0.25, 0.125]
-    assert timers[0].fps(32) == timers[1].fps(32)
-    assert timers[0].summary(32) == timers[1].summary(32)
-    assert StepTimer().fps(8) == 0.0
+    from ammcnet_aaai2021_torch.utils import profiling
+    from ammcnet_aaai2021_torch.utils.profiling import device_trace
 
     with device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
+        with profiling.span("scorer.forward"):
+            torch.ones(64, 64).matmul(torch.ones(64, 64)).sum()
     with open(tmp_path / "trace" / "trace.json") as fh:
         events = json.load(fh)["traceEvents"]
     assert any("aten::mm" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "scorer.forward"
+               and e.get("cat") == "user_annotation" for e in events)
     assert any(e.key == "aten::mm" for e in prof.key_averages())
+    assert profiling.summary()["scorer.forward"]["calls"] == 1
+    profiling.reset()
 
 
 # ---------------------------------------------------------------------------
