@@ -18,11 +18,15 @@ convolution on the card.
   ``(kh, kw, out, in)`` for the transposed conv) and in the kernel's
   (``wk``, channels padded once).
 * **Activation quantization**: dynamic per-tensor (``scale_x = max|x| /
-  127`` on the device) or calibrated static scales
-  (:func:`calibrate_act_scales`); PyTorch ops, as the JAX package leaves
-  it to XLA.  With calibrated scales each DoubleConv's conv0 -> conv1
-  activation stays int8 (``resident=True``): conv0's epilogue quantizes to
-  conv1's scale, bit-exact against the bf16 hand-off.
+  127`` on the device, PyTorch ops, as the JAX package leaves it to XLA)
+  or calibrated static scales (:func:`calibrate_act_scales`), where one
+  kernel (``quantize_pack_int8``) reads the input, or the skip and the
+  upsampled tensor of an up level's conv0 (no ``cat``), or the 2x2
+  max-pool's four pixels of a down level's conv0 (no pooled tensor), and
+  writes the padded int8 input, bitwise the PyTorch ops.  With calibrated
+  scales each DoubleConv's conv0 -> conv1 activation stays int8
+  (``resident=True``): conv0's epilogue quantizes to conv1's scale,
+  bit-exact against the bf16 hand-off.
 * int32 accumulation, the epilogue in float32 (each product and sum
   rounded), bf16 out, ReLU.
 
@@ -42,8 +46,10 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from ..ops.int8_kernels import CIN_ALIGN, COLS_ALIGN, pad_channels
-from ..ops.library import qconv3x3_int8, qconv_transpose2x2_int8
+from ..ops.int8_kernels import (CIN_ALIGN, COLS_ALIGN, gather_input,
+                                pad_channels)
+from ..ops.library import (qconv3x3_int8, qconv_transpose2x2_int8,
+                           quantize_pack_int8)
 from ..utils.profiling import count, span
 from .memory_module import EncQuanDecResTopK
 
@@ -163,46 +169,53 @@ def _quant_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.round(xf / sx).clamp(-127, 127).to(torch.int8), sx
 
 
-def _quant_in(x: torch.Tensor, q, record: Optional[Dict], site: str
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Quantize a conv input: the site's calibrated scale if it has one,
-    else dynamic per-tensor; ``record`` keeps the site's running max|x|.
-    An int8 input was quantized to this site's scale by its producer.  The
-    counters ``int8.inputs.{resident,static,dynamic}`` count the three."""
-    if x.dtype == torch.int8:
-        if record is not None:
-            raise ValueError("a record pass cannot take int8 inputs")
-        count("int8.inputs.resident")
-        return x, q["act_scale"]
-    if record is not None:
-        m = x.float().abs().amax()
-        prev = record.get(site)
-        record[site] = m if prev is None else torch.maximum(prev, m)
-    sx = q.get("act_scale")
-    if sx is None:
-        count("int8.inputs.dynamic")
-        return _quant_act(x)
-    count("int8.inputs.static")
-    xq = torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8)
-    return xq, sx
-
-
-def _kernel_input(x: torch.Tensor, q, record: Optional[Dict], site: str
+def _kernel_input(x: torch.Tensor, q, record: Optional[Dict], site: str,
+                  skip: Optional[torch.Tensor] = None, pool: bool = False
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """A conv input as the kernel takes it, quantized (:func:`_quant_in`)
-    and its channels padded, and its scale (1,): the ``int8.quantize``
-    span."""
+    """A conv input as the kernel takes it, int8 with its channels padded,
+    and its scale (1,).  The input is ``x``, or ``cat([skip, x], -1)``
+    (``skip``), or ``x``'s 2x2 max-pool (``pool``).  An int8 input was
+    quantized to this site's scale by its producer; a calibrated scale
+    takes :func:`quantize_pack_int8` (the cat or the pool inside it);
+    else the scale is dynamic per-tensor.  ``record`` keeps the site's
+    running max|x|.  The record pass and the dynamic scale run the cat,
+    the pool and the quantize in PyTorch ops.
+
+    All of it is the ``int8.quantize`` span.  The counters
+    ``int8.inputs.{resident,static,dynamic}`` count the three kinds of
+    input, and ``int8.pack.{plain,cat,pool}`` the kernel's three forms
+    (12, 6 and 6 in a calibrated forward)."""
     with span("int8.quantize"):
-        xq, sx = _quant_in(x, q, record, site)
-        return pad_channels(xq).contiguous(), sx.reshape(1)
+        if x.dtype == torch.int8:
+            if record is not None:
+                raise ValueError("a record pass cannot take int8 inputs")
+            count("int8.inputs.resident")
+            return pad_channels(x).contiguous(), q["act_scale"].reshape(1)
+        sx = q.get("act_scale")
+        if record is not None or sx is None:
+            x, skip, pool = gather_input(x, skip, pool), None, False
+        if record is not None:
+            m = x.float().abs().amax()
+            prev = record.get(site)
+            record[site] = m if prev is None else torch.maximum(prev, m)
+        if sx is None:
+            count("int8.inputs.dynamic")
+            xq, sx = _quant_act(x)
+            return pad_channels(xq).contiguous(), sx.reshape(1)
+        count("int8.inputs.static")
+        count("int8.pack." + ("cat" if skip is not None
+                              else "pool" if pool else "plain"))
+        sx = sx.reshape(1)
+        return quantize_pack_int8(x, sx, skip, pool), sx
 
 
 def _qconv(x: torch.Tensor, q, relu: bool, record: Optional[Dict] = None,
-           site: str = "", out_scale: Optional[torch.Tensor] = None
+           site: str = "", out_scale: Optional[torch.Tensor] = None,
+           skip: Optional[torch.Tensor] = None, pool: bool = False
            ) -> torch.Tensor:
     """A 3x3 int8 conv with the JAX epilogue: NHWC in -> NHWC bf16 (int8 at
-    ``out_scale``)."""
-    xq, sx = _kernel_input(x, q, record, site)
+    ``out_scale``); the input as :func:`_kernel_input` forms it."""
+    xq, sx = _kernel_input(x, q, record, site, skip, pool)
     return qconv3x3_int8(xq, q["wk"], sx, q["scale"], q["bias"],
                          q["scale"].numel(), relu, out_scale)
 
@@ -215,29 +228,32 @@ def _qconv_transpose(x: torch.Tensor, q, record: Optional[Dict] = None,
 
 
 def _q_double(x: torch.Tensor, q, record: Optional[Dict] = None,
-              site: str = "", resident: bool = True) -> torch.Tensor:
+              site: str = "", resident: bool = True,
+              skip: Optional[torch.Tensor] = None, pool: bool = False
+              ) -> torch.Tensor:
     # conv0 -> conv1 has one consumer at every site, so it carries int8
     # residency whenever conv1's scale is calibrated (never in a record
     # pass)
     nxt = (q["conv1"].get("act_scale") if resident and record is None
            else None)
-    x = _qconv(x, q["conv0"], True, record, f"{site}/conv0", out_scale=nxt)
+    x = _qconv(x, q["conv0"], True, record, f"{site}/conv0", out_scale=nxt,
+               skip=skip, pool=pool)
     return _qconv(x, q["conv1"], True, record, f"{site}/conv1")
 
 
 def _q_down(x: torch.Tensor, q, record: Optional[Dict] = None,
             site: str = "", resident: bool = True) -> torch.Tensor:
-    b, h, w, c = x.shape
-    x = x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
-    return _q_double(x, q, record, site, resident)
+    # the 2x2 max-pool, inside conv0's input
+    return _q_double(x, q, record, site, resident, pool=True)
 
 
 def _q_up(x1: torch.Tensor, skip: torch.Tensor, q,
           record: Optional[Dict] = None, site: str = "",
           resident: bool = True) -> torch.Tensor:
     x1 = _qconv_transpose(x1, q["up"], record, f"{site}/up")
-    x = torch.cat([skip, x1], dim=-1)
-    return _q_double(x, q["conv"], record, f"{site}/conv", resident)
+    # cat([skip, x1], -1), inside conv0's input
+    return _q_double(x1, q["conv"], record, f"{site}/conv", resident,
+                     skip=skip)
 
 
 class _QSite(nn.Module):

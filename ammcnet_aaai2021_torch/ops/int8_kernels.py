@@ -1,5 +1,5 @@
-"""The int8 serving path's convolutions (``csrc/int8_conv.cu``) and their
-plain PyTorch versions.
+"""The int8 serving path's convolutions and the quantize that makes their
+inputs (``csrc/int8_conv.cu``), and their plain PyTorch versions.
 
 The counterpart of the int8 convolutions XLA runs for the JAX package's
 ``models/quantized.py`` (``_qconv``, ``_qconv_transpose``): int8 NHWC
@@ -20,6 +20,12 @@ prepares the weights once):
   b), Cols_pad a multiple of 64 and >= 4 * Cout;
 * ``sx``: (1,) float32 on the device (a dynamic scale stays there);
   ``scale``, ``bias``: (Cout,) float32; ``out_scale``: (1,) float32.
+
+:func:`quantize_pack_int8` makes ``x`` from a statically quantized conv
+input in one pass: ``clip(rint(v / sx), -127, 127)`` as int8, channels
+zero-padded to a multiple of 32, where ``v`` is the bf16 or float32 input
+(any strides), the concatenation ``cat([skip, x], -1)``, or ``x``'s 2x2
+stride-2 max-pool (:func:`gather_input`).
 
 ``acc=True`` returns the int32 accumulators (the checks' view).  A CUDA
 tensor launches the kernel on the current stream (counted in the
@@ -50,6 +56,9 @@ def _library() -> ctypes.CDLL:
     ptr, c_int = ctypes.c_void_p, ctypes.c_int
     lib.ammc_qconv_int8.argtypes = [ptr] * 7 + [c_int] * 9 + [ptr]
     lib.ammc_qconv_int8.restype = c_int
+    lib.ammc_quantize_pack_int8.argtypes = [
+        ptr, ptr, ctypes.POINTER(ctypes.c_int64), ptr, ptr, c_int, c_int, ptr]
+    lib.ammc_quantize_pack_int8.restype = c_int
     lib.ammc_cuda_error_string.argtypes = [c_int]
     lib.ammc_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -189,3 +198,96 @@ def qconv_transpose2x2_int8(x: torch.Tensor, wk: torch.Tensor,
 
 
 qconv_transpose2x2_int8.launches = 0
+
+
+def gather_input(x: torch.Tensor, skip: Optional[torch.Tensor] = None,
+                 pool: bool = False) -> torch.Tensor:
+    """The conv input that :func:`quantize_pack_int8` quantizes, in ATen
+    ops: ``x``; with ``skip``, ``cat([skip, x], -1)``; with ``pool``,
+    ``x``'s 2x2 stride-2 max-pool (``amax``, NaN propagating)."""
+    if skip is not None:
+        x = torch.cat([skip, x], dim=-1)
+    if pool:
+        b, h, w, c = x.shape
+        x = x.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+    return x
+
+
+def quantize_pack_int8_ref(x: torch.Tensor, sx: torch.Tensor,
+                           skip: Optional[torch.Tensor] = None,
+                           pool: bool = False) -> torch.Tensor:
+    """Plain version of :func:`quantize_pack_int8` (arguments alike): the
+    gather, then the static quantize in float32 ATen ops, then the
+    padding."""
+    x = gather_input(x, skip, pool)
+    xq = torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8)
+    return pad_channels(xq).contiguous()
+
+
+def _check_pack(x, sx, skip, pool):
+    srcs = [x] if skip is None else [skip, x]
+    n, h, w = x.shape[:3] if x.ndim == 4 else (0, 0, 0)
+    if (any(t.ndim != 4 or t.dtype != x.dtype or not t.shape[-1]
+            for t in srcs)
+            or x.dtype not in (torch.bfloat16, torch.float32)
+            or (skip is not None and (pool or skip.shape[:3] != x.shape[:3]))
+            or (pool and (h % 2 or w % 2))
+            or sx.dtype != torch.float32 or sx.numel() != 1
+            or len({t.device for t in srcs + [sx]}) != 1):
+        raise ValueError(
+            "quantize_pack_int8: want x (N, H, W, C > 0) bf16 or float32, "
+            "skip None or (N, H, W, Cs > 0) of x's type (not with pool), H "
+            "and W even with pool, a float32 sx (1,), all on one device; "
+            "got x "
+            f"{tuple(x.shape)} {x.dtype}, skip "
+            f"{None if skip is None else (tuple(skip.shape), skip.dtype)}, "
+            f"pool {pool}, sx {tuple(sx.shape)} {sx.dtype}")
+    pixels = n * h * w // (4 if pool else 1)
+    cpad = -(-sum(t.shape[-1] for t in srcs) // CIN_ALIGN) * CIN_ALIGN
+    if (pixels > 2 ** 31 - 33
+            or -(-pixels // 32) * 32 * (cpad // 16) >= 2 ** 31):
+        raise ValueError(f"quantize_pack_int8: {pixels} pixels of {cpad} "
+                         "channels are more than the kernel indexes")
+    return srcs, cpad
+
+
+def quantize_pack_int8(x: torch.Tensor, sx: torch.Tensor,
+                       skip: Optional[torch.Tensor] = None,
+                       pool: bool = False) -> torch.Tensor:
+    """A statically quantized conv input as the convolutions take it, in
+    one pass: (N, H, W, C) bf16 or float32 ``x`` of any strides (with
+    ``skip`` (N, H, W, Cs), the channels of ``cat([skip, x], -1)``; with
+    ``pool``, ``x``'s 2x2 max-pool, H and W halved) -> (N, H', W', C_pad)
+    int8, contiguous, ``clip(rint(v / sx), -127, 127)``, channels
+    zero-padded to a multiple of ``CIN_ALIGN``.  ``sx``: (1,) float32."""
+    srcs, cpad = _check_pack(x, sx, skip, pool)
+    if x.device.type == "cpu":
+        return quantize_pack_int8_ref(x, sx, skip, pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n, h, w = x.shape[:3]
+    if pool:
+        h, w = h // 2, w // 2
+    out = torch.empty((n, h, w, cpad), dtype=torch.int8, device=x.device)
+    if not out.numel():
+        return out
+    a, b = srcs[0], srcs[1] if len(srcs) == 2 else None
+    geom = (ctypes.c_int64 * 14)(
+        n, h, w, cpad, a.shape[3], *a.stride(),
+        *((b.shape[3], *b.stride()) if b is not None else (0,) * 5))
+    lib = _library()
+    with torch.cuda.device(x.device):
+        err = lib.ammc_quantize_pack_int8(
+            a.data_ptr(), b.data_ptr() if b is not None else None, geom,
+            sx.data_ptr(), out.data_ptr(),
+            0 if x.dtype == torch.bfloat16 else 1, int(pool),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(
+            f"quantize_pack_int8 kernel launch failed: CUDA error {err} "
+            f"({lib.ammc_cuda_error_string(err).decode()})")
+    quantize_pack_int8.launches += 1
+    return out
+
+
+quantize_pack_int8.launches = 0

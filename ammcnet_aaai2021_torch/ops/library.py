@@ -12,7 +12,9 @@ implementation when that graph runs:
   ``memory_kernels.quantize_topk_train_fused``;
 * ``ammcnet::qconv3x3_int8``: ``int8_kernels.qconv3x3_int8``;
 * ``ammcnet::qconv_transpose2x2_int8``:
-  ``int8_kernels.qconv_transpose2x2_int8``.
+  ``int8_kernels.qconv_transpose2x2_int8``;
+* ``ammcnet::quantize_pack_int8``: ``int8_kernels.quantize_pack_int8``,
+  the convolutions' statically quantized inputs.
 
 Each real implementation calls the wrapper unchanged: a CPU tensor gets
 the plain version, a CUDA tensor launches the kernel or raises, and the
@@ -27,13 +29,14 @@ codebook buffer (``ops/memory.py``), and the int8 convolutions serve
 inference only.
 
 The names :func:`quantize_topk_fused`, :func:`quantize_topk_train_fused`,
-:func:`qconv3x3_int8` and :func:`qconv_transpose2x2_int8` call the ops
-with the wrappers' arguments; ``ops/memory.py`` and
-``models/quantized.py`` call these.  Each op also has a FLOP formula for
-``torch.utils.flop_counter`` (``tools/train_flops.py``): the lookups'
-distance product, ``2 * N * dim * n_embed`` (B2: plus ``N * dim`` adds of
-its sums), and the convolutions' ``2 * N * H * W * taps * Cin * cols``
-at the kernel's padded input width.
+:func:`qconv3x3_int8`, :func:`qconv_transpose2x2_int8` and
+:func:`quantize_pack_int8` call the ops with the wrappers' arguments;
+``ops/memory.py`` and ``models/quantized.py`` call these.  Each op but
+the quantize also has a FLOP formula for ``torch.utils.flop_counter``
+(``tools/train_flops.py``): the lookups' distance product, ``2 * N * dim
+* n_embed`` (B2: plus ``N * dim`` adds of its sums), and the
+convolutions' ``2 * N * H * W * taps * Cin * cols`` at the kernel's
+padded input width.
 """
 
 from __future__ import annotations
@@ -149,6 +152,25 @@ def _(x, wk, sx, scale, bias, cout, acc=False):
                        dtype=_conv_out_dtype(acc, None))
 
 
+@torch.library.custom_op(f"{NAMESPACE}::quantize_pack_int8", mutates_args=())
+def _quantize_pack_int8(x: Tensor, sx: Tensor, skip: Optional[Tensor] = None,
+                        pool: bool = False) -> Tensor:
+    out = int8_kernels.quantize_pack_int8(x, sx, skip, pool)
+    return _unshared([out], (x, sx, skip))[0]
+
+
+@_quantize_pack_int8.register_fake
+def _(x, sx, skip=None, pool=False):
+    n, h, w, c = x.shape
+    if skip is not None:
+        c = c + skip.shape[-1]
+    if pool:
+        h, w = h // 2, w // 2
+    align = int8_kernels.CIN_ALIGN
+    return x.new_empty((n, h, w, (c + align - 1) // align * align),
+                       dtype=torch.int8)
+
+
 @register_flop_formula(torch.ops.ammcnet.quantize_topk)
 def _lookup_flop(flat_shape, embed_shape, *args, out_shape=None, **kwargs
                  ) -> int:
@@ -211,3 +233,10 @@ def qconv_transpose2x2_int8(x: Tensor, wk: Tensor, sx: Tensor, scale: Tensor,
     ``ammcnet::qconv_transpose2x2_int8``."""
     return torch.ops.ammcnet.qconv_transpose2x2_int8(x, wk, sx, scale, bias,
                                                      cout, acc)
+
+
+def quantize_pack_int8(x: Tensor, sx: Tensor, skip: Optional[Tensor] = None,
+                       pool: bool = False) -> Tensor:
+    """``int8_kernels.quantize_pack_int8`` through
+    ``ammcnet::quantize_pack_int8``."""
+    return torch.ops.ammcnet.quantize_pack_int8(x, sx, skip, pool)

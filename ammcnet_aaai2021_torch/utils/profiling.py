@@ -22,9 +22,12 @@ always, on the host clock alone, and :func:`reset` keeps it.
 The names, each at a layer boundary:
 
 * ``int8.quantize`` (span; ``models/quantized.py``): a conv input's
-  quantize and the padding that makes the kernel's input; counters
+  quantize and the padding that makes the kernel's input, an up level's
+  skip concatenation and a down level's max-pool included; counters
   ``int8.inputs.resident`` (already int8), ``int8.inputs.static``
-  (calibrated scale) and ``int8.inputs.dynamic``;
+  (calibrated scale) and ``int8.inputs.dynamic``, and the quantize
+  kernel's forms ``int8.pack.plain``, ``int8.pack.cat`` and
+  ``int8.pack.pool``;
 * ``train_step`` (``train/steps.py``) and its phases ``train_step.forward``,
   ``.teacher``, ``.discriminator``, ``.backward``, ``.optimizer``;
 * ``train_loop.start``, ``.data_wait``, ``.fetch``, ``.stop``

@@ -39,14 +39,18 @@ Phases, one JSON line each; any failure exits non-zero:
    all on B1's tensor-core route); then ``int8_path``: ``run_test --int8
    --calib_clips 32`` on the same split with a training split, its records
    checked and correlated with the bf16 run's, every 3x3 and transposed
-   conv launched through the int8 kernels and B1 twice a forward; then the
-   same command again with every int8 kernel call of the first forward at
-   each of its batch sizes (the calibration's 8 windows, each video
-   length's) held against its plain version, accumulators and output
-   bitwise, and each distinct launch of the largest forward timed on its
-   real inputs beside its bound, cuDNN's bf16 convolution of the shape
-   and ``torch._int_mm`` of its product (the 3x3 conv's im2col'd, the
-   im2col outside the timed window);
+   conv launched through the int8 kernels, each of a scoring forward's 24
+   statically quantized conv inputs through the int8 quantize kernel and
+   B1 twice a forward; then the same command again with every int8 kernel
+   call of the first forward at each of its batch sizes (the
+   calibration's 8 windows, each video length's) held against its plain
+   version, accumulators and output bitwise, and each distinct launch of
+   the largest forward timed on its real inputs beside its bound, cuDNN's
+   bf16 convolution of the shape and ``torch._int_mm`` of its product (the
+   3x3 conv's im2col'd, the im2col outside the timed window), and each
+   distinct quantize launch on its real inputs widened to 192 windows
+   beside its bytes' bound and its plain version (the PyTorch ops the
+   forward ran before the kernel);
    then ``ckpt_path``: the released generator, seeded, written as the
    JAX package's flax ``.msgpack`` (a writer here, byte for byte flax's)
    and as a ``.pth``, each scored by ``run_test --ckptfile`` on a 3-video
@@ -60,7 +64,8 @@ Phases, one JSON line each; any failure exits non-zero:
    frames; each artifact, loaded through ``eval.export`` alone, scores the
    split's first 2 videos within 1e-3/1e-2 of the live scorer, launches
    B1 twice a forward on its tensor-core route (and the int8 one every
-   3x3 and transposed conv on the int8 kernels), and refuses to load for
+   3x3 and transposed conv and 24 quantized inputs a forward on the int8
+   kernels), and refuses to load for
    the CPU; the int8 records correlate >= 0.99 with the bf16 ones; sizes,
    export and load seconds, and ms a chunk live and loaded;
 6. train check: one float32 training step of the released generator at
@@ -840,6 +845,7 @@ def reset_launches(mk) -> None:
         wrapper.launches_by_route = dict.fromkeys(mk.ROUTES, 0)
     for wrapper in (int8_kernels.qconv3x3_int8,
                     int8_kernels.qconv_transpose2x2_int8,
+                    int8_kernels.quantize_pack_int8,
                     native.idct_islow_u8, native.resize_bilinear_u8,
                     native.ycc_to_rgb_u8):
         wrapper.launches = 0
@@ -919,16 +925,18 @@ PLAIN_SLICE = 16
 class Int8Recorder:
     """Every int8 kernel call of one ``run_test --int8`` run, seen through
     the names ``models/quantized.py`` calls: its two conv helpers (each
-    call's site, unpadded input width and record pass) and the two kernel
-    entries (``ops/library.py``, each the registered op over its kernel
-    wrapper).  A forward begins where a site repeats.  Every call of the
-    first forward at each batch size is held against its plain version,
-    bitwise: the output the forward went on with, and the int32
-    accumulators of an uncounted relaunch.  The largest scoring forward
-    keeps one call's arguments for each distinct launch, for timing."""
+    call's site, unpadded input width and record pass), the two conv
+    kernel entries and the quantize's (``ops/library.py``, each the
+    registered op over its kernel wrapper).  A forward begins where a site
+    repeats.  Every call of the first forward at each batch size is held
+    against its plain version, bitwise: a conv's output the forward went
+    on with and the int32 accumulators of an uncounted relaunch, the
+    quantize's int8 input.  The largest scoring forward keeps one call's
+    arguments for each distinct launch, for timing."""
 
     HELPERS = ("_qconv", "_qconv_transpose")
     KERNELS = ("qconv3x3_int8", "qconv_transpose2x2_int8")
+    PACK = "quantize_pack_int8"
 
     def __init__(self):
         from ammcnet_aaai2021_torch.models import quantized
@@ -940,14 +948,15 @@ class Int8Recorder:
         self.sites = set()  # the current forward's
         self.checking, self.timing_forward = False, False
         self.batches = []  # one dict a checked forward
-        self.timing_windows, self.timing = 0, {}
-        self.helper_calls = self.kernel_calls = 0
+        self.timing_windows, self.timing, self.pack_timing = 0, {}, {}
+        self.helper_calls = self.kernel_calls = self.pack_calls = 0
 
     def __enter__(self):
-        for name in self.HELPERS + self.KERNELS:
+        for name in self.HELPERS + self.KERNELS + (self.PACK,):
             fn = self.saved[name] = getattr(self.quantized, name)
             setattr(self.quantized, name, (
-                self._helper if name in self.HELPERS else self._kernel)(fn))
+                self._helper if name in self.HELPERS else
+                self._kernel if name in self.KERNELS else self._pack)(fn))
         return self
 
     def __exit__(self, *exc):
@@ -960,12 +969,14 @@ class Int8Recorder:
         def helper(*args, **kwargs):
             a = signature.bind(*args, **kwargs)
             a.apply_defaults()
+            skip = a.arguments.get("skip")
             self._begin(a.arguments["site"], a.arguments["x"],
-                        a.arguments["record"] is not None)
+                        a.arguments["record"] is not None,
+                        0 if skip is None else skip.shape[-1])
             return fn(*args, **kwargs)
         return helper
 
-    def _begin(self, site: str, x, record: bool) -> None:
+    def _begin(self, site: str, x, record: bool, skip_cin: int) -> None:
         if site in self.sites:
             self.sites = set()
         if not self.sites:  # a forward's first call
@@ -973,12 +984,14 @@ class Int8Recorder:
             self.checking = n not in [b["windows"] for b in self.batches]
             if self.checking:
                 self.batches.append({"windows": n, "record_pass": record,
-                                     "calls": {k: 0 for k in self.KERNELS}})
+                                     "calls": {k: 0 for k in (
+                                         *self.KERNELS, self.PACK)}})
             self.timing_forward = not record and n > self.timing_windows
             if self.timing_forward:
-                self.timing_windows, self.timing = n, {}
+                self.timing_windows = n
+                self.timing, self.pack_timing = {}, {}
         self.sites.add(site)
-        self.site, self.true_cin = site, x.shape[-1]
+        self.site, self.true_cin = site, skip_cin + x.shape[-1]
         self.helper_calls += 1
 
     def _kernel(self, fn):
@@ -1038,6 +1051,119 @@ class Int8Recorder:
             "out_bytes": out.numel() * out.element_size(),
             "epilogue": ("int8" if out.element_size() == 1
                          else "bf16_relu" if relu else "bf16")}
+
+    def _pack(self, fn):
+        plain = self.ik.quantize_pack_int8_ref
+        signature = inspect.signature(plain)
+
+        def pack(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            self.pack_calls += 1
+            a = signature.bind(*args, **kwargs)
+            a.apply_defaults()
+            a = a.arguments
+            if self.checking:
+                self._check_pack(plain, a, out)
+            if self.timing_forward:
+                x, skip = a["x"], a["skip"]
+                key = (tuple(x.shape), x.stride(), str(x.dtype),
+                       None if skip is None else tuple(skip.shape),
+                       a["pool"])
+                if key in self.pack_timing:
+                    self.pack_timing[key]["sites"].append(self.site)
+                else:
+                    self.pack_timing[key] = {"args": a,
+                                             "sites": [self.site]}
+            return out
+        return pack
+
+    def _check_pack(self, plain, a, out) -> None:
+        import torch
+
+        x, skip = a["x"], a["skip"]
+        for i in range(0, x.shape[0], PLAIN_SLICE):
+            part = slice(i, i + PLAIN_SLICE)
+            want = plain(x[part], a["sx"],
+                         None if skip is None else skip[part], a["pool"])
+            if out.dtype != want.dtype or not torch.equal(out[part], want):
+                bad = int((out[part] != want).sum())
+                fail(f"int8_path: {self.PACK} at {self.site} (input "
+                     f"{tuple(x.shape)}, windows {i}+): {bad} of its int8 "
+                     "values differ from the plain version")
+        self.batches[-1]["calls"][self.PACK] += 1
+
+
+def widen(torch, t, n: int):
+    """``t`` with its leading (window) axis repeated to ``n``, in ``t``'s
+    own layout: a permuted or sliced view keeps the order of its strides
+    (an NCHW slice seen as NHWC stays channel-strided).  ``None`` stays."""
+    if t is None or t.shape[0] >= n:
+        return t
+    order = sorted(range(t.ndim), key=lambda d: -t.stride(d))
+    axis = order.index(0)
+    phys = t.permute(order)
+    reps = -(-n // t.shape[0])
+    wide = torch.cat([phys] * reps, dim=axis).narrow(axis, 0, n)
+    return wide.permute([order.index(d) for d in range(t.ndim)])
+
+
+def int8_pack_timing_rows(torch, rec: Int8Recorder) -> dict:
+    """One row per distinct quantize launch of the largest scoring
+    forward, its real inputs widened to ``WINDOW_BATCH`` windows: the
+    kernel's device time (CUDA graphs of 20 calls) and eager time, its
+    plain version's (the PyTorch ops the forward ran before the kernel:
+    the cat or the pool, the float32 quantize, the padding), beside the
+    bound of its compulsory bytes."""
+    from ammcnet_aaai2021_torch.ops import int8_kernels as ik
+
+    rows = {}
+    for t in rec.pack_timing.values():
+        a = t["args"]
+        x, skip = (widen(torch, a[k], WINDOW_BATCH) for k in ("x", "skip"))
+        sx, pool = a["sx"], a["pool"]
+        out = ik.quantize_pack_int8(x, sx, skip, pool)
+        if not torch.equal(out, ik.quantize_pack_int8_ref(x, sx, skip,
+                                                          pool)):
+            fail(f"int8_path: {rec.PACK} at {t['sites'][0]} differs from "
+                 f"its plain version at {WINDOW_BATCH} windows")
+        in_bytes = sum(s.numel() * s.element_size()
+                       for s in (x, skip) if s is not None)
+        form = "cat" if skip is not None else "pool" if pool else "plain"
+        row = {"name": t["sites"][0], "sites": t["sites"], "form": form,
+               "dtype": str(x.dtype).replace("torch.", ""),
+               "input": list(x.shape), "input_strides": list(x.stride()),
+               "skip": None if skip is None else list(skip.shape),
+               "output": list(out.shape), "windows": x.shape[0],
+               "per_forward": len(t["sites"]), "max_abs_err": 0,
+               "kernel_ms": graph_ms(torch, lambda: ik.quantize_pack_int8(
+                   x, sx, skip, pool)),
+               "kernel_eager_ms": time_ms(
+                   torch, lambda: ik.quantize_pack_int8(x, sx, skip, pool),
+                   reps=5, warmup=1),
+               "plain_ms": time_ms(
+                   torch, lambda: ik.quantize_pack_int8_ref(
+                       x, sx, skip, pool), reps=3, warmup=1),
+               **bound(in_bytes + out.numel() + 4, 0,
+                       "source bytes (every pooled pixel) + N*H*W*Cpad + "
+                       "4", "none (a few per byte)", INT8_TENSOR_OPS,
+                       "int8 tensor cores")}
+        rows[row["name"]] = row
+        emit("int8_pack_timing", **row)
+        del x, skip, out
+    rec.pack_timing.clear()
+    torch.cuda.empty_cache()
+    return rows
+
+
+def int8_pack_totals(rows: dict) -> dict:
+    """The quantize launches of a forward, summed: device ms, plain ms,
+    bound ms and bytes."""
+    out = {key: sum(r[key] * r["per_forward"] for r in rows.values())
+           for key in ("kernel_ms", "plain_ms", "bound_ms", "bytes")}
+    out["launches"] = sum(r["per_forward"] for r in rows.values())
+    out["windows"] = WINDOW_BATCH
+    out["share_of_bound"] = out["bound_ms"] / out["kernel_ms"]
+    return out
 
 
 def int8_timing_rows(torch, rec: Int8Recorder) -> dict:
@@ -1147,11 +1273,13 @@ def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
     bf16 run's data and seeded weights) with a training split added: records
     finite, one per frame, the AUC line, the rgb records' correlation with
     the bf16 run's, every 3x3 and transposed conv launched through the int8
-    kernels and B1 twice a forward.  Then the same command again under
+    kernels, 24 quantized inputs a scoring forward through the quantize
+    kernel, and B1 twice a forward.  Then the same command again under
     :class:`Int8Recorder`: every kernel call of the first forward at each of
     the run's batch sizes (the calibration's, and each video length's
     windows) against its plain version, bitwise; then each distinct launch
-    of the largest forward timed on its real inputs."""
+    of the largest forward timed on its real inputs (the quantize's
+    widened to 192 windows)."""
     import numpy as np
 
     from ammcnet_aaai2021_torch.models.quantized import N_SITES
@@ -1176,6 +1304,7 @@ def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
     wall = time.perf_counter() - t0
     launches = {"qconv3x3_int8": ik.qconv3x3_int8.launches,
                 "qconv_transpose2x2_int8": ik.qconv_transpose2x2_int8.launches,
+                "quantize_pack_int8": ik.quantize_pack_int8.launches,
                 "b1": dict(mk.quantize_topk_fused.launches_by_route)}
     printed = stdout.getvalue()
     print(printed, end="", flush=True)
@@ -1204,23 +1333,34 @@ def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
     check_s = time.perf_counter() - t0
     want_windows = sorted({min(8, INT8_CALIB_CLIPS)} | {min(WINDOW_BATCH, t - CLIP_LEN_RGB + 1)
                                  for t in lengths})
-    per_forward = rec.batches[0]["calls"] if rec.batches else {}
+    def convs(b):
+        return {k: b["calls"][k] for k in rec.KERNELS}
+    per_forward = convs(rec.batches[0]) if rec.batches else {}
+    # the quantize kernel takes the calibrated inputs: none in a record pass
     if (sorted(b["windows"] for b in rec.batches) != want_windows
-            or any(b["calls"] != per_forward for b in rec.batches)
+            or any(convs(b) != per_forward for b in rec.batches)
             or sum(per_forward.values()) != N_SITES
+            or any(b["calls"][rec.PACK] != INT8_PACK_PER_FORWARD
+                   * (not b["record_pass"]) for b in rec.batches)
             or rec.helper_calls != rec.kernel_calls):
         fail(f"int8_path: checked forwards {rec.batches} (want one at each "
-             f"of {want_windows} windows, {N_SITES} kernel calls each), "
-             f"{rec.helper_calls} convs and {rec.kernel_calls} kernel calls")
+             f"of {want_windows} windows, {N_SITES} conv calls each and "
+             f"{INT8_PACK_PER_FORWARD} quantize calls each but the record "
+             f"pass's), {rec.helper_calls} convs and {rec.kernel_calls} "
+             "conv kernel calls")
     emit("int8_check", batches=rec.batches, seconds=check_s,
          plain_slice=PLAIN_SLICE)
     want = {**{name: c * forwards for name, c in per_forward.items()},
+            rec.PACK: INT8_PACK_PER_FORWARD * main_run["forwards"],
             "b1": {r: 2 * forwards * (r == mk.TENSOR_CORE)
                    for r in mk.ROUTES}}
     if launches != want:
         fail(f"int8_path: launches {launches}, want {want} (the scoring "
              f"run's {main_run['forwards']} forwards and "
              f"{INT8_CALIB_CLIPS // 8} calibration passes)")
+    pack_rows = int8_pack_timing_rows(torch, rec)
+    pack_totals = int8_pack_totals(pack_rows)
+    emit("int8_pack_totals", **pack_totals)
     rows = int8_timing_rows(torch, rec)
     totals = int8_forward_totals(rows)
     emit("int8_forward_totals", **totals)
@@ -1234,7 +1374,8 @@ def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
            "corr_with_bf16": corr, "launches": launches,
            "train_data_write_s": data_s}
     emit("int8_path", **out)
-    return {"run": out, "checks": rows, "totals": totals}
+    return {"run": out, "checks": rows, "totals": totals,
+            "pack_checks": pack_rows, "pack_totals": pack_totals}
 
 
 def train_check_phase(torch, mk) -> dict:
@@ -1812,8 +1953,10 @@ def ckpt_path_phase(torch, mk) -> dict:
 EXPORT_VIDEOS, EXPORT_FRAMES, EXPORT_WINDOW_BATCH = 2, 192, 192
 # the JAX export CLI's bound: the artifact against the live scorer
 EXPORT_RTOL, EXPORT_ATOL = 1e-3, 1e-2
-# int8 convolutions a forward of the released generator
+# int8 convolutions a forward of the released generator, and its
+# statically quantized conv inputs (the quantize kernel's launches)
 INT8_3X3_PER_FORWARD, INT8_2X2_PER_FORWARD = 34, 6
+INT8_PACK_PER_FORWARD = 24
 
 
 def load_artifact(path: str, device: str):
@@ -1855,7 +1998,8 @@ def int8_counts() -> dict:
     from ammcnet_aaai2021_torch.ops import int8_kernels as ik
 
     return {"qconv3x3_int8": ik.qconv3x3_int8.launches,
-            "qconv_transpose2x2_int8": ik.qconv_transpose2x2_int8.launches}
+            "qconv_transpose2x2_int8": ik.qconv_transpose2x2_int8.launches,
+            "quantize_pack_int8": ik.quantize_pack_int8.launches}
 
 
 def export_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
@@ -1911,7 +2055,9 @@ def export_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
         per = name == "int8"
         want_convs = {"qconv3x3_int8": INT8_3X3_PER_FORWARD * forwards * per,
                       "qconv_transpose2x2_int8":
-                          INT8_2X2_PER_FORWARD * forwards * per}
+                          INT8_2X2_PER_FORWARD * forwards * per,
+                      "quantize_pack_int8":
+                          INT8_PACK_PER_FORWARD * forwards * per}
         if b1 != want_b1 or convs != want_convs:
             fail(f"export_path ({name}): the loaded artifact launched B1 "
                  f"{b1} and the int8 convolutions {convs}, want {want_b1} "
@@ -2163,7 +2309,10 @@ def tools_path_phase(torch, mk, tmp: str) -> dict:
             "qconv3x3_int8": INT8_3X3_PER_FORWARD * (forwards * passes + 1)
             * calib,
             "qconv_transpose2x2_int8": INT8_2X2_PER_FORWARD
-            * (forwards * passes + 1) * calib}
+            * (forwards * passes + 1) * calib,
+            # none in the calibration's record pass
+            "quantize_pack_int8": INT8_PACK_PER_FORWARD * forwards * passes
+            * calib}
         if b1 != {r: want_b1 * (r == mk.TENSOR_CORE) for r in mk.ROUTES} \
                 or convs != want_convs:
             fail(f"tools_path: device_bench {name} launched B1 {b1} and the "
@@ -4431,6 +4580,26 @@ def main(argv=None) -> None:
         "at": int8_at(conv2),
         "per_forward": int8["totals"]["2x2"],
         "by_shape": int8_by_shape("2x2"),
+    }, {
+        "name": "quantize_pack_int8",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/int8_conv.cu",
+        "replaces": "ammcnet_aaai2021_tpu/models/quantized.py:144 (XLA's "
+                    "fused static quantize) and the up levels' cat and the "
+                    "down levels' max-pool before it",
+        "launches": int8["run"]["launches"]["quantize_pack_int8"],
+        "launches_by_path": {
+            "int8_path": int8["run"]["launches"]["quantize_pack_int8"],
+            "export_loaded_int8": export["int8"]["int8_launches"][
+                "quantize_pack_int8"],
+            "device_bench_int8_calibrated": tools["device_bench"][
+                "int8_calibrated"]["int8_launches"]["quantize_pack_int8"]},
+        "max_abs_err": 0,
+        "ms": int8["pack_totals"]["kernel_ms"],
+        "at": f"the {int8['pack_totals']['launches']} launches of a "
+              f"{int8['pack_totals']['windows']}-window forward, summed",
+        "per_forward": int8["pack_totals"],
+        "by_shape": int8["pack_checks"],
     }, {
         "name": "ycc_to_rgb_u8",
         "route": "cuda",

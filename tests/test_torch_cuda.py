@@ -22,8 +22,11 @@ against the plain one (two-pass float32 statistics against ATen's: 1e-5)
 and the group lookup on B2 against the lookup without a group (bitwise:
 one rank's all-reduce returns its input).
 The int8 convolution kernels are held against their plain versions
-bitwise: accumulators and epilogue; the int8 calibration reads JPEG
-training frames through the GPU route as its plain pipeline reads them.
+bitwise: accumulators and epilogue; so is the int8 quantize kernel, at
+the shapes and layouts of the forward's 24 statically quantized inputs,
+and a calibrated forward through it scores as through its plain version;
+the int8 calibration reads JPEG training frames through the GPU route as
+its plain pipeline reads them.
 The registered ops (``ops/library.py``) launch their kernels, counted, and
 return the wrappers' outputs bitwise; a scorer exported on the card runs
 B1 inside the loaded graph, equals the live scorer and refuses the CPU.
@@ -1140,6 +1143,152 @@ def test_int8_transposed_conv_kernel_matches_plain_version(cuda_device,
     assert ik.qconv_transpose2x2_int8.launches == before + 2
 
 
+# the quantize tests' scale, a power of two: (k + 1/2) * sx is exact in bf16
+PACK_SX = 2.0 ** -6
+# x / sx at the first values of each case: ties of both signs, values past
+# +-127 * sx, -0.0, the infinities and a NaN (ATen's cast packs it to 0)
+PACK_SPECIALS = (2.5, 3.5, -2.5, -3.5, 0.5, -0.5, 126.5, -126.5, 127.5,
+                 -127.5, 200.0, -200.0, -0.0, float("inf"), float("-inf"),
+                 float("nan"))
+# the released forward's statically quantized inputs at 256x256, batch 2
+# (form, dtype, the stored tensor's shape, sites): the stream inputs are
+# channel slices of NCHW windows seen as NHWC; the bridge conv0s and
+# up1.up read the memory block's NCHW output as NHWC; the rest are the
+# convolutions' NHWC outputs (cat: the skip, then the upsampled tensor)
+PACK_SITES = {
+    "inc_conv0_rgb": ("entry", torch.float32, (2, 15, 256, 256), 12),
+    "inc_conv0_op": ("entry", torch.bfloat16, (2, 8, 256, 256), 6),
+    "down1_conv0": ("pool", torch.bfloat16, (2, 256, 256, 64), None),
+    "down2_conv0": ("pool", torch.bfloat16, (2, 128, 128, 128), None),
+    "down3_conv0": ("pool", torch.bfloat16, (2, 64, 64, 256), None),
+    "bridge_conv0_up1_up": ("nchw", torch.bfloat16, (2, 512, 32, 32), None),
+    "up1_conv0": ("cat", torch.bfloat16, (2, 64, 64, 256), 256),
+    "up2_up": ("plain", torch.bfloat16, (2, 64, 64, 256), None),
+    "up2_conv0": ("cat", torch.bfloat16, (2, 128, 128, 128), 128),
+    "up3_up": ("plain", torch.bfloat16, (2, 128, 128, 128), None),
+    "up3_conv0": ("cat", torch.bfloat16, (2, 256, 256, 64), 64),
+    "outc": ("plain", torch.bfloat16, (2, 256, 256, 64), None),
+    # ragged pixel counts (105 a tile of 32 does not divide), a channel
+    # group that straddles the two sources, a misaligned source (the
+    # value-by-value path), float32 16-byte loads and float32 pooling
+    "ragged_cat_straddle": ("cat", torch.bfloat16, (3, 5, 7, 40), 24),
+    "ragged_pool": ("pool", torch.bfloat16, (3, 10, 14, 64), None),
+    "misaligned": ("misaligned", torch.bfloat16, (2, 9, 11, 66), None),
+    "float32_plain": ("plain", torch.float32, (2, 9, 13, 32), None),
+    "float32_pool": ("pool", torch.float32, (2, 10, 12, 48), None),
+}
+
+
+def _pack_site(device, seed, form, dtype, shape, extra):
+    """``(x, skip, pool)`` of one case on the card: normal values around
+    +-60 * sx, :data:`PACK_SPECIALS` first in storage order."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(shape):
+        t = torch.randn(shape, generator=g) * 60 * PACK_SX
+        t.view(-1)[:len(PACK_SPECIALS)] = torch.tensor(PACK_SPECIALS) * PACK_SX
+        return t.to(device=device, dtype=dtype)
+    skip, pool = None, form == "pool"
+    x = normal(shape)
+    if form == "entry":
+        x = x[:, :extra].permute(0, 2, 3, 1)
+    elif form == "nchw":
+        x = x.permute(0, 2, 3, 1)
+    elif form == "cat":
+        skip = normal((*shape[:3], extra))
+    elif form == "misaligned":
+        x = x[..., 1:65]
+    return x, skip, pool
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("site", sorted(PACK_SITES))
+def test_int8_quantize_kernel_matches_plain_version(cuda_device, site):
+    """The quantize kernel against its plain version (the PyTorch ops on
+    the card), bitwise, at each statically quantized input's shape and
+    layout, with ties, clipped values, -0.0, infinities and a NaN; one
+    launch a call."""
+    x, skip, pool = _pack_site(cuda_device, 53, *PACK_SITES[site])
+    sx = torch.tensor([PACK_SX], device=cuda_device)
+    before = ik.quantize_pack_int8.launches
+    got = ik.quantize_pack_int8(x, sx, skip, pool)
+    torch.cuda.synchronize()
+    assert ik.quantize_pack_int8.launches == before + 1
+    want = ik.quantize_pack_int8_ref(x, sx, skip, pool)
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_int8_quantize_kernel_rounds_every_bf16_value(cuda_device):
+    """The kernel's quotient (a reciprocal once, two exact corrections)
+    against the plain version's IEEE division, bitwise, on every bf16 bit
+    pattern (NaNs, infinities, denormals, both zeros) at 64 scales: powers
+    of two, the smallest the calibration gives (1e-12 / 127), a huge one,
+    and seeded scales across 1e-5 to 1e3; both the 16-byte loads (NHWC)
+    and the value-by-value path (an NCHW view); and float32 inputs: the
+    rgb window's 256 values as the gather computes them and seeded normal
+    values around each scale's range."""
+    g = torch.Generator().manual_seed(61)
+    scales = [2.0 ** e for e in (-20, -6, 0, 3)] + [1e-12 / 127, 1e30]
+    scales += torch.exp(torch.empty(58).uniform_(
+        np.log(1e-5), np.log(1e3), generator=g)).tolist()
+    every = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+        torch.int16).view(torch.bfloat16)
+    u8 = torch.arange(256, dtype=torch.float32)
+    rgb = (u8 / 255.0 - 0.5) / 0.5
+    for scale in scales:
+        sx = torch.tensor([scale], device=cuda_device)
+        f32 = torch.cat([rgb, torch.randn(65536 - 256, generator=g)
+                         * 80 * scale])
+        for values in (every, f32):
+            nhwc = values.reshape(1, 32, 32, 64).to(cuda_device)
+            nchw = values.reshape(1, 64, 32, 32).to(cuda_device).permute(
+                0, 2, 3, 1)
+            for x in (nhwc, nchw):
+                got = ik.quantize_pack_int8(x, sx)
+                want = ik.quantize_pack_int8_ref(x, sx)
+                assert torch.equal(got, want), (scale, values.dtype,
+                                                x.stride())
+
+
+@pytest.mark.cuda
+def test_calibrated_forward_quantizes_through_the_kernel(cuda_device,
+                                                         monkeypatch):
+    """The released widths' calibrated int8 forward on the card (64x64,
+    one forward of 4 windows through ``ChunkScorer``): 24 quantize
+    launches a forward, and the records bitwise those of the same forward
+    with the quantize's plain version patched in."""
+    from ammcnet_aaai2021_torch.eval.export import ChunkScorer, chunk_example
+    from ammcnet_aaai2021_torch.models import quantized as pq
+
+    cfg = NetConfig()
+    gen = init_weights(build_generator(cfg, per_sample_diff=True),
+                       torch.Generator().manual_seed(5))
+    kw = dict(embed_dim=cfg.embed_dim, n_embed=cfg.n_embed, k=cfg.k,
+              per_sample_diff=True, use_kernel=cfg.use_memory_kernel)
+    qvars = pq.quantize_twostream_variables(gen.state_dict())
+    g = torch.Generator().manual_seed(6)
+    cal = [((torch.rand(4, 12, 64, 64, generator=g) * 2 - 1).to(cuda_device),
+            (torch.randn(4, 6, 64, 64, generator=g) * 0.02).to(cuda_device))]
+    qcal = pq.calibrate_act_scales(
+        pq.make_quantized_forward(qvars, **kw).to(cuda_device), qvars, cal)
+    scorer = ChunkScorer(pq.make_quantized_forward(qcal, **kw).to(
+        cuda_device), window_batch=4).eval()
+    rgbs, ops = chunk_example(1, 8, 64, cuda_device, seed=7)
+    with torch.no_grad():
+        before = ik.quantize_pack_int8.launches
+        got = scorer(rgbs, ops)
+        torch.cuda.synchronize()
+        assert ik.quantize_pack_int8.launches == before + 24
+        monkeypatch.setattr(pq, "quantize_pack_int8",
+                            ik.quantize_pack_int8_ref)
+        want = scorer(rgbs, ops)
+        torch.cuda.synchronize()
+        assert ik.quantize_pack_int8.launches == before + 24
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_world_size_one_group_equals_the_plain_batchnorm_and_b2(cuda_device,
                                                                 tmp_path):
@@ -1204,6 +1353,8 @@ def test_registered_ops_launch_the_kernels_and_count(cuda_device):
     x, wk, sx, scale, bias = _int8_case(cuda_device, 44, 2, 9, 13, 32, 64, 9)
     xt, wt, sxt, scale_t, bias_t = _int8_case(cuda_device, 45, 2, 5, 7, 64,
                                               24, 1)
+    xp, skip, _ = _pack_site(cuda_device, 46, "cat", torch.bfloat16,
+                             (2, 9, 13, 64), 64)
     cases = [
         (library.quantize_topk_fused, quantize_topk_fused, (flat, embed, K)),
         (library.quantize_topk_train_fused, quantize_topk_train_fused,
@@ -1212,6 +1363,8 @@ def test_registered_ops_launch_the_kernels_and_count(cuda_device):
          (x, wk, sx, scale, bias, 64)),
         (library.qconv_transpose2x2_int8, ik.qconv_transpose2x2_int8,
          (xt, wt, sxt, scale_t, bias_t, 24)),
+        (library.quantize_pack_int8, ik.quantize_pack_int8,
+         (xp, torch.tensor([PACK_SX], device=cuda_device), skip)),
     ]
     for op, wrapper, args in cases:
         before = wrapper.launches

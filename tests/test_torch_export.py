@@ -6,9 +6,11 @@ Mirrors ``tests/test_export.py`` (round trip, self-contained, bad magic,
 platform mismatch, the CLI with ``--check`` and ``--int8``), then holds
 the artifact against the JAX package's ``make_multi_video_scorer`` on
 the same weights and chunk, refuses a JAX artifact, loads and scores in a
-process without the port's ``models``, and runs ``torch.library.opcheck``
-on the four registered ops.  Small sizes (32x32, 64 codewords, float32);
-the JAX side runs its plain lookup.
+process without the port's ``models``, holds the calibrated int8
+forward's artifact (its graph calls the int8 quantize and the
+convolutions as registered ops) against the live scorer, and runs
+``torch.library.opcheck`` on the five registered ops.  Small sizes
+(32x32, 64 codewords, float32); the JAX side runs its plain lookup.
 """
 
 import json
@@ -250,6 +252,44 @@ def test_artifact_serves_without_the_ports_models(setup, artifact,
                                rtol=1e-6, atol=1e-6)
 
 
+def test_int8_artifact_calls_the_quantize_kernel(setup, tmp_path):
+    """The calibrated int8 forward exported: each forward of the graph
+    (two window batches) calls ``ammcnet::quantize_pack_int8`` at its 24
+    statically quantized inputs and the convolutions at 34 and 6, and the
+    loaded artifact scores as the live scorer does."""
+    from ammcnet_aaai2021_torch.models import quantized as pq
+
+    kw = dict(embed_dim=64, n_embed=N_EMBED, k=NetConfig().k,
+              per_sample_diff=True)
+    qvars = pq.quantize_twostream_variables(setup["gen"].state_dict())
+    g = torch.Generator().manual_seed(9)
+    cal = [(torch.rand(2, 12, SIZE, SIZE, generator=g) * 2 - 1,
+            torch.randn(2, 6, SIZE, SIZE, generator=g) * 0.02)]
+    qcal = pq.calibrate_act_scales(pq.make_quantized_forward(qvars, **kw),
+                                   qvars, cal)
+    model = pq.make_quantized_forward(qcal, **kw)
+    path = str(tmp_path / "int8.ammc")
+    save_scorer(path, model, n_videos=1, frames=BUCKET, size=SIZE,
+                window_batch=WB)
+    score_chunk, _ = load_scorer(path, device="cpu")
+    targets = [str(n.target) for n in score_chunk.graph.nodes
+               if n.op == "call_function"]
+    forwards = -(-(BUCKET - 4) // WB)
+    for name, per_forward in (("quantize_pack_int8", 24),
+                              ("qconv3x3_int8", 34),
+                              ("qconv_transpose2x2_int8", 6)):
+        assert sum(f"ammcnet.{name}" in t for t in targets) == \
+            per_forward * forwards, name
+    rgbs, ops = _tensors(_chunk(6))
+    rgbs, ops = rgbs[:1], tuple(o.to(torch.bfloat16) for o in ops[:1])
+    with torch.no_grad():
+        got = score_chunk(rgbs, ops)
+        want = ChunkScorer(model, window_batch=WB)(rgbs, ops)
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
 def _op_cases():
     g = torch.Generator().manual_seed(7)
     flat = torch.randn(37, 16, generator=g)
@@ -263,6 +303,8 @@ def _op_cases():
     sx = torch.tensor([0.01])
     scale, bias = torch.rand(10, generator=g), torch.rand(10, generator=g)
     conv = (x, wk, sx, scale, bias, 10)
+    act = torch.randn(2, 12, 6, 8, generator=g) * 0.5
+    skip = (torch.randn(2, 6, 8, 64, generator=g) * 0.5).bfloat16()
     return {
         "quantize_topk_k1": ("quantize_topk", (flat, embed, 1), {}),
         "quantize_topk_k2": ("quantize_topk", (flat.bfloat16(), embed, 2),
@@ -274,6 +316,12 @@ def _op_cases():
         "qconv3x3_int8_acc": ("qconv3x3_int8", conv, {"acc": True}),
         "qconv_transpose2x2_int8": ("qconv_transpose2x2_int8",
                                     (x, wt, sx, scale, bias, 10), {}),
+        "quantize_pack_int8_strided": ("quantize_pack_int8",
+                                       (act.permute(0, 2, 3, 1), sx), {}),
+        "quantize_pack_int8_cat": ("quantize_pack_int8", (skip, sx),
+                                   {"skip": skip.flip(-1)}),
+        "quantize_pack_int8_pool": ("quantize_pack_int8", (skip, sx),
+                                    {"pool": True}),
     }
 
 

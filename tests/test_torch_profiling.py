@@ -9,7 +9,8 @@ the spans and counters at the port's layer boundaries.
   nested as ``utils/profiling.py`` lists them; a stage-1 step has the
   phases it runs;
 * the int8 input counters: 16 resident, 24 static, 0 dynamic a calibrated
-  forward, 0/0/40 an uncalibrated one;
+  forward, 0/0/40 an uncalibrated one; the quantize kernel's forms
+  (``int8.pack.plain``, ``.cat``, ``.pool``) 12/6/6 and 0/0/0;
 * ``setup.ops`` holds the op library's set-up, and ``reset`` keeps it;
 * ``torch.export`` of a ``ChunkScorer`` traces no profiler op: its graph is
   the one the forward gives with the spans taken out;
@@ -50,12 +51,14 @@ PHASES = ("train_step.forward", "train_step.teacher",
           "train_step.discriminator", "train_step.backward",
           "train_step.optimizer")
 INPUTS = ("int8.inputs.resident", "int8.inputs.static", "int8.inputs.dynamic")
+PACKS = ("int8.pack.plain", "int8.pack.cat", "int8.pack.pool")
 # the benchmark's own span names (benchmark/tracing.py and its drivers)
 BENCHMARK_SPANS = ("segment", "upload", "extract", "score", "fetch", "step",
                    "psnr", "loop")
-PORT_NAMES = ("int8.quantize", "train_step", "train_loop.start",
-              "train_loop.data_wait", "train_loop.fetch", "train_loop.stop",
-              "scorer.forward", "flow.extract", "setup.ops") + PHASES + INPUTS
+PORT_NAMES = (("int8.quantize", "train_step", "train_loop.start",
+               "train_loop.data_wait", "train_loop.fetch", "train_loop.stop",
+               "scorer.forward", "flow.extract", "setup.ops")
+              + PHASES + INPUTS + PACKS)
 
 
 @pytest.fixture(autouse=True)
@@ -180,8 +183,8 @@ def _chunk(seed=3, frames=6):
     return (rgb,), (op,)
 
 
-@pytest.mark.parametrize("kind,want", [("calibrated", (16, 24, 0)),
-                                       ("dynamic", (0, 0, 40))])
+@pytest.mark.parametrize("kind,want", [("calibrated", (16, 24, 0, 12, 6, 6)),
+                                       ("dynamic", (0, 0, 40, 0, 0, 0))])
 def test_int8_forward_spans_and_input_counters(int8_forwards, tmp_path, kind,
                                                want):
     """One window batch through ``ChunkScorer``: one ``scorer.forward``
@@ -198,7 +201,7 @@ def test_int8_forward_spans_and_input_counters(int8_forwards, tmp_path, kind,
     assert len(spans["int8.quantize"]) == pq.N_SITES
     assert _inside(spans["int8.quantize"], spans["scorer.forward"])
     got = profiling.counts()
-    assert tuple(got.get(name, 0) for name in INPUTS) == want
+    assert tuple(got.get(name, 0) for name in INPUTS + PACKS) == want
     s = profiling.summary()
     assert s["int8.quantize"]["calls"] == pq.N_SITES
     assert s["scorer.forward"]["calls"] == 1

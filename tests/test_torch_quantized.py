@@ -580,6 +580,148 @@ class TestWrappers:
                 x, torch.zeros((64, 9, 32), dtype=torch.int8), *args)
 
 
+# the pack tests' scale, a power of two: (k + 1/2) * sx is exact in bf16
+PACK_SX = 2.0 ** -6
+# (x / sx, its int8): ties at k + 1/2 of both signs round to even, values
+# past +-127 * sx clip, -0.0 packs to 0
+PACK_SPECIALS = ((2.5, 2), (3.5, 4), (-2.5, -2), (-3.5, -4), (0.5, 0),
+                 (-0.5, 0), (126.5, 126), (-126.5, -126), (127.5, 127),
+                 (-127.5, -127), (200.0, 127), (-200.0, -127), (-0.0, 0))
+# the forward's static sites by form: the stream inputs (sliced, permuted
+# NCHW views: rgb float32 12 channels, op bf16 6), contiguous NHWC
+# (up2.up, up3.up, outc), channel-strided NHWC views (the bridge conv0s
+# and up1.up take the memory block's NCHW output), the up levels' cat
+# (here with channel counts that are not multiples of 16) and the down
+# levels' 2x2 max-pool
+PACK_FORMS = ("entry_rgb", "entry_op", "plain", "channel_strided", "cat",
+              "pool")
+
+
+def _pack_case(form, seed):
+    """``(x, skip, pool)`` of one form at small shapes, values normal
+    around +-60 * sx, :data:`PACK_SPECIALS` at the first output positions
+    (in ``x``; with ``pool`` the max of their windows)."""
+    g = torch.Generator().manual_seed(seed)
+
+    def normal(*shape, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g) * 60 * PACK_SX).to(dtype)
+    skip, pool = None, False
+    if form == "entry_rgb":
+        x = normal(2, 15, 5, 6, dtype=torch.float32)[:, :12].permute(
+            0, 2, 3, 1)
+    elif form == "entry_op":
+        x = normal(2, 8, 5, 6)[:, :6].permute(0, 2, 3, 1)
+    elif form == "plain":
+        x = normal(2, 4, 6, 64)
+    elif form == "channel_strided":
+        x = normal(2, 48, 4, 6).permute(0, 2, 3, 1)
+    elif form == "cat":
+        skip, x = normal(2, 4, 6, 24), normal(2, 4, 6, 40)
+    else:
+        x, pool = normal(2, 8, 6, 64), True
+    n, h, w, c = x.shape
+    out_hw = (h // 2, w // 2) if pool else (h, w)
+    for i, (v, _) in enumerate(PACK_SPECIALS):
+        b, y, z, ch = np.unravel_index(i, (n, *out_hw, c))
+        if pool:
+            x[b, 2 * y:2 * y + 2, 2 * z:2 * z + 2, ch] = -1000 * PACK_SX
+            y, z = 2 * y + i % 2, 2 * z + i // 2 % 2
+        x[b, y, z, ch] = v * PACK_SX
+    return x, skip, pool
+
+
+def _pack_oracle(x, skip, pool):
+    """The padded int8 input in numpy: float32 IEEE division, ``rint``
+    (half to even), clip, zero channels to a multiple of 32."""
+    v = x.float().numpy()
+    if skip is not None:
+        v = np.concatenate([skip.float().numpy(), v], axis=-1)
+    if pool:
+        n, h, w, c = v.shape
+        v = v.reshape(n, h // 2, 2, w // 2, 2, c).max(axis=(2, 4))
+    q = np.clip(np.rint(v / np.float32(PACK_SX)), -127, 127).astype(np.int8)
+    extra = -q.shape[-1] % ik.CIN_ALIGN
+    return np.pad(q, ((0, 0),) * 3 + ((0, extra),))
+
+
+class TestPack:
+    """``quantize_pack_int8``, on the CPU its plain version."""
+
+    @pytest.mark.parametrize("form", PACK_FORMS)
+    def test_plain_version_is_the_aten_chain(self, form):
+        """The plain version (and the registered op, which takes it here,
+        uncounted) is the chain the forward ran before the kernel bitwise:
+        ``_q_down``'s ``amax``, ``_q_up``'s ``cat``, the static quantize,
+        ``pad_channels``; and a numpy quantize, every tie, clip and -0.0
+        as listed."""
+        x, skip, pool = _pack_case(form, 5)
+        sx = torch.tensor([PACK_SX])
+        chain = x
+        if pool:
+            b, h, w, c = x.shape
+            chain = chain.reshape(b, h // 2, 2, w // 2, 2, c).amax(dim=(2, 4))
+        if skip is not None:
+            chain = torch.cat([skip, chain], dim=-1)
+        chain = torch.round(chain.float() / sx).clamp(-127, 127).to(
+            torch.int8)
+        chain = ik.pad_channels(chain).contiguous()
+        before = ik.quantize_pack_int8.launches
+        got = ik.quantize_pack_int8_ref(x, sx, skip, pool)
+        assert got.dtype == torch.int8 and got.is_contiguous()
+        assert got.shape[-1] % ik.CIN_ALIGN == 0
+        assert torch.equal(got, chain)
+        np.testing.assert_array_equal(got.numpy(), _pack_oracle(x, skip,
+                                                                pool))
+        assert torch.equal(library.quantize_pack_int8(x, sx, skip, pool), got)
+        assert ik.quantize_pack_int8.launches == before
+        n, h, w, _ = got.shape
+        off = skip.shape[-1] if skip is not None else 0
+        for i, (_, want) in enumerate(PACK_SPECIALS):
+            b, y, z, ch = np.unravel_index(i, (n, h, w, x.shape[-1]))
+            assert got[b, y, z, off + ch].item() == want, (i, want)
+
+    @pytest.mark.parametrize("form", PACK_FORMS)
+    def test_registered_op_fake_gives_shape_and_dtype(self, form):
+        from torch._subclasses.fake_tensor import FakeTensorMode
+
+        x, skip, pool = _pack_case(form, 6)
+        sx = torch.tensor([PACK_SX])
+        real = library.quantize_pack_int8(x, sx, skip, pool)
+        with FakeTensorMode() as mode:
+            fake = library.quantize_pack_int8(
+                mode.from_tensor(x), mode.from_tensor(sx),
+                None if skip is None else mode.from_tensor(skip), pool)
+        assert fake.shape == real.shape and fake.dtype == torch.int8
+
+    @pytest.mark.parametrize("case", [
+        "float16", "types_differ", "skip_with_pool", "skip_other_pixels",
+        "odd_pool", "no_channels", "sx_float64", "sx_two_values",
+        "three_axes"])
+    def test_layouts_the_kernel_does_not_take_raise(self, case):
+        x = torch.zeros((2, 4, 6, 32), dtype=torch.bfloat16)
+        skip, pool, sx = None, False, torch.tensor([0.1])
+        if case == "float16":
+            x = x.half()
+        elif case == "types_differ":
+            skip = torch.zeros((2, 4, 6, 32))
+        elif case == "skip_with_pool":
+            skip, pool = x.clone(), True
+        elif case == "skip_other_pixels":
+            skip = torch.zeros((2, 4, 5, 32), dtype=torch.bfloat16)
+        elif case == "odd_pool":
+            x, pool = x[:, :3], True
+        elif case == "no_channels":
+            skip = x[..., :0]
+        elif case == "sx_float64":
+            sx = sx.double()
+        elif case == "sx_two_values":
+            sx = torch.tensor([0.1, 0.2])
+        else:
+            x = x[0]
+        with pytest.raises(ValueError, match="quantize_pack_int8: want"):
+            ik.quantize_pack_int8(x, sx, skip, pool)
+
+
 def _chip_smoke():
     """``chip_smoke.py`` as a module (its checks' code runs on CPU
     tensors too; its phases need the card)."""
@@ -616,25 +758,58 @@ class TestChipSmokeInt8Check:
         assert [(b["windows"], b["record_pass"]) for b in rec.batches] == [
             (2, True), (1, False)]
         for b in rec.batches:
+            # the quantize kernel takes the calibrated inputs alone
             assert b["calls"] == {"qconv3x3_int8": 34,
-                                  "qconv_transpose2x2_int8": 6}
+                                  "qconv_transpose2x2_int8": 6,
+                                  "quantize_pack_int8":
+                                      0 if b["record_pass"] else 24}
         assert rec.helper_calls == rec.kernel_calls == 4 * pq.N_SITES
+        assert rec.pack_calls == 3 * 24
         # the timed forward: the first scoring one at the largest batch,
-        # each distinct launch once, the unpadded input widths
+        # each distinct launch once, the unpadded input widths (an up
+        # level's conv0 the skip's and the upsampled tensor's)
         kept = list(rec.timing.values())
         assert sum(len(t["sites"]) for t in kept) == pq.N_SITES
         assert {t["true_cin"] for t in kept
                 if t["sites"][0].endswith("inc/conv0")} == {12, 6}
+        assert {t["true_cin"] for t in kept
+                if t["sites"][0].endswith("up3/conv/conv0")} == {128}
         assert {t["epilogue"] for t in kept} == {"int8", "bf16_relu", "bf16"}
+        packs = list(rec.pack_timing.values())
+        assert sum(len(t["sites"]) for t in packs) == 24
+        forms = [(t["args"]["skip"] is not None, t["args"]["pool"])
+                 for t in packs for _ in t["sites"]]
+        assert sorted(forms) == [(False, False)] * 12 + [(False, True)] * 6 \
+            + [(True, False)] * 6
 
+    def test_widen_keeps_each_sources_layout(self):
+        """The quantize's timing widens its recorded inputs to 192 windows
+        in their own layouts: a sliced NCHW entry stays channel-strided,
+        an NHWC activation stays contiguous, values repeat by window."""
+        cs = _chip_smoke()
+        entry = torch.randn(3, 15, 4, 5)[:, :12].permute(0, 2, 3, 1)
+        act = torch.randn(3, 4, 5, 64).bfloat16()
+        for t in (entry, act):
+            wide = cs.widen(torch, t, 8)
+            assert wide.shape == (8, *t.shape[1:])
+            order = sorted(range(4), key=lambda d: -t.stride(d))
+            assert sorted(range(4), key=lambda d: -wide.stride(d)) == order
+            assert torch.equal(wide[3:6], t) and torch.equal(wide[6:], t[:2])
+        assert cs.widen(torch, None, 8) is None
+
+    @pytest.mark.parametrize("name,site,says", [
+        ("qconv_transpose2x2_int8", "streams/rgb/up1/up", "1 output differ"),
+        ("quantize_pack_int8", "streams/rgb/inc/conv0",
+         "1 of its int8 values differ")])
     def test_recorder_fails_on_a_wrong_kernel_output(self, built, qcal,
-                                                     monkeypatch, capsys):
+                                                     monkeypatch, capsys,
+                                                     name, site, says):
         """A kernel whose output the forward uses is off by one value: the
-        check exits non-zero."""
+        check exits non-zero, naming the kernel and its first site."""
         import functools
 
         cs = _chip_smoke()
-        real = ik.qconv_transpose2x2_int8
+        real = getattr(ik, name)
 
         @functools.wraps(real)
         def off_by_one(*args, **kwargs):
@@ -642,11 +817,11 @@ class TestChipSmokeInt8Check:
             if not kwargs.get("acc"):
                 out.view(-1)[7] += 1
             return out
-        monkeypatch.setattr(pq, "qconv_transpose2x2_int8", off_by_one)
+        monkeypatch.setattr(pq, name, off_by_one)
         rgb, op = _nchw(*_batch(12))
         with torch.inference_mode(), cs.Int8Recorder(), pytest.raises(
                 SystemExit):
             _port(built, qcal)(rgb, op)
         err = capsys.readouterr().err
-        assert "qconv_transpose2x2_int8 at streams/rgb/up1/up" in err
-        assert "1 output differ" in err
+        assert f"{name} at {site}" in err
+        assert says in err
