@@ -16,7 +16,7 @@ decodes JPEG frames and ``.flo`` flows with ``data/native.py`` (frames on
 the scoring device: the IDCT, colour and resize kernels on a GPU, the C++
 loader on the CPU), and a
 ``flow_extractor`` from :func:`make_otf_flow_extractor` makes the flows on
-the device with FlowNet2-SD, so no flow file is read.
+the device with FlowNet2-SD or FlowNet 2.0, so no flow file is read.
 
 Deliberate deviations from the reference, as in the JAX package:
 * per-frame commit distance instead of the batch-mean scalar the reference
@@ -107,13 +107,18 @@ def _make_score_batch(model, clip_len_rgb: int, clip_len_op: int,
 
 
 def otf_flows(flow_net: torch.nn.Module, video_u8: torch.Tensor,
-              reproduce_flow_bug: bool = True, chunk: int = 16
+              reproduce_flow_bug: bool = True, chunk: Optional[int] = None
               ) -> Tuple[torch.Tensor, int]:
-    """FlowNet2-SD over a video's consecutive frame pairs, normalized as the
-    ``.flo`` loader normalizes: (T, h, w, 3) u8 -> ``((T-1, h, w, 2)
-    float32, forwards)``, ``chunk`` pairs a forward (the last one ragged),
+    """A flow network over a video's consecutive frame pairs, normalized as
+    the ``.flo`` loader normalizes: (T, h, w, 3) u8 -> ``((T-1, h, w, 2)
+    float32, forwards)``, ``chunk`` pairs a forward (the last one ragged;
+    None: the network's ``pairs_per_forward``, else 16),
+    ``flow_net`` taking FlowNet2-SD's (b, 3, 2, h, w) pairs in [0, 255] to
+    (b, 2, h, w) flows (``models.FlowNet2SD`` or ``models.FlowNet2``),
     under ``torch.inference_mode``.  ``reproduce_flow_bug``: the reference's
     channel overwrite (ch0 = u/h, ch1 = ch0/w); else (u/w, v/h)."""
+    if chunk is None:
+        chunk = getattr(flow_net, "pairs_per_forward", 16)
     n = video_u8.shape[0] - 1
     outs = []
     with torch.inference_mode():
@@ -133,13 +138,16 @@ def otf_flows(flow_net: torch.nn.Module, video_u8: torch.Tensor,
 
 
 def make_otf_flow_extractor(flow_net: torch.nn.Module,
-                            reproduce_flow_bug: bool = True, chunk: int = 16,
+                            reproduce_flow_bug: bool = True,
+                            chunk: Optional[int] = None,
                             pad_to: Optional[int] = None,
                             gray: bool = False) -> Callable:
     """On-the-fly optical flow on the device (JAX ``eval/infer.py:287-365``):
     ``extract(video_u8 (T, h, w, 3)) -> (T-1, h, w, 2) bf16`` flows from
-    :func:`otf_flows` on the device ``video_u8`` lies on, cast to bf16
-    whatever the network's type, as the JAX extractor does.
+    :func:`otf_flows` of ``flow_net`` (FlowNet2-SD, or FlowNet 2.0, which
+    the JAX package lacks) on the device ``video_u8`` lies on, cast to bf16
+    whatever the network's type, as the JAX extractor does.  ``chunk``
+    pairs a forward, by default the network's own (:func:`otf_flows`).
 
     ``pad_to``: edge-pad the video to this frame count on the device first.
     ``gray``: the input is (T, h, w, 1) u8, broadcast to the 3 equal
@@ -286,7 +294,7 @@ def score_dataset(
     colour and resize kernels on a GPU, into an RGB tensor there; the C++
     loader on the CPU).
     ``flow_extractor`` (:func:`make_otf_flow_extractor`): the flows come
-    from FlowNet2-SD on the device over each bucket-padded video (T_pad - 1
+    from its network on the device over each bucket-padded video (T_pad - 1
     pairs); ``op_root`` is not read.  A gray extractor gets channel 0 of
     each frame and raises ``ValueError`` on a video whose first frame's
     channels 0 and 2 differ, as the JAX package does.

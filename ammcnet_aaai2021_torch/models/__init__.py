@@ -50,6 +50,7 @@ from .blocks import (
     Up,
 )
 from .discriminator import PixelDiscriminator
+from .flownet2 import FlowNet2
 from .flownet_sd import FlowNet2SD, FlowNetSD
 from .memory_module import EncQuanDecResTopK, EncQuanDecTopK, TopKMemory
 from .unet_mem import (
@@ -75,7 +76,8 @@ __all__ = [
     "EncQuanDecResTopK", "UNetMemStream", "UNetMemV4", "AMFTBridge",
     "ConcatBridge", "AddBridge", "TwoStreamUNetMem", "VQMemory", "VQVAE",
     "VQVAETopK", "VQVAETopKRes", "VQVAETopKTwoStream", "bridge_only_mask",
-    "PixelDiscriminator", "FlowNetSD", "FlowNet2SD", "build_generator",
+    "PixelDiscriminator", "FlowNetSD", "FlowNet2SD", "FlowNet2",
+    "build_generator",
     "build_model", "init_weights", "init_flownet_weights", "Model",
     "NET_TAGS", "TWO_STREAM_TAGS", "set_process_group",
 ]
@@ -182,15 +184,17 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 @torch.no_grad()
 def init_flownet_weights(model: nn.Module, generator: torch.Generator
                          ) -> nn.Module:
-    """Seeded random FlowNet2-SD weights, for runs without a checkpoint:
-    flax's default conv init (LeCun normal, std ``1/sqrt(fan_in)``, here
-    untruncated), biases zero."""
+    """Seeded random FlowNet2-SD or FlowNet 2.0 weights, for runs without a
+    checkpoint: flax's default conv init (LeCun normal, std
+    ``1/sqrt(fan_in)``, here untruncated), biases zero (FlowNetS's
+    bias-free flow upsamplers have none)."""
     for m in model.modules():
         if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
             fan_in = m.in_channels * m.kernel_size[0] * m.kernel_size[1]
             m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
                            / math.sqrt(fan_in))
-            m.bias.zero_()
+            if m.bias is not None:
+                m.bias.zero_()
     return model
 
 

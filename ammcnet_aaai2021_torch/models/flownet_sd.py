@@ -32,9 +32,12 @@ from .blocks import Conv2d, ConvTranspose2d
 _SLOPE = 0.1
 
 
-def _conv(in_ch: int, out_ch: int, stride: int = 1) -> nn.Sequential:
-    """3x3 conv + LeakyReLU(0.1) (submodules.py conv, batchNorm=False)."""
-    return nn.Sequential(Conv2d(in_ch, out_ch, 3, stride=stride, padding=1),
+def _conv(in_ch: int, out_ch: int, stride: int = 1, kernel_size: int = 3
+          ) -> nn.Sequential:
+    """conv (3x3 unless given, SAME) + LeakyReLU(0.1) (submodules.py conv,
+    batchNorm=False)."""
+    return nn.Sequential(Conv2d(in_ch, out_ch, kernel_size, stride=stride,
+                                padding=(kernel_size - 1) // 2),
                          nn.LeakyReLU(_SLOPE))
 
 
@@ -105,6 +108,9 @@ class FlowNet2SD(FlowNetSD):
     """FlowNet2-SD (models.py:9-59).  Input: (b, 3, 2, h, w) frame pairs in
     the [0, 255] range, the reference's layout; output: (b, 2, h, w) float32
     flow.  The network runs in ``dtype``."""
+
+    # frame pairs a forward of the on-the-fly extractor (eval/infer.py)
+    pairs_per_forward = 16
 
     def __init__(self, div_flow: float = 20.0, rgb_max: float = 255.0,
                  dtype: torch.dtype = torch.bfloat16):

@@ -14,7 +14,9 @@ implementation when that graph runs:
 * ``ammcnet::qconv_transpose2x2_int8``:
   ``int8_kernels.qconv_transpose2x2_int8``;
 * ``ammcnet::quantize_pack_int8``: ``int8_kernels.quantize_pack_int8``,
-  the convolutions' statically quantized inputs.
+  the convolutions' statically quantized inputs;
+* ``ammcnet::correlation``: ``correlation.correlation``, FlowNet 2.0's
+  FlowNetC correlation (``models/flownet2.py``).
 
 Each real implementation calls the wrapper unchanged: a CPU tensor gets
 the plain version, a CUDA tensor launches the kernel or raises, and the
@@ -25,18 +27,19 @@ may return outputs that share storage (B1's ``q1`` is a view of
 ``q_topk`` at k 1); a registered op may not, so such an output is copied.
 
 No op has an autograd formula: the lookups take detached latents and a
-codebook buffer (``ops/memory.py``), and the int8 convolutions serve
-inference only.
+codebook buffer (``ops/memory.py``), and the int8 convolutions and the
+correlation serve inference only.
 
 The names :func:`quantize_topk_fused`, :func:`quantize_topk_train_fused`,
-:func:`qconv3x3_int8`, :func:`qconv_transpose2x2_int8` and
-:func:`quantize_pack_int8` call the ops with the wrappers' arguments;
-``ops/memory.py`` and ``models/quantized.py`` call these.  Each op but
-the quantize also has a FLOP formula for ``torch.utils.flop_counter``
-(``tools/train_flops.py``): the lookups' distance product, ``2 * N * dim
-* n_embed`` (B2: plus ``N * dim`` adds of its sums), and the
-convolutions' ``2 * N * H * W * taps * Cin * cols`` at the kernel's
-padded input width.
+:func:`qconv3x3_int8`, :func:`qconv_transpose2x2_int8`,
+:func:`quantize_pack_int8` and :func:`correlation` call the ops with the
+wrappers' arguments; ``ops/memory.py``, ``models/quantized.py`` and
+``models/flownet2.py`` call these.  Each op but the quantize also has a
+FLOP formula for ``torch.utils.flop_counter`` (``tools/train_flops.py``):
+the lookups' distance product, ``2 * N * dim * n_embed`` (B2: plus ``N *
+dim`` adds of its sums), the convolutions' ``2 * N * H * W * taps * Cin *
+cols`` at the kernel's padded input width, and the correlation's ``2 * B
+* 441 * C * H * W``.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ _T_SETUP = time.perf_counter_ns()
 import torch._dynamo  # noqa: E402,F401
 from torch.utils.flop_counter import register_flop_formula  # noqa: E402
 
+from . import correlation as correlation_kernels  # noqa: E402
 from . import int8_kernels, memory_kernels  # noqa: E402
 
 NAMESPACE = "ammcnet"
@@ -171,6 +175,17 @@ def _(x, sx, skip=None, pool=False):
                        dtype=torch.int8)
 
 
+@torch.library.custom_op(f"{NAMESPACE}::correlation", mutates_args=())
+def _correlation(f1: Tensor, f2: Tensor, leaky: bool = False) -> Tensor:
+    return correlation_kernels.correlation(f1, f2, leaky)
+
+
+@_correlation.register_fake
+def _(f1, f2, leaky=False):
+    b, _, h, w = f1.shape
+    return f1.new_empty((b, correlation_kernels.DISPLACEMENTS, h, w))
+
+
 @register_flop_formula(torch.ops.ammcnet.quantize_topk)
 def _lookup_flop(flat_shape, embed_shape, *args, out_shape=None, **kwargs
                  ) -> int:
@@ -196,6 +211,13 @@ def _qconv_transpose_flop(x_shape, wk_shape, *args, out_shape=None,
                           **kwargs) -> int:
     n, h, w, cin = x_shape
     return 2 * n * h * w * cin * 4 * out_shape[-1]
+
+
+@register_flop_formula(torch.ops.ammcnet.correlation)
+def _correlation_flop(f1_shape, f2_shape, *args, out_shape=None, **kwargs
+                      ) -> int:
+    b, c, h, w = f1_shape
+    return 2 * b * correlation_kernels.DISPLACEMENTS * c * h * w
 
 
 profiling.add_setup("setup.ops", _T_SETUP)
@@ -240,3 +262,8 @@ def quantize_pack_int8(x: Tensor, sx: Tensor, skip: Optional[Tensor] = None,
     """``int8_kernels.quantize_pack_int8`` through
     ``ammcnet::quantize_pack_int8``."""
     return torch.ops.ammcnet.quantize_pack_int8(x, sx, skip, pool)
+
+
+def correlation(f1: Tensor, f2: Tensor, leaky: bool = False) -> Tensor:
+    """``correlation.correlation`` through ``ammcnet::correlation``."""
+    return torch.ops.ammcnet.correlation(f1, f2, leaky)

@@ -29,6 +29,10 @@ import pickle
 
 import torch
 
+# --flownet: the on-the-fly flow networks (models/flownet_sd.py:FlowNet2SD,
+# models/flownet2.py:FlowNet2)
+FLOWNETS = ("FlowNet2-SD", "FlowNet2")
+
 
 def parser_args(argv=None):
     p = argparse.ArgumentParser(description=__doc__)
@@ -95,10 +99,17 @@ def parser_args(argv=None):
                         "reproduces the reference bug for ckpt parity)")
     p.add_argument("--on_the_fly_flow", action="store_true",
                    help="extract optical flow on the device with "
-                        "FlowNet2-SD instead of reading flow files")
+                        "--flownet instead of reading flow files")
+    p.add_argument("--flownet", default="FlowNet2-SD",
+                   choices=FLOWNETS,
+                   help="the --on_the_fly_flow network: FlowNet2-SD (45.4 M "
+                        "parameters) or the whole FlowNet 2.0 (162.5 M, "
+                        "FlowNetC's correlation on the port's kernel), "
+                        "which made the released model's training flows")
     p.add_argument("--flownet_ckpt", default="",
-                   help="FlowNet2-SD torch .pth for --on_the_fly_flow "
-                        "(random weights if omitted: smoke only)")
+                   help="torch .pth of the --flownet network for "
+                        "--on_the_fly_flow, flownet2-pytorch's state-dict "
+                        "names (random weights if omitted: smoke only)")
     p.add_argument("--gray_upload", action="store_true",
                    help="with --on_the_fly_flow on a grayscale dataset "
                         "(ped2): upload one u8 channel a frame, broadcast "
@@ -173,21 +184,21 @@ def main(argv=None) -> dict:
     flow_extractor = None
     if args.on_the_fly_flow:
         from ..eval.infer import make_otf_flow_extractor
-        from ..models import init_flownet_weights
-        from ..models.flownet_sd import FlowNet2SD
+        from ..models import flownet2, flownet_sd, init_flownet_weights
 
-        flownet = FlowNet2SD()
+        flownet = (flownet2.FlowNet2() if args.flownet == "FlowNet2"
+                   else flownet_sd.FlowNet2SD())
         if args.flownet_ckpt:
             raw = torch.load(args.flownet_ckpt, map_location="cpu",
                              weights_only=True)
             if isinstance(raw, dict) and "state_dict" in raw:
                 raw = raw["state_dict"]
             flownet.load_state_dict(raw)
-            logger.info("loaded FlowNet2-SD from %s", args.flownet_ckpt)
+            logger.info("loaded %s from %s", args.flownet, args.flownet_ckpt)
         else:
             init_flownet_weights(flownet, torch.Generator().manual_seed(1))
             logger.warning("--on_the_fly_flow without --flownet_ckpt: "
-                           "random FlowNet weights (smoke only)")
+                           "random %s weights (smoke only)", args.flownet)
         flownet.to(device).eval().requires_grad_(False)
         flow_extractor = make_otf_flow_extractor(
             flownet, reproduce_flow_bug=not args.fix_flow_bug,

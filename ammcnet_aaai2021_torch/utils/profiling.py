@@ -34,6 +34,12 @@ The names, each at a layer boundary:
   (``train/loop.py``);
 * ``scorer.forward`` (``eval/export.py:ChunkScorer``), ``flow.extract``
   (``eval/infer.py:make_otf_flow_extractor``);
+* inside ``flow.extract`` with FlowNet 2.0 (``models/flownet2.py``):
+  ``flownet2.c``, ``.s1``, ``.s2``, ``.sd``, ``.fusion`` (each network's
+  forward), ``flownet2.warp`` (each of the four warp blocks) and
+  ``flownet2.correlation`` (the op's call, inside ``flownet2.c``); counters
+  ``flownet2.pairs`` and the correlation's routes
+  ``flownet2.correlation.kernel`` and ``.plain`` (``ops/correlation.py``);
 * ``setup.ops`` (set-up): ``ops/library.py``'s body and each kernel
   library's build or load (``ops/cuda_build.load``).
 """

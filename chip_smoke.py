@@ -67,7 +67,18 @@ Phases, one JSON line each; any failure exits non-zero:
    3x3 and transposed conv and 24 quantized inputs a forward on the int8
    kernels), and refuses to load for
    the CPU; the int8 records correlate >= 0.99 with the bf16 ones; sizes,
-   export and load seconds, and ms a chunk live and loaded;
+   export and load seconds, and ms a chunk live and loaded; then
+   ``flownet2_path``: FlowNet 2.0 (seeded weights, bf16) through the
+   extractor ``run_test --on_the_fly_flow --flownet FlowNet2
+   --gray_upload`` builds, over Ped2's first 4 lengths of 256x256 gray
+   frames padded to 192 (6 forwards a video at the network's 32 pairs,
+   the last 31): the correlation kernel launched once a forward and never
+   its plain version, every call's output held against the plain version
+   in float32 within the summation bound (``CORR_ROUNDING``), and the
+   kernel timed on a forward's real inputs at 32 and 31 pairs beside its
+   bound and the plain version, alone (on NCHW copies) and as the op the
+   path calls (``op_ms``: the maps arrive channels-last, and the wrapper
+   copies them to NCHW first);
 6. train check: one float32 training step of the released generator at
    256x256, batch 4, through the kernels and through plain PyTorch; then
    ``remat_check``: one bf16 step at full width with ``remat=False`` and
@@ -1376,6 +1387,160 @@ def int8_path_phase(torch, mk, tmp: str, main_run: dict) -> dict:
     emit("int8_path", **out)
     return {"run": out, "checks": rows, "totals": totals,
             "pack_checks": pack_rows, "pack_totals": pack_totals}
+
+
+# FlowNet 2.0's correlation kernel against its plain version: the products
+# of two bf16 values are exact in float32, so the two float32 sums over C
+# differ only in their order, each within C * 2^-24 of the sum of the
+# products' magnitudes (the float32 summation bound), and the outputs then
+# by one bf16 rounding, 2^-8 of the value (tests/test_torch_cuda.py)
+CORR_ROUNDING = 2.0 ** -8
+# FlowNet 2.0's extractor as the cell serves it: Ped2's first lengths,
+# padded to 192 frames
+FLOWNET2_VIDEOS, FLOWNET2_PAD = 4, 192
+
+
+def correlation_check(f1, f2, out, leaky: bool) -> dict:
+    """One correlation output against the plain version in float32 (before
+    its rounding to bf16), within the bound of ``CORR_ROUNDING``."""
+    from ammcnet_aaai2021_torch.ops import correlation as corr
+
+    a, b = f1.float(), f2.float()
+    want = corr.correlation_ref(a, b, leaky)
+    magnitude = corr.correlation_ref(a.abs(), b.abs())
+    allowed = (CORR_ROUNDING * want.abs()
+               + f1.shape[1] * 2.0 ** -24 * magnitude + 1e-30)
+    err = (out.float() - want).abs()
+    return {"max_abs_err": float(err.max()),
+            "share_of_rounding": float((err / allowed).max()),
+            "bitwise_share": float(
+                (out == corr.correlation_ref(f1, f2, leaky)).float().mean())}
+
+
+class CorrelationRecorder:
+    """Every correlation call of FlowNet 2.0's forwards, through the name
+    ``models/flownet2.py`` calls (``ops/library.py``'s registered op over
+    the kernel's wrapper): each output held against the plain version by
+    :func:`correlation_check`, a failure naming the call; the first call's
+    arguments at each batch size kept for timing."""
+
+    def __init__(self):
+        from ammcnet_aaai2021_torch.models import flownet2
+
+        self.module = flownet2
+        self.calls, self.kept = [], {}
+
+    def __enter__(self):
+        self.saved = self.module.correlation
+        self.module.correlation = self._call
+        return self
+
+    def __exit__(self, *exc):
+        self.module.correlation = self.saved
+
+    def _call(self, f1, f2, leaky=False):
+        out = self.saved(f1, f2, leaky)
+        check = correlation_check(f1, f2, out, leaky)
+        if check["share_of_rounding"] > 1:
+            fail(f"correlation call {len(self.calls)} on "
+                 f"{tuple(f1.shape)}: {check['max_abs_err']:.3g} off the "
+                 f"plain version, {check['share_of_rounding']:.3g} of the "
+                 f"summation bound")
+        self.calls.append({"batch": f1.shape[0], **check})
+        if f1.shape[0] not in self.kept:
+            self.kept[f1.shape[0]] = (f1.clone(), f2.clone(), leaky)
+        return out
+
+
+def correlation_bound(b: int, c: int, h: int, w: int) -> dict:
+    """The correlation's least time on (b, c, h, w) maps: both maps read
+    and the (b, 441, h, w) bf16 output written once, against its products
+    on the bf16 tensor cores (``benchmark/counts/flownet2.py``'s)."""
+    return bound(2 * b * c * h * w * 2 + b * 441 * h * w * 2,
+                 2 * 441 * c * h * w * b,
+                 f"2 maps x {b}x{c}x{h}x{w} x 2 B + {b}x441x{h}x{w} x 2 B",
+                 f"2 x 441 x {c} x {h} x {w} x {b}")
+
+
+def flownet2_path_phase(torch) -> dict:
+    """FlowNet 2.0 through the port's extractor on the card, every
+    correlation call checked (:class:`CorrelationRecorder`), the launches
+    counted from 0 at the wrapper, then the kernel timed on a forward's
+    real inputs at each batch size."""
+    from ammcnet_aaai2021_torch.eval.infer import make_otf_flow_extractor
+    from ammcnet_aaai2021_torch.models import FlowNet2, init_flownet_weights
+    from ammcnet_aaai2021_torch.ops import correlation as corr
+    from benchmark.counts import flownet2 as flow_counts
+
+    net = init_flownet_weights(FlowNet2(), torch.Generator().manual_seed(2))
+    net = net.to("cuda").eval().requires_grad_(False)
+    extract = make_otf_flow_extractor(net, pad_to=FLOWNET2_PAD, gray=True)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    lengths = PED2_TEST_LENGTHS[:FLOWNET2_VIDEOS]
+    videos = [torch.randint(0, 256, (t, IMAGE_SIZE, IMAGE_SIZE, 1),
+                            generator=g, device="cuda", dtype=torch.uint8)
+              for t in lengths]
+    pairs = FLOWNET2_PAD - 1
+    chunk = net.pairs_per_forward
+    ragged = pairs % chunk or chunk
+    forwards = len(lengths) * math.ceil(pairs / chunk)
+    corr.correlation.launches_by_route = dict.fromkeys(corr.ROUTES, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with CorrelationRecorder() as rec:
+        for video in videos:
+            _, flows = extract(video)
+            if (flows.shape != (pairs, IMAGE_SIZE, IMAGE_SIZE, 2)
+                    or not torch.isfinite(flows).all()):
+                fail(f"FlowNet 2.0 flows {tuple(flows.shape)}: want "
+                     f"({pairs}, {IMAGE_SIZE}, {IMAGE_SIZE}, 2), finite")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = dict(corr.correlation.launches_by_route)
+    if extract.forwards != forwards or routes != {"kernel": forwards,
+                                                  "plain": 0}:
+        fail(f"correlation launches {routes} over {extract.forwards} "
+             f"FlowNet 2.0 forwards: want one kernel launch a forward, "
+             f"{forwards}, and no plain call")
+    if len(rec.calls) != forwards or set(rec.kept) != {chunk, ragged}:
+        fail(f"{len(rec.calls)} correlation calls at batches "
+             f"{sorted(rec.kept)}: want {forwards} at {chunk} and "
+             f"{ragged}")
+    timed = {}
+    for b, (f1, f2, leaky) in sorted(rec.kept.items()):
+        row = correlation_bound(*f1.shape)
+        if not math.isclose(row["bound_ms"], 1e3 * flow_counts
+                            .correlation_bound_s(b, IMAGE_SIZE), rel_tol=1e-9):
+            fail(f"the correlation's bound at batch {b} differs from "
+                 f"benchmark/counts/flownet2.py's")
+        # cuDNN gives FlowNetC's conv3 maps channels-last, and the wrapper
+        # makes them NCHW before the launch: op_ms holds those two copies,
+        # kernel_ms (on NCHW copies of the same maps) the kernel alone
+        a, c = f1.contiguous(), f2.contiguous()
+        plain = [graph_ms(torch, lambda: corr.correlation_ref(f1, f2, leaky),
+                          calls=2, replays=2) for _ in range(2)]
+        kernel = [graph_ms(torch, lambda: corr.correlation(a, c, leaky))
+                  for _ in range(2)]
+        timed[b] = {**row, "kernel_ms": sum(kernel) / 2,
+                    "plain_ms": sum(plain) / 2,
+                    "timings_plain_plain_kernel_kernel_ms": plain + kernel,
+                    "op_ms": graph_ms(
+                        torch, lambda: corr.correlation(f1, f2, leaky)),
+                    "input_strides": list(f1.stride()),
+                    "kernel_eager_ms": time_ms(
+                        torch, lambda: corr.correlation(a, c, leaky))}
+        timed[b]["share_of_bound"] = timed[b]["bound_ms"] / timed[b][
+            "kernel_ms"]
+    out = {"videos": len(lengths), "pairs_a_video": pairs,
+           "pairs_a_forward": chunk, "ragged": ragged, "forwards": forwards,
+           "launches_by_route": routes, "wall_s": wall,
+           "max_abs_err": max(c["max_abs_err"] for c in rec.calls),
+           "max_share_of_rounding": max(c["share_of_rounding"]
+                                        for c in rec.calls),
+           "min_bitwise_share": min(c["bitwise_share"] for c in rec.calls),
+           "timed": timed}
+    emit("flownet2_path", **out)
+    return out
 
 
 def train_check_phase(torch, mk) -> dict:
@@ -4268,9 +4433,9 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     # the CUDA-core route of B1 and B2; their tensor-core route; the GPU
     # JPEG route (the host Huffman decode, the IDCT, colour and resize
-    # kernels); the int8 convolutions
+    # kernels); the int8 convolutions; FlowNet 2.0's correlation
     seconds = cuda_build.build(["quantize_topk", "quantize_topk_mma",
-                                "jpeg_decode", "int8_conv"])
+                                "jpeg_decode", "int8_conv", "correlation"])
     ptxas = [line.strip() for log in cuda_build.build_log.values()
              for line in log.splitlines()
              if "entry function" in line or "registers" in line
@@ -4296,6 +4461,9 @@ def main(argv=None) -> None:
         t0 = time.perf_counter()
         export = export_path_phase(torch, mk, tmp, main_run)
         new_phases_s = {"export_path": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        flownet2 = flownet2_path_phase(torch)
+        new_phases_s["flownet2_path"] = time.perf_counter() - t0
 
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -4360,6 +4528,8 @@ def main(argv=None) -> None:
             "cudnn_bf16_ms")} for name, row in int8["checks"].items()
             if row["kind"] == kind}
     conv3, conv2 = int8_row("3x3"), int8_row("2x2")
+    corr_full = flownet2["timed"][flownet2["pairs_a_forward"]]
+    corr_ragged = flownet2["timed"][flownet2["ragged"]]
 
     def family_launches(run, kernel):
         """The family path's launches of one kernel on its tensor-core
@@ -4600,6 +4770,28 @@ def main(argv=None) -> None:
               f"{int8['pack_totals']['windows']}-window forward, summed",
         "per_forward": int8["pack_totals"],
         "by_shape": int8["pack_checks"],
+    }, {
+        "name": "correlation",
+        "route": "cuda",
+        "source": "ammcnet_aaai2021_torch/csrc/correlation.cu",
+        "replaces": "flownet2-pytorch's correlation_package (FlowNetC); "
+                    "the JAX package has no FlowNet 2.0",
+        "launches": flownet2["launches_by_route"]["kernel"],
+        "launches_by_route": flownet2["launches_by_route"],
+        "launches_by_path": {"flownet2_path": flownet2[
+            "launches_by_route"]["kernel"]},
+        "max_abs_err": flownet2["max_abs_err"],
+        "max_share_of_rounding": flownet2["max_share_of_rounding"],
+        "min_bitwise_share": flownet2["min_bitwise_share"],
+        "ms": corr_full["kernel_ms"],
+        "at": f"({flownet2['pairs_a_forward']}, 256, 32, 32) bf16: one "
+              f"FlowNet 2.0 forward's conv3 maps at 256x256",
+        **{key: corr_full[key] for key in (
+            "kernel_ms", "kernel_eager_ms", "op_ms", "input_strides",
+            "plain_ms", "bound_ms", "bound_by")},
+        "library_ms": None,
+        "at_ragged": {key: corr_ragged[key] for key in (
+            "kernel_ms", "op_ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
         "name": "ycc_to_rgb_u8",
         "route": "cuda",

@@ -30,6 +30,14 @@ its plain pipeline reads them.
 The registered ops (``ops/library.py``) launch their kernels, counted, and
 return the wrappers' outputs bitwise; a scorer exported on the card runs
 B1 inside the loaded graph, equals the live scorer and refuses the CPU.
+FlowNet 2.0's correlation kernel is held against its plain version at the
+published shape (16, 256, 32, 32), at a ragged batch and at narrow maps:
+the products of two bf16 values are exact in float32, so the kernel's and
+the plain version's float32 sums differ only in their order, each within
+C * 2^-24 of the sum of the products' magnitudes over C (the float32
+summation bound), and then one bf16 rounding (2^-8 of the value) apart.
+One FlowNet 2.0 forward launches it once, and ``torch.export`` of the
+network on the card holds one ``ammcnet::correlation`` node that runs it.
 
 Near-ties: the kernel and the plain version sum the same fp32 products in
 another order (B1's tensor-core route sums three bf16 split products), so a
@@ -62,6 +70,7 @@ from ammcnet_aaai2021_torch.models import (
     init_flownet_weights,
     init_weights,
 )
+from ammcnet_aaai2021_torch.ops import correlation as corr_ops
 from ammcnet_aaai2021_torch.ops import int8_kernels as ik
 from ammcnet_aaai2021_torch.ops import memory_kernels
 from ammcnet_aaai2021_torch.ops.memory import Codebook, quantize_topk
@@ -1408,3 +1417,73 @@ def test_cuda_artifact_runs_b1_inside_and_refuses_the_cpu(cuda_device,
     assert torch.equal(got, want)
     with pytest.raises(ValueError, match="cannot serve on"):
         load_scorer(path, device="cpu")
+
+
+def _correlation_bound(f1, f2, leaky):
+    """The plain float32 correlation (before its bf16 rounding) and the
+    kernel's allowed gap from it (the module's note)."""
+    want = corr_ops.correlation_ref(f1.float(), f2.float(), leaky)
+    mag = corr_ops.correlation_ref(f1.float().abs(), f2.float().abs())
+    c = f1.shape[1]
+    return want, 2.0 ** -8 * want.abs() + c * 2.0 ** -24 * mag + 1e-30
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape, leaky", [((16, 256, 32, 32), True),
+                                          ((15, 256, 32, 32), True),
+                                          ((16, 256, 32, 32), False),
+                                          ((3, 64, 8, 24), True),
+                                          ((2, 128, 16, 64), False)])
+def test_correlation_kernel_matches_plain_version(cuda_device, shape, leaky):
+    g = torch.Generator(device=cuda_device).manual_seed(sum(shape))
+    f1 = torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    f2 = torch.randn(shape, generator=g, device=cuda_device).to(torch.bfloat16)
+    before = corr_ops.correlation.launches_by_route["kernel"]
+    got = corr_ops.correlation(f1, f2, leaky)
+    torch.cuda.synchronize()
+    assert corr_ops.correlation.launches_by_route["kernel"] == before + 1
+    assert got.shape == (shape[0], 441, *shape[2:])
+    assert got.dtype == torch.bfloat16
+    want, gap = _correlation_bound(f1, f2, leaky)
+    assert ((got.float() - want).abs() <= gap).all()
+    # the displacements outside the map are exact zeros
+    b, c, h, w = shape
+    assert not got[:, 0, :20 if h > 20 else h].any()
+    plain = corr_ops.correlation_ref(f1, f2, leaky)
+    assert (got == plain).float().mean() > 0.99
+
+
+@pytest.mark.cuda
+def test_flownet2_forward_launches_the_correlation_once(cuda_device,
+                                                         tmp_path):
+    from ammcnet_aaai2021_torch.models import FlowNet2, init_flownet_weights
+
+    from ammcnet_aaai2021_torch.utils import profiling
+
+    net = init_flownet_weights(FlowNet2(), torch.Generator().manual_seed(4))
+    net = net.to(cuda_device).eval()
+    frames = torch.rand(2, 3, 2, 64, 64, device=cuda_device) * 255
+    routes = dict(corr_ops.correlation.launches_by_route)
+    with torch.no_grad(), profiling.device_trace(str(tmp_path)):
+        flow = net(frames)
+        torch.cuda.synchronize()
+    assert corr_ops.correlation.launches_by_route == {
+        "kernel": routes["kernel"] + 1, "plain": routes["plain"]}
+    assert profiling.counts() == {"flownet2.pairs": 2,
+                                  "flownet2.correlation.kernel": 1}
+    spans = profiling.summary()
+    assert all(spans[name]["calls"] == n for name, n in (
+        ("flownet2.c", 1), ("flownet2.correlation", 1), ("flownet2.s1", 1),
+        ("flownet2.s2", 1), ("flownet2.sd", 1), ("flownet2.fusion", 1),
+        ("flownet2.warp", 4)))
+    assert flow.shape == (2, 2, 64, 64) and torch.isfinite(flow).all()
+    exported = torch.export.export(net, (frames,))
+    targets = [n.target for n in exported.graph.nodes
+               if n.op == "call_function"]
+    assert targets.count(torch.ops.ammcnet.correlation.default) == 1
+    with torch.no_grad():
+        again = exported.module()(frames)
+        torch.cuda.synchronize()
+    assert corr_ops.correlation.launches_by_route["kernel"] == \
+        routes["kernel"] + 2
+    assert torch.equal(again, flow)
