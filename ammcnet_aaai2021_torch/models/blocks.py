@@ -1,10 +1,21 @@
-"""UNet building blocks (NCHW).
+"""UNet building blocks, in the memory layout of their input.
 
 Port of ``ammcnet_aaai2021_tpu/models/blocks.py`` (reference
 ``Code/models/unet.py:8-84``: double_conv / inconv / down / up / UNet).
 Parameters stay float32; the convolutions run in the dtype of their input,
 as the JAX modules run in their ``dtype`` with float32 params.  BatchNorm (eps 1e-5)
 keeps its statistics in float32.
+
+Shapes are NCHW; the layout in memory follows the input.  A channels-last
+(NHWC-strided, :func:`is_channels_last`) input gets its convolution weight
+cast to channels-last in the same copy as to the input's dtype, so cuDNN
+runs its NHWC kernels with no transpose around them, and the pooling,
+padding, concatenation, BatchNorm and ReLU after it keep the layout.  The
+memory-augmented generators (``unet_mem.py``) enter channels-last on a CUDA
+device (:func:`to_compute`, which also pads the input's channels to a
+multiple of 8 with zeros); every other network here is fed NCHW and runs
+NCHW.  Each convolution's call counts ``conv.layout.nhwc`` or
+``conv.layout.nchw`` while a profiler runs (``utils/profiling.py``).
 
 BatchNorm in training mode follows flax, not ``torch.nn.BatchNorm2d``
 (:class:`BatchNorm2d`): both normalize with the biased batch variance, but
@@ -38,6 +49,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..parallel.multihost import all_reduce_sum
+from ..utils import profiling
 
 
 class _BufferUpdates:
@@ -97,20 +109,75 @@ def recomputing() -> Iterator[None]:
         _UPDATES.recomputing = saved
 
 
+def is_channels_last(x: torch.Tensor) -> bool:
+    """Whether ``x`` is NHWC-strided (``torch.channels_last``) and not
+    NCHW-contiguous too, as a tensor of one channel or one pixel is."""
+    return (x.is_contiguous(memory_format=torch.channels_last)
+            and not x.is_contiguous())
+
+
+# cuDNN's NHWC bf16 tensor-core convolutions read channels in multiples of 8
+# (16 bytes); a Ped2 stream input's 12 or 6 channels take a slow fallback
+CHANNEL_ALIGN = 8
+
+
+def to_compute(x: torch.Tensor,
+               dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``x`` in ``dtype`` (its own when None), in one copy (none where
+    nothing changes).  On a CUDA device, or for a channels-last ``x``, the
+    copy is channels-last with zero channels added up to a multiple of
+    :data:`CHANNEL_ALIGN`, which :class:`Conv2d` meets with zero weights
+    (exact).  An NCHW ``x`` on the CPU keeps its layout: oneDNN's NHWC
+    kernels sum in another order than the NCHW ones that the float32 parity
+    with the JAX package is held to."""
+    dtype = x.dtype if dtype is None else dtype
+    if not (x.is_cuda or is_channels_last(x)):
+        return x.to(dtype)
+    n, c, h, w = x.shape
+    pad = -c % CHANNEL_ALIGN
+    if not pad:
+        return x.to(dtype, memory_format=torch.channels_last)
+    out = torch.empty((n, c + pad, h, w), dtype=dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    out[:, c:].zero_()
+    out[:, :c].copy_(x)
+    return out
+
+
+def _conv_weight(weight: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``weight`` cast to ``x``'s dtype, and to channels-last where ``x`` is
+    (cuDNN then transposes neither); the call is counted by ``x``'s
+    layout."""
+    if is_channels_last(x):
+        profiling.count("conv.layout.nhwc")
+        return weight.to(x.dtype, memory_format=torch.channels_last)
+    profiling.count("conv.layout.nchw")
+    return weight.to(x.dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """Conv2d whose float32 parameters are cast to the input's dtype."""
+    """Conv2d whose float32 parameters are cast to the input's dtype, the
+    weight to its layout too.  A channels-last input that
+    :func:`to_compute` padded with zero channels up to a multiple of
+    :data:`CHANNEL_ALIGN` meets zero weight columns."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), bias)
+        weight = self.weight
+        aligned = self.in_channels + -self.in_channels % CHANNEL_ALIGN
+        if (x.shape[1] == aligned > self.in_channels and self.groups == 1
+                and is_channels_last(x)):
+            weight = F.pad(weight, (0, 0, 0, 0, 0, aligned - self.in_channels))
+        return self._conv_forward(x, _conv_weight(weight, x), bias)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
-    """ConvTranspose2d whose float32 parameters are cast to the input's dtype."""
+    """ConvTranspose2d whose float32 parameters are cast to the input's
+    dtype, the weight to its layout too."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         bias = None if self.bias is None else self.bias.to(x.dtype)
-        return F.conv_transpose2d(x, self.weight.to(x.dtype), bias,
+        return F.conv_transpose2d(x, _conv_weight(self.weight, x), bias,
                                   self.stride, self.padding,
                                   self.output_padding, self.groups,
                                   self.dilation)

@@ -1,4 +1,4 @@
-"""Memory blocks around the functional memory op (NCHW).
+"""Memory blocks around the functional memory op (NCHW shapes, either layout).
 
 Port of ``ammcnet_aaai2021_tpu/models/memory_module.py`` (reference
 ``Code/models/unet.py:267-331,379-387``, ``Quantize_topk`` /
@@ -22,16 +22,18 @@ import torch
 import torch.nn as nn
 
 from ..ops.memory import Codebook, quantize_topk
-from .blocks import Conv2d, is_recomputing, write_buffers
+from .blocks import Conv2d, is_channels_last, is_recomputing, write_buffers
 
 
 class TopKMemory(nn.Module):
     """The quantizer (reference Quantize_topk, unet.py:267-313; with
     ``st_mode="topk"`` the VQ-VAE family's, vqvae.py:283-319, see
-    :func:`~..ops.memory.quantize_topk`).  Takes and returns NCHW; the op
-    itself runs channel-last.  In training mode the lookup reads the
-    codebook as it was before the forward, and the EMA update is then
-    written into the buffers under ``no_grad``.  ``group`` (None by
+    :func:`~..ops.memory.quantize_topk`).  Takes and returns NCHW shapes;
+    the op itself runs channel-last, so a channels-last input goes to it
+    without a copy, and ``q_topk`` comes back in the input's layout.  In
+    training mode the lookup reads the codebook as it was before the
+    forward, and the EMA update is then written into the buffers under
+    ``no_grad``.  ``group`` (None by
     default; set by ``models.set_process_group``): the EMA statistics are
     summed over this process group's ranks first."""
 
@@ -67,8 +69,10 @@ class TopKMemory(nn.Module):
             write_buffers(((self.embed, new_cb.embed),
                            (self.cluster_size, new_cb.cluster_size),
                            (self.embed_avg, new_cb.embed_avg)))
-        return (q_topk.permute(0, 3, 1, 2).contiguous(), diff,
-                q_st.permute(0, 3, 1, 2))
+        layout = (torch.channels_last if is_channels_last(z)
+                  else torch.contiguous_format)
+        return (q_topk.permute(0, 3, 1, 2).contiguous(memory_format=layout),
+                diff, q_st.permute(0, 3, 1, 2))
 
 
 class EncQuanDecTopK(nn.Module):

@@ -1,4 +1,4 @@
-"""Memory-augmented UNet streams and the two-stream AMMC generator (NCHW).
+"""Memory-augmented UNet streams and the two-stream AMMC generator.
 
 Port of ``ammcnet_aaai2021_tpu/models/unet_mem.py``:
 
@@ -21,7 +21,11 @@ Port of ``ammcnet_aaai2021_tpu/models/unet_mem.py``:
 Inputs are channel-stacked clips ``(b, t*c, h, w)``; the generator casts
 them to its compute ``dtype`` (parameters and codebook stay float32) and
 returns float32 tanh frames plus per-stream commit distances and
-straight-through codes.
+straight-through codes.  On a CUDA device a stream runs channels-last
+between the two (``blocks.to_compute``, in the cast's one copy): every
+convolution, BatchNorm, pool and skip concatenation of the stream, and its
+memory block, in NHWC memory, which cuDNN's kernels read without
+transposing.  The predictions leave NCHW-contiguous, in the cast to float32.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn as nn
 
-from .blocks import Conv2d, DoubleConv, Down, InConv, Up
+from .blocks import Conv2d, DoubleConv, Down, InConv, Up, to_compute
 from .memory_module import EncQuanDecResTopK, EncQuanDecTopK
 
 
@@ -64,8 +68,10 @@ class UNetMemStream(nn.Module):
         self.up3 = Up(128, 64)
         self.outc = Conv2d(64, out_channels, 3, padding=1)
 
-    def encode(self, x: torch.Tensor):
-        x1 = self.inc(x)
+    def encode(self, x: torch.Tensor, dtype: Optional[torch.dtype] = None):
+        """The four levels' outputs, from ``x`` cast to ``dtype`` (its own
+        when None), channels-last on a CUDA device."""
+        x1 = self.inc(to_compute(x, dtype))
         x2 = self.down1(x1)
         x3 = self.down2(x2)
         x4 = self.down3(x3)
@@ -79,13 +85,12 @@ class UNetMemStream(nn.Module):
         y = self.up1(x4, x3)
         y = self.up2(y, x2)
         y = self.up3(y, x1)
-        return torch.tanh(self.outc(y).float())
+        return torch.tanh(self.outc(y).to(torch.float32,
+                                          memory_format=torch.contiguous_format))
 
     def forward(self, x: torch.Tensor
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        x1, x2, x3, x4 = self.encode(x)
+        x1, x2, x3, x4 = self.encode(x, self.dtype)
         x4, diff, q_st = self.memory(x4)
         return self.decode(x4, (x1, x2, x3)), diff, q_st
 
@@ -106,9 +111,7 @@ class UNetMemV4(UNetMemStream):
                                           use_kernel, per_sample_diff)
 
     def forward(self, x: torch.Tensor):
-        if self.dtype is not None:
-            x = x.to(self.dtype)
-        x1 = self.inc(x)
+        x1 = self.inc(to_compute(x, self.dtype))
         x2 = self.down1(x1)
         x3, diff_3, code_3 = self.vq_down2(self.down2(x2))
         x4, diff_4, code_4 = self.vq_down3(self.down3(x3))
@@ -187,9 +190,9 @@ class TwoStreamUNetMem(nn.Module):
     def forward(self, rgb_x: torch.Tensor, op_x: torch.Tensor):
         # the JAX forward's order: rgb encode -> rgb memory -> op encode ->
         # op memory -> bridge -> decoders
-        r1, r2, r3, r4 = self.rgb.encode(rgb_x.to(self.dtype))
+        r1, r2, r3, r4 = self.rgb.encode(rgb_x, self.dtype)
         r4, rgb_diff, rgb_code = self.rgb.memory(r4)
-        o1, o2, o3, o4 = self.op.encode(op_x.to(self.dtype))
+        o1, o2, o3, o4 = self.op.encode(op_x, self.dtype)
         o4, op_diff, op_code = self.op.memory(o4)
         r4, o4 = self.bridge(r4, o4)
         rgb_pred = self.rgb.decode(r4, (r1, r2, r3))

@@ -40,6 +40,10 @@ The names, each at a layer boundary:
   ``flownet2.correlation`` (the op's call, inside ``flownet2.c``); counters
   ``flownet2.pairs`` and the correlation's routes
   ``flownet2.correlation.kernel`` and ``.plain`` (``ops/correlation.py``);
+* counters ``conv.layout.nhwc`` and ``conv.layout.nchw``
+  (``models/blocks.py``): each ``Conv2d`` / ``ConvTranspose2d`` call, by
+  its input's memory layout (the generator's channels-last on the card,
+  FlowNet's and the discriminator's NCHW);
 * ``setup.ops`` (set-up): ``ops/library.py``'s body and each kernel
   library's build or load (``ops/cuda_build.load``).
 """

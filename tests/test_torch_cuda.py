@@ -38,6 +38,10 @@ C * 2^-24 of the sum of the products' magnitudes over C (the float32
 summation bound), and then one bf16 rounding (2^-8 of the value) apart.
 One FlowNet 2.0 forward launches it once, and ``torch.export`` of the
 network on the card holds one ``ammcnet::correlation`` node that runs it.
+The bf16 generator runs channels-last on the card: in eval mode and in a
+train-mode forward and backward no cuDNN layout transpose runs, every
+convolution counts ``conv.layout.nhwc``, and each window's commit distance
+stays within the bf16 scoring cell's limits of the float32 generator's.
 
 Near-ties: the kernel and the plain version sum the same fp32 products in
 another order (B1's tensor-core route sums three bf16 split products), so a
@@ -64,6 +68,8 @@ from ammcnet_aaai2021_torch.data.kernel_sweeps import (
 )
 from ammcnet_aaai2021_torch.models import (
     BatchNorm2d,
+    Conv2d,
+    ConvTranspose2d,
     TopKMemory,
     build_generator,
     build_model,
@@ -1464,13 +1470,19 @@ def test_flownet2_forward_launches_the_correlation_once(cuda_device,
     net = net.to(cuda_device).eval()
     frames = torch.rand(2, 3, 2, 64, 64, device=cuda_device) * 255
     routes = dict(corr_ops.correlation.launches_by_route)
+    convs = []
+    for m in net.modules():
+        if isinstance(m, (Conv2d, ConvTranspose2d)):
+            m.register_forward_hook(lambda *args: convs.append(1))
     with torch.no_grad(), profiling.device_trace(str(tmp_path)):
         flow = net(frames)
         torch.cuda.synchronize()
     assert corr_ops.correlation.launches_by_route == {
         "kernel": routes["kernel"] + 1, "plain": routes["plain"]}
+    # fed NCHW, FlowNet 2.0 runs NCHW
     assert profiling.counts() == {"flownet2.pairs": 2,
-                                  "flownet2.correlation.kernel": 1}
+                                  "flownet2.correlation.kernel": 1,
+                                  "conv.layout.nchw": len(convs)}
     spans = profiling.summary()
     assert all(spans[name]["calls"] == n for name, n in (
         ("flownet2.c", 1), ("flownet2.correlation", 1), ("flownet2.s1", 1),
@@ -1487,3 +1499,57 @@ def test_flownet2_forward_launches_the_correlation_once(cuda_device,
     assert corr_ops.correlation.launches_by_route["kernel"] == \
         routes["kernel"] + 2
     assert torch.equal(again, flow)
+
+
+# the bf16 scoring cell's limits on a window's commit distance against the
+# float32 reference, relative (benchmark/limits/score.ped2.bf16.otf.json)
+COMMIT_GAP = {"rgb": 0.004, "op": 0.0012}
+LAYOUT_TRANSPOSES = ("nchwtonhwc", "nhwctonchw")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("train", [False, True])
+def test_bf16_generator_runs_without_layout_transposes(cuda_device, train):
+    """The released bf16 generator on 256x256 windows (8 in eval mode; 4 in
+    a stage-2 step's train-mode forward and backward) under
+    ``torch.profiler``: no cuDNN ``nchwToNhwc`` / ``nhwcToNchw`` kernel runs,
+    all 44 convolutions count channels-last, the predictions leave float32
+    NCHW-contiguous, and each window's commit distance lies within
+    ``COMMIT_GAP`` of the float32 generator's (TF32 off) on the same
+    weights."""
+    from ammcnet_aaai2021_torch.utils import profiling
+
+    nets = {dtype: init_weights(
+        build_generator(NetConfig(dtype=dtype), per_sample_diff=True),
+        torch.Generator().manual_seed(3)).to(cuda_device).train(train)
+        for dtype in ("float32", "bfloat16")}
+    g = torch.Generator(device=cuda_device).manual_seed(22)
+    b = 4 if train else 8
+    rgb = torch.rand(b, 12, 256, 256, device=cuda_device, generator=g) * 2 - 1
+    op = torch.randn(b, 6, 256, 256, device=cuda_device, generator=g)
+    with torch.no_grad():
+        want = nets["float32"](rgb, op)
+    profiling.reset()
+    activities = [torch.profiler.ProfilerActivity.CPU,
+                  torch.profiler.ProfilerActivity.CUDA]
+    with torch.set_grad_enabled(train), \
+            torch.profiler.profile(activities=activities) as prof:
+        got = nets["bfloat16"](rgb, op)
+        if train:
+            (got[0].mean() + got[1].mean() + sum(d.mean() for d in got[2])
+             ).backward()
+        torch.cuda.synchronize()
+    counts = profiling.counts()
+    profiling.reset()
+    kernels = {e.key for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA}
+    assert kernels, "the profiler saw no kernel on the card"
+    assert not [k for k in kernels
+                if any(t in k.lower() for t in LAYOUT_TRANSPOSES)]
+    assert counts == {"conv.layout.nhwc": 44}
+    for pred in got[:2]:
+        assert pred.dtype == torch.float32 and pred.is_contiguous()
+    for i, stream in enumerate(("rgb", "op")):
+        gap = ((got[2][i].float() - want[2][i]).abs()
+               / want[2][i].abs()).max().item()
+        assert gap <= COMMIT_GAP[stream], (stream, gap)

@@ -57,7 +57,8 @@ BENCHMARK_SPANS = ("segment", "upload", "extract", "score", "fetch", "step",
                    "psnr", "loop")
 PORT_NAMES = (("int8.quantize", "train_step", "train_loop.start",
                "train_loop.data_wait", "train_loop.fetch", "train_loop.stop",
-               "scorer.forward", "flow.extract", "setup.ops")
+               "scorer.forward", "flow.extract", "setup.ops",
+               "conv.layout.nhwc", "conv.layout.nchw")
               + PHASES + INPUTS + PACKS)
 
 
